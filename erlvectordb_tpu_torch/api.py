@@ -1,0 +1,136 @@
+"""Public API facade — the store verbs of the JAX package's ``Database``.
+
+One :class:`Database` wires the store registry, the OAuth server and the
+query batcher together on one ``torch.device``; the MCP server calls
+through it.  Persistence, backup, indexes, the cluster layer and
+compression are not ported yet: a configuration that enables persistence
+is refused with ``ConfigError`` rather than silently run without
+durability.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
+
+from erlvectordb_tpu_torch.core.registry import StoreNotFound, StoreRegistry
+from erlvectordb_tpu_torch.core.store import VectorStore, default_device
+from erlvectordb_tpu_torch.infra.config import Config, ConfigError, load_config
+from erlvectordb_tpu_torch.serve.batcher import QueryBatcher
+from erlvectordb_tpu_torch.serve.oauth import OAuthServer
+
+
+class Database:
+    """A running erlvectordb instance on one device (CUDA when present)."""
+
+    def __init__(self, config: Optional[Config] = None,
+                 device: Optional[torch.device] = None):
+        self.config = config or load_config()
+        if self.config.persistence_enabled:
+            raise ConfigError(
+                "persistence_enabled=True needs the snapshot layer "
+                "(erlvectordb_tpu/persist/snapshot.py), which is not yet "
+                "ported to erlvectordb_tpu_torch; set persistence_enabled="
+                "False")
+        self.device = torch.device(device) if device is not None else default_device()
+        self.registry = StoreRegistry(self.device)
+        self.oauth = OAuthServer(
+            enabled=self.config.oauth_enabled,
+            access_lifetime=self.config.access_token_lifetime,
+            refresh_lifetime=self.config.refresh_token_lifetime,
+            default_client=(
+                self.config.default_client_id,
+                self.config.default_client_secret,
+                ["read", "write", "admin"],
+            ),
+        )
+        self.batcher = QueryBatcher(self.any_store)
+        self._lock = threading.RLock()
+        self._started = False
+
+    # ------------------------------------------------------------ lifecycle
+
+    def start(self) -> "Database":
+        with self._lock:
+            if self._started:
+                return self
+            self.batcher.start()
+            if self.config.warmup_on_start:
+                self.warmup()
+            self._started = True
+            return self
+
+    def stop(self) -> None:
+        with self._lock:
+            self.batcher.stop()
+            self._started = False
+
+    # ------------------------------------------------------------ store ops
+
+    def create_store(self, name: str, dim: Optional[int] = None,
+                     metric: str = "cosine", dtype: str = "float32",
+                     intkey: bool = False) -> dict:
+        store = self.registry.create(name, dim=dim, metric=metric,
+                                     dtype=dtype, intkey=intkey)
+        return store.get_stats()
+
+    def delete_store(self, name: str) -> bool:
+        return self.registry.drop(name)
+
+    def list_stores(self) -> List[str]:
+        return self.registry.list()
+
+    def get_store(self, name: str) -> VectorStore:
+        return self.registry.get(name)
+
+    def insert(self, store: str, vector_id: str, vector,
+               metadata: Optional[dict] = None) -> None:
+        self.any_store(store).insert(vector_id, vector, metadata)
+
+    def insert_batch(self, store: str, ids: Sequence[str], vectors,
+                     metadatas: Optional[Sequence[Optional[dict]]] = None) -> None:
+        self.any_store(store).insert_batch(ids, vectors, metadatas)
+
+    def search(self, store: str, query, k: int = 10,
+               metric: Optional[str] = None) -> List[Tuple[str, Any, float]]:
+        return self.any_store(store).search(query, k=k, metric=metric)
+
+    def search_batch(self, store: str, queries, k: int = 10,
+                     metric: Optional[str] = None):
+        return self.any_store(store).search_batch(queries, k=k, metric=metric)
+
+    def delete(self, store: str, vector_id: str) -> bool:
+        return self.any_store(store).delete(vector_id)
+
+    def get_stats(self, store: str) -> dict:
+        return self.any_store(store).get_stats()
+
+    def get_all_vectors(self, store: str):
+        return self.any_store(store).get_all_vectors()
+
+    def warmup(self, store: Optional[str] = None) -> int:
+        """Run each store's search path once (kernel build included)."""
+        names = [store] if store else self.list_stores()
+        return sum(self.registry.get(name).warmup() for name in names)
+
+    def any_store(self, name: str) -> VectorStore:
+        """A store by name (search/insert routing for the frontends)."""
+        local = self.registry.get_or_none(name)
+        if local is None:
+            raise StoreNotFound(f"store {name!r} not found")
+        return local
+
+    # ---------------------------------------------------------------- oauth
+
+    def register_oauth_client(self, client_id: str, secret: str,
+                              scopes: Optional[List[str]] = None) -> dict:
+        return self.oauth.register_client(client_id, secret, scopes)
+
+    def get_access_token(self, client_id: str, secret: str,
+                         scopes: Optional[List[str]] = None) -> dict:
+        return self.oauth.grant_client_credentials(client_id, secret, scopes)
+
+    def validate_token(self, token: str):
+        return self.oauth.validate_token(token)

@@ -1,0 +1,93 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu) with nvcc + ctypes.
+
+The sources are compiled at first use into a plain-C shared library for
+``sm_90a`` (Hopper) under ``build/erlvectordb_tpu_torch/<hash>/`` beside the
+package, keyed by a hash of the sources and flags so an edited kernel is
+never served from a stale build.  Nothing here runs at import: the CPU test
+suite imports every module and has no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("fused_topk.cu",)
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "erlvectordb_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argtypes (every function returns cudaGetLastError())
+_SIGNATURES = {
+    "evdb_intkey_scan": [_P, _P, _I, _I, _I, _P, _P],
+    "evdb_l2key_scan": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "evdb_pos_scan_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "evdb_pos_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "evdb_fused_scan_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_fused_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_info: dict = {}  # seconds, path and the compiler's -Xptxas -v report
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first call (one build per process and
+    source hash; concurrent builds race to an atomic rename)."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for name in SOURCES:
+            digest.update((CSRC / name).read_bytes())
+        out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+        so = out_dir / "libevdb_kernels.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not so.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *[str(CSRC / s) for s in SOURCES]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        build_info.update(seconds=time.perf_counter() - t0, path=str(so),
+                          log=log)
+        _lib = lib
+        return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a refused or failed launch (the entry points return
+    cudaGetLastError(); 0 is cudaSuccess)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -1,0 +1,331 @@
+"""MCP tool schemas and dispatch — scope-gated, with the reference bug fixed.
+
+The reference advertises 7 tools (src/mcp_server.erl:221-318) but its
+dispatcher is broken: the ``create_store`` clause actually performs an
+*insert* (reads store/id/vector args, :320-332) and there is no
+``insert_vector`` clause at all, so insert_vector falls through to "Unknown
+tool" (:398-399; independently documented in INTEGRATION_TEST_RESULTS.md
+"Parameter Schema Mismatch").  Here each tool does what its schema says.
+
+The table lists only the tools this package serves (persistence, backup,
+indexes and multiprobe search are not ported yet); the JSON shapes of the
+answers are the JAX package's.
+
+Scope matrix (reference check_tool_permission :414-427):
+  read  — search_vectors, search_vectors_batch, get_store_stats, list_stores
+  write — create_store, insert_vector, delete_vector
+"""
+
+from __future__ import annotations
+
+import base64
+import binascii
+from typing import TYPE_CHECKING, Any, Dict, List, Set
+
+import numpy as np
+
+if TYPE_CHECKING:  # avoid circular import: api.py imports serve.oauth
+    from erlvectordb_tpu_torch.api import Database
+
+
+class ToolError(ValueError):
+    """Domain error in a tool call (ValueError so every protocol surface
+    maps it to its 400-class response)."""
+
+
+def decode_query(args: Dict[str, Any]):
+    """Query vector from tool args: ``vector`` (JSON number array) or
+    ``vector_b64`` (base64 little-endian float32 — ~5x cheaper to parse,
+    the production serving encoding)."""
+    if "vector" in args:
+        return args["vector"]
+    b64 = args.get("vector_b64")
+    if b64 is None:
+        raise ToolError("one of 'vector' or 'vector_b64' is required")
+    try:
+        return np.frombuffer(base64.b64decode(b64), dtype="<f4")
+    except (binascii.Error, ValueError) as e:
+        raise ToolError(f"bad vector_b64: {e}") from e
+
+
+def decode_queries(args: Dict[str, Any]) -> np.ndarray:
+    """[B, D] query matrix from batch tool args: ``vectors`` (array of
+    arrays) or ``vectors_b64`` (base64 f32, row-major) + ``dim``."""
+    if "vectors" in args:
+        arr = np.asarray(args["vectors"], dtype=np.float32)
+        if arr.ndim != 2:
+            raise ToolError("'vectors' must be a non-ragged array of arrays")
+        return arr
+    b64 = args.get("vectors_b64")
+    if b64 is None:
+        raise ToolError("one of 'vectors' or 'vectors_b64' is required")
+    dim = args.get("dim")
+    if not dim:
+        raise ToolError("'dim' is required with 'vectors_b64'")
+    try:
+        flat = np.frombuffer(base64.b64decode(b64), dtype="<f4")
+    except (binascii.Error, ValueError) as e:
+        raise ToolError(f"bad vectors_b64: {e}") from e
+    if flat.size == 0 or flat.size % int(dim):
+        raise ToolError("vectors_b64 length is not a multiple of dim")
+    return flat.reshape(-1, int(dim))
+
+
+def format_hits(hits) -> dict:
+    return {
+        "results": [
+            {"id": vid, "metadata": meta, "distance": dist}
+            for vid, meta, dist in hits
+        ]
+    }
+
+
+def format_batch(results) -> dict:
+    """Full per-hit batch results (id + metadata + distance)."""
+    return {"results": [format_hits(hits)["results"] for hits in results]}
+
+
+def format_batch_columns(cols) -> dict:
+    """Compact JSON from raw result columns: parallel ids/distances arrays,
+    no metadata, no per-hit tuples — cheap to encode at high QPS."""
+    import math
+
+    dists, _rows, ids = cols
+    if ids is None or dists.size == 0:
+        empty = [[] for _ in range(dists.shape[0])]
+        return {"ids": empty, "distances": [list(r) for r in empty]}
+    finite = np.isfinite(dists)
+    if finite.all() and not (ids == None).any():  # noqa: E711 — elementwise
+        return {"ids": ids.tolist(),
+                "distances": np.round(dists.astype(np.float64), 6).tolist()}
+    out_i, out_d = [], []
+    for irow, drow in zip(ids.tolist(), dists.tolist()):
+        ri, rd = [], []
+        for vid, d in zip(irow, drow):
+            if not math.isfinite(d):
+                break
+            if vid is None:
+                continue
+            ri.append(vid)
+            rd.append(round(d, 6))
+        out_i.append(ri)
+        out_d.append(rd)
+    return {"ids": out_i, "distances": out_d}
+
+
+def format_batch_b64(cols) -> dict:
+    """Binary columnar batch results: little-endian f32 distances and int32
+    row indices, base64'd.  Near-zero host encode cost — the production
+    bulk-serving format.  Row index == implicit id for bulk-built stores
+    (ids '0'..'n-1'); absent hits carry distance inf."""
+    dists, rows, _ids = cols
+    return {
+        "count": int(dists.shape[0]),
+        "k": int(dists.shape[1]),
+        "distances_b64": base64.b64encode(
+            np.ascontiguousarray(dists, dtype="<f4").tobytes()).decode(),
+        "rows_b64": base64.b64encode(
+            np.ascontiguousarray(rows, dtype="<i4").tobytes()).decode(),
+    }
+
+
+def _schema(name: str, description: str, scope: str, properties: dict,
+            required: List[str]) -> dict:
+    return {
+        "name": name,
+        "description": description,
+        "inputSchema": {
+            "type": "object",
+            "properties": properties,
+            "required": required,
+        },
+        # carried internally for scope checks; stripped before tools/list
+        "x-scope": scope,
+    }
+
+
+TOOLS: Dict[str, dict] = {
+    t["name"]: t
+    for t in [
+        _schema(
+            "create_store",
+            "Create a new vector store",
+            "write",
+            {
+                "name": {"type": "string", "description": "Store name"},
+                "dimension": {"type": "integer", "description": "Optional fixed dimension"},
+                "metric": {"type": "string", "enum": ["cosine", "euclidean", "manhattan", "dot"]},
+                "dtype": {"type": "string", "enum": ["float32", "int8"]},
+                "intkey": {"type": "boolean",
+                           "description": "int8 stores: keep the int8 key "
+                           "plane that the fastest scans select on"},
+            },
+            ["name"],
+        ),
+        _schema(
+            "insert_vector",
+            "Insert (or overwrite) a vector with optional metadata",
+            "write",
+            {
+                "store": {"type": "string"},
+                "id": {"type": "string"},
+                "vector": {"type": "array", "items": {"type": "number"}},
+                "metadata": {"type": "object"},
+            },
+            ["store", "id", "vector"],
+        ),
+        _schema(
+            "search_vectors",
+            "Exact top-k similarity search",
+            "read",
+            {
+                "store": {"type": "string"},
+                "vector": {"type": "array", "items": {"type": "number"}},
+                "vector_b64": {"type": "string",
+                               "description": "base64 little-endian float32 "
+                               "(alternative to 'vector')"},
+                "k": {"type": "integer", "default": 10},
+                "metric": {"type": "string"},
+                "filter": {"type": "object",
+                           "description": "metadata equality predicates (AND)"},
+            },
+            ["store"],
+        ),
+        _schema(
+            "search_vectors_batch",
+            "Exact top-k search for MANY queries in one call (one device "
+            "batch — the high-throughput serving path)",
+            "read",
+            {
+                "store": {"type": "string"},
+                "vectors": {"type": "array",
+                            "items": {"type": "array",
+                                      "items": {"type": "number"}}},
+                "vectors_b64": {"type": "string",
+                                "description": "base64 little-endian float32, "
+                                "row-major (alternative to 'vectors')"},
+                "dim": {"type": "integer",
+                        "description": "row width, required with vectors_b64"},
+                "k": {"type": "integer", "default": 10},
+                "metric": {"type": "string"},
+                "filter": {"type": "object"},
+                "compact": {"type": "boolean",
+                            "description": "return parallel ids/distances "
+                            "arrays without metadata (cheap to encode)"},
+                "encoding": {"type": "string", "enum": ["json", "b64"],
+                             "description": "'b64' returns binary columns "
+                             "(distances_b64 f32 + rows_b64 int32) — the "
+                             "highest-throughput response format; row index "
+                             "== implicit id for bulk-built stores"},
+            },
+            ["store"],
+        ),
+        _schema(
+            "delete_vector",
+            "Delete a vector by id",
+            "write",
+            {"store": {"type": "string"}, "id": {"type": "string"}},
+            ["store", "id"],
+        ),
+        _schema(
+            "get_store_stats",
+            "Store statistics (count, dimension, memory)",
+            "read",
+            {"store": {"type": "string"}},
+            ["store"],
+        ),
+        _schema(
+            "list_stores",
+            "List all stores",
+            "read",
+            {},
+            [],
+        ),
+    ]
+}
+
+
+def tool_scope(name: str) -> str:
+    return TOOLS[name]["x-scope"]
+
+
+def list_tools(scopes: Set[str]) -> List[dict]:
+    """Tools visible to a client, filtered by its scopes
+    (reference :157-165, :401-412); schemas without internal keys."""
+    out = []
+    for t in TOOLS.values():
+        if t["x-scope"] in scopes:
+            out.append({k: v for k, v in t.items() if not k.startswith("x-")})
+    return out
+
+
+def check_permission(name: str, scopes: Set[str]) -> bool:
+    t = TOOLS.get(name)
+    return t is not None and t["x-scope"] in scopes
+
+
+def reject_probe(args: Dict[str, Any]) -> None:
+    """Multiprobe search (``nprobe``/``recall_target``, int4r stores) is not
+    ported: refuse it rather than silently answer with a full scan."""
+    for key in ("nprobe", "recall_target"):
+        if args.get(key) is not None:
+            raise ToolError(f"{key!r} is not supported: multiprobe search is "
+                            "not yet ported to erlvectordb_tpu_torch")
+
+
+def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
+    """Execute one tool call against the database facade."""
+    if name not in TOOLS:
+        raise ToolError(f"Unknown tool: {name}")
+    missing = [r for r in TOOLS[name]["inputSchema"]["required"] if r not in args]
+    if missing:
+        raise ToolError(f"{name}: missing required arguments {missing}")
+
+    if name == "create_store":
+        return db.create_store(
+            args["name"],
+            dim=args.get("dimension"),
+            metric=args.get("metric", "cosine"),
+            dtype=args.get("dtype", "float32"),
+            intkey=bool(args.get("intkey", False)),
+        )
+    if name == "insert_vector":
+        db.any_store(args["store"]).insert(
+            args["id"], args["vector"], args.get("metadata") or {}
+        )
+        return {"status": "ok", "store": args["store"], "id": args["id"]}
+    if name == "search_vectors":
+        reject_probe(args)
+        # concurrent protocol requests coalesce into one device batch
+        hits = db.batcher.search(
+            args["store"], decode_query(args), k=int(args.get("k", 10)),
+            metric=args.get("metric"), where=args.get("filter"),
+        )
+        return format_hits(hits)
+    if name == "search_vectors_batch":
+        # synchronous fallback (the MCP server normally routes this through
+        # the batcher's async submit_group pipeline)
+        reject_probe(args)
+        store = db.any_store(args["store"])
+        qs = decode_queries(args)
+        kw = dict(k=int(args.get("k", 10)), metric=args.get("metric"),
+                  where=args.get("filter"))
+        if args.get("encoding") == "b64":
+            cols = store.search_batch_complete_raw(
+                store.search_batch_submit(qs, **kw))
+            return format_batch_b64(cols)
+        if args.get("compact"):
+            cols = store.search_batch_complete_raw(
+                store.search_batch_submit(qs, **kw))
+            return format_batch_columns(cols)
+        return format_batch(store.search_batch(qs, **kw))
+    if name == "delete_vector":
+        ok = db.any_store(args["store"]).delete(args["id"])
+        if not ok:
+            raise ToolError(f"vector {args['id']!r} not found")
+        return {"status": "ok"}
+    if name == "get_store_stats":
+        return db.any_store(args["store"]).get_stats()
+    if name == "list_stores":
+        return {"stores": db.list_stores()}
+    raise ToolError(f"Unknown tool: {name}")  # unreachable

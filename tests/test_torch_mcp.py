@@ -1,0 +1,254 @@
+"""The slice as a whole: the port's MCP server (erlvectordb_tpu_torch/serve/
+mcp_server.py) against the JAX package's, over real sockets.
+
+Both Databases run with ``persistence_enabled=False`` and serve on
+127.0.0.1:0.  One script drives both: initialize -> create_store (int8,
+cosine) -> 300 pipelined insert_vector -> search_vectors ->
+search_vectors_batch (vectors_b64, compact and b64 answers) ->
+delete_vector -> search again, plus the error probes of the verify recipe
+(bad base64, b64 length not a multiple of dim, missing vector, unknown
+store, a garbage line mid-stream).  Answers must be equal: the same ids in
+the same order, distances to 1e-5, the same error codes and messages.
+"""
+
+import base64
+import json
+import socket
+
+import numpy as np
+import pytest
+import torch
+
+from erlvectordb_tpu.api import Database as JaxDatabase
+from erlvectordb_tpu.infra.config import load_config as jax_load_config
+from erlvectordb_tpu.serve.mcp_server import MCPServer as JaxMCPServer
+from erlvectordb_tpu_torch.api import Database
+from erlvectordb_tpu_torch.infra.config import ConfigError, load_config
+from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
+
+torch.set_num_threads(2)
+
+DIM = 48
+
+
+class Client:
+    def __init__(self, port, token):
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=30)
+        self.buf = b""
+        self.token = token
+        self._id = 0
+
+    def _line(self):
+        while b"\n" not in self.buf:
+            chunk = self.sock.recv(1 << 16)
+            if not chunk:
+                raise ConnectionError("server closed")
+            self.buf += chunk
+        line, self.buf = self.buf.split(b"\n", 1)
+        return json.loads(line)
+
+    def send_raw(self, data: bytes):
+        self.sock.sendall(data)
+        return self._line()
+
+    def pipeline(self, calls):
+        """Send every request before reading; answers may come back out of
+        order (batcher callbacks), so match them by id."""
+        ids = []
+        out = b""
+        for method, params in calls:
+            self._id += 1
+            ids.append(self._id)
+            req = {"jsonrpc": "2.0", "id": self._id, "method": method,
+                   "params": params, "auth": {"token": self.token}}
+            out += (json.dumps(req) + "\n").encode()
+        self.sock.sendall(out)
+        got = {}
+        while len(got) < len(ids):
+            resp = self._line()
+            got[resp["id"]] = resp
+        return [got[i] for i in ids]
+
+    def call(self, method, params=None):
+        return self.pipeline([(method, params or {})])[0]
+
+    def tool(self, tool_name, **args):
+        resp = self.call("tools/call", {"name": tool_name, "arguments": args})
+        if "error" in resp:
+            return resp["error"]
+        return json.loads(resp["result"]["content"][0]["text"])
+
+    def close(self):
+        self.sock.close()
+
+
+def _serve(db_cls, server_cls, cfg):
+    db = db_cls(cfg).start()
+    server = server_cls(db, host="127.0.0.1", port=0).start()
+    port = server._sock.getsockname()[1]
+    token = db.oauth.grant_client_credentials(
+        "erlvectordb_client", "erlvectordb_secret")["access_token"]
+    return db, server, Client(port, token)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    overrides = {"persistence_enabled": False}
+    jax_side = _serve(JaxDatabase, JaxMCPServer,
+                      jax_load_config(overrides=overrides, env={}))
+    port_side = _serve(Database, MCPServer,
+                       load_config(overrides=overrides, env={}))
+    yield port_side[2], jax_side[2]
+    for db, server, client in (jax_side, port_side):
+        client.close()
+        server.stop()
+        db.stop()
+
+
+def _both(pair, fn):
+    return fn(pair[0]), fn(pair[1])
+
+
+def _b64(a):
+    return base64.b64encode(np.ascontiguousarray(a, "<f4").tobytes()).decode()
+
+
+def _same_results(got, want):
+    assert [h["id"] for h in got["results"]] == [h["id"] for h in want["results"]]
+    assert ([h["metadata"] for h in got["results"]]
+            == [h["metadata"] for h in want["results"]])
+    np.testing.assert_allclose([h["distance"] for h in got["results"]],
+                               [h["distance"] for h in want["results"]],
+                               atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(21)
+    centers = rng.standard_normal((12, DIM)).astype(np.float32)
+    x = (centers[rng.integers(0, 12, 300)]
+         + 0.35 * rng.standard_normal((300, DIM))).astype(np.float32)
+    q = (centers[rng.integers(0, 12, 40)]
+         + 0.35 * rng.standard_normal((40, DIM))).astype(np.float32)
+    return x, q
+
+
+@pytest.fixture(scope="module")
+def filled(pair, data):
+    x, _ = data
+
+    def run(c):
+        init = c.call("initialize", {"protocolVersion": "2024-11-05"})
+        created = c.tool("create_store", name="s", dimension=DIM,
+                         metric="cosine", dtype="int8")
+        acks = c.pipeline([
+            ("tools/call", {"name": "insert_vector", "arguments": {
+                "store": "s", "id": f"v{i}", "vector": x[i].tolist(),
+                "metadata": {"g": i % 5}}})
+            for i in range(len(x))])
+        return init, created, acks
+
+    return _both(pair, run)
+
+
+def test_initialize_create_insert(filled):
+    (init_t, created_t, acks_t), (init_j, created_j, acks_j) = filled
+    assert init_t["result"] == init_j["result"]
+    assert created_t == created_j
+    assert [a["result"] for a in acks_t] == [a["result"] for a in acks_j]
+    assert acks_t[-1]["result"]["content"][0]["text"] == json.dumps(
+        {"status": "ok", "store": "s", "id": "v299"})
+
+
+def test_search_vectors(pair, filled, data):
+    _, q = data
+    for i in range(6):
+        args = dict(store="s", vector=q[i].tolist(), k=10)
+        if i % 2:
+            args = dict(store="s", vector_b64=_b64(q[i]), k=7)
+        if i == 5:
+            args["filter"] = {"g": 2}
+        got, want = _both(pair, lambda c: c.tool("search_vectors", **args))
+        assert len(want["results"]) == args["k"]
+        _same_results(got, want)
+
+
+def test_search_vectors_batch(pair, filled, data):
+    _, q = data
+    common = dict(store="s", vectors_b64=_b64(q), dim=DIM, k=10)
+    got, want = _both(pair, lambda c: c.tool("search_vectors_batch", compact=True,
+                                             **common))
+    assert got["ids"] == want["ids"] and len(got["ids"]) == len(q)
+    np.testing.assert_allclose(got["distances"], want["distances"], atol=1e-5)
+    got, want = _both(pair, lambda c: c.tool("search_vectors_batch",
+                                             encoding="b64", **common))
+    assert (got["count"], got["k"]) == (want["count"], want["k"]) == (40, 10)
+    rows = [np.frombuffer(base64.b64decode(r["rows_b64"]), "<i4")
+            for r in (got, want)]
+    dists = [np.frombuffer(base64.b64decode(r["distances_b64"]), "<f4")
+             for r in (got, want)]
+    np.testing.assert_array_equal(rows[0], rows[1])
+    np.testing.assert_allclose(dists[0], dists[1], atol=1e-5)
+    got, want = _both(pair, lambda c: c.tool(
+        "search_vectors_batch", store="s", vectors=q[:3].tolist(), k=4))
+    for g, w in zip(got["results"], want["results"]):
+        _same_results({"results": g}, {"results": w})
+
+
+def test_delete_then_search(pair, filled, data):
+    x, _ = data
+    first = _both(pair, lambda c: c.tool("search_vectors", store="s",
+                                         vector=x[17].tolist(), k=3))
+    assert [r["results"][0]["id"] for r in first] == ["v17", "v17"]
+    acks = _both(pair, lambda c: c.tool("delete_vector", store="s", id="v17"))
+    assert acks[0] == acks[1] == {"status": "ok"}
+    got, want = _both(pair, lambda c: c.tool("search_vectors", store="s",
+                                             vector=x[17].tolist(), k=3))
+    assert "v17" not in [h["id"] for h in got["results"]]
+    _same_results(got, want)
+    again = _both(pair, lambda c: c.tool("delete_vector", store="s", id="v17"))
+    assert again[0] == again[1]
+    stats = _both(pair, lambda c: c.tool("get_store_stats", store="s"))
+    assert stats[0] == stats[1] and stats[0]["count"] == 299
+    lists = _both(pair, lambda c: c.tool("list_stores"))
+    assert lists[0] == lists[1] == {"stores": ["s"]}
+
+
+@pytest.mark.parametrize("probe", ["bad_b64", "ragged_b64", "missing_vector",
+                                   "unknown_store", "unknown_tool"])
+def test_error_probes(pair, filled, probe):
+    args = {
+        "bad_b64": ("search_vectors", dict(store="s", vector_b64="@@not b64@@")),
+        "ragged_b64": ("search_vectors_batch",
+                       dict(store="s", vectors_b64=_b64(np.ones(DIM + 1)),
+                            dim=DIM)),
+        "missing_vector": ("search_vectors", dict(store="s")),
+        "unknown_store": ("search_vectors", dict(store="nope",
+                                                 vector=[0.0] * DIM)),
+        "unknown_tool": ("no_such_tool", {}),
+    }[probe]
+    got, want = _both(pair, lambda c: c.tool(args[0], **args[1]))
+    assert got == want and "code" in got, (got, want)
+
+
+def test_garbage_line_keeps_connection(pair, filled):
+    bad = _both(pair, lambda c: c.send_raw(b"{this is not json\n"))
+    assert bad[0] == bad[1] and bad[0]["error"]["code"] == -32700
+    after = _both(pair, lambda c: c.call("ping"))
+    assert after[0]["result"] == after[1]["result"] == {}
+
+
+def test_tools_list_is_the_ported_subset(pair):
+    tools = pair[0].call("tools/list")["result"]["tools"]
+    assert sorted(t["name"] for t in tools) == sorted([
+        "create_store", "insert_vector", "search_vectors",
+        "search_vectors_batch", "delete_vector", "get_store_stats",
+        "list_stores"])
+    refused = pair[0].tool("search_vectors", store="s", vector=[0.0] * DIM,
+                           nprobe=4)
+    assert "not yet ported" in refused["message"]
+
+
+def test_persistence_is_refused():
+    with pytest.raises(ConfigError, match="not yet ported"):
+        Database(load_config(overrides={"persistence_enabled": True}, env={}))
