@@ -7,14 +7,28 @@ Phases, each printing one JSON line of its own numbers:
 
   1. device   the card's name and power limit (nvidia-smi) and versions;
   2. build    the CUDA kernels compiled from csrc/ with nvcc (seconds,
-              registers), and the three 1.2M-row stores built on the card;
-  3. kernels  each kernel against its plain PyTorch version at the config-3
-              shapes (1024 queries x 1.2M rows, W=128), with the stated bars
-              and median times;
-  4. slice    the stores behind the MCP server: search_vectors, a 1024-query
-              search_vectors_batch in b64, insert -> found first, delete ->
-              gone; recall@10 against exact f32 ground truth on the card;
-              every kernel's launch count over these requests;
+              spills), and the stores built on the card (ms, device bytes);
+  3. kernels  each kernel variant against its plain PyTorch version at the
+              shapes its served path gives it (1024 queries, W=128), with
+              the stated bars, median CUDA-event times and the bound;
+  4. slice    the stores behind the MCP server, each path driven with the
+              launch counts zeroed just before it and read just after:
+                (a) int8 cosine intkey, 1.2M     -> B1 intkey_scan
+                (b) int8 euclidean intkey, 1.2M  -> B2 l2key_scan
+                (c) int8 cosine, 1.2M            -> B3 pos_scan int8, and
+                    B4 fused_scan int8 at k=32 (past the pos path's k)
+                (c32) f32 cosine, 1.2M           -> B3 pos_scan f32
+                (d) f32, 20k filled over MCP     -> B4 fused_scan f32
+                (e) int4 cosine, 1.2M            -> B3 pos_scan int4
+                (f) int4r cosine, 1.2M streaming -> B5 pos_residual_scan
+                (g) int4, 100k filled over MCP   -> B4 fused_scan int4
+                (h) int4r, 100k host build -> B6 cell_scan; then 1,000
+                    rows inserted over MCP, each read back as its own top-1
+                    (a row that finds its nearest cells full spawns a block
+                    of 64 cells, so the read-back may run through B5)
+              recall@10 against exact f32 ground truth on the card, and
+              overlap@10 of the int4/int4r stores with the plain exact scan
+              of the same codes;
 
 then the kernels summary line, the nvidia-smi line and, last, the contract
 line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -37,15 +51,27 @@ import numpy as np
 
 N_ROWS, DIM, N_CENTRES, NOISE = 1_200_000, 100, 1024, 0.35
 BATCH, K, N_RECALL, SEED = 1024, 10, 256, 0
-F32_ROWS = 20_000   # store (d), filled over MCP
+F32_ROWS = 20_000    # store (d), filled over MCP
+SMALL_ROWS = 100_000  # stores (g) and (h)
+N_NEW = 1_000        # rows inserted into (h) over MCP
 DEVICE = "cuda"
-SOURCE = "erlvectordb_tpu_torch/csrc/fused_topk.cu"
-REPLACES = {  # kernel -> the TPU kernel's pallas_call (file:line)
-    "intkey_scan": "erlvectordb_tpu/ops/fused_topk.py:479",
-    "l2key_scan": "erlvectordb_tpu/ops/fused_topk.py:551",
-    "pos_scan": "erlvectordb_tpu/ops/fused_topk.py:335",
-    "fused_scan": "erlvectordb_tpu/ops/fused_topk.py:989",
+CSRC = "erlvectordb_tpu_torch/csrc/"
+JAX_FT = "erlvectordb_tpu/ops/fused_topk.py:"
+# kernel -> (source, the TPU kernel's pallas_call)
+KERNEL_INFO = {
+    "intkey_scan": ("fused_topk.cu", "479"),
+    "l2key_scan": ("fused_topk.cu", "551"),
+    "pos_scan": ("fused_topk.cu", "335"),
+    "fused_scan": ("fused_topk.cu", "989"),
+    "pos_residual_scan": ("residual_scan.cu", "889"),
+    "cell_scan": ("residual_scan.cu", "989"),
 }
+# H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops/s (the
+# int4 codes are counted at the int8 rate they run at after unpacking), f32
+# outside the tensor cores, and HBM bytes/s
+PEAK = {"int8": 1979e12, "int4": 1979e12, "f32": 67e12}
+HBM = 3.35e12
+NO_LIBRARY = "none: no single PyTorch call computes the scan and its selection"
 
 
 def emit(phase: str, **numbers) -> None:
@@ -85,6 +111,17 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def timed(fn):
+    """(result, host seconds) of fn() ending in a device synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 # ------------------------------------------------------------------ kernels
 
 
@@ -120,62 +157,151 @@ def check_tile(name, kern, ref, exact_rows):
     return float(err.max()), frac
 
 
-def kernel_phase(stores, f32_codes, queries):
+def bound(variant, ops, nbytes):
+    """Least time the card could take: the larger of the operations over the
+    peak rate of their type and the bytes over the HBM rate."""
+    t_ops, t_bytes = ops / PEAK[variant], nbytes / HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_phase(st, queries):
+    """Every kernel variant against its plain version at its path's shapes.
+    ``st``: stores a, b, c, c32, e, f, g_ref (an int4 store of the first
+    100k rows, the shapes of (g)), h."""
     import torch
 
     import erlvectordb_tpu_torch.ops.fused_topk as ft
 
-    a, b, c = stores["a"], stores["b"], stores["c"]
-    nt = ft.n_tiles_for(c._next_row, c.capacity)
-    width = c._vectors.shape[1]
+    width = st["c"]._vectors.shape[1]
     qp = torch.zeros((BATCH, width), dtype=torch.float32, device=DEVICE)
     qp[:, :DIM] = torch.from_numpy(queries[:BATCH]).to(DEVICE)
     out = {}
 
-    def run(name, variant, kern_fn, ref_fn, check, *args):
+    def run(name, variant, kern_fn, ref_fn, check, exact, *, rows, nbytes):
         kern, ref = kern_fn(), ref_fn()
         torch.cuda.synchronize()
-        err, frac = check(f"{name}[{variant}]", kern, ref, *args)
+        err, frac = check(f"{name}[{variant}]", kern, ref, exact)
         ms, plain_ms = cuda_ms(kern_fn), cuda_ms(ref_fn, reps=3)
-        out.setdefault(name, {})[variant] = dict(
-            max_abs_err=err, mismatch=frac, ms=ms, plain_ms=plain_ms)
+        b_ms, b_by = bound(variant, 2.0 * BATCH * rows * width, nbytes)
+        out[(name, variant)] = dict(
+            max_abs_err=err, mismatch=frac, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, rows=rows)
         emit("kernel", name=name, variant=variant, max_abs_err=err,
-             mismatch=frac, ms=ms, plain_ms=plain_ms, batch=BATCH,
-             rows=nt * ft.TILE_N, width=width)
+             mismatch=frac, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=b_by, batch=BATCH, rows=rows, width=width)
 
+    def code_bytes(store, rows):
+        return rows * store._vectors.shape[1] * store._vectors.element_size()
+
+    qbytes = {"int8": BATCH * width, "f32": 4 * BATCH * width,
+              "int4": BATCH * width}
+
+    def slice_bytes(store, variant, nt, per_row, per_query=0, t=1,
+                    out_per_key=4, per_tile=False):
+        rows = nt * ft.TILE_N
+        keys = BATCH * t * (nt if per_tile else rows // ft.POS_SLICE)
+        return (code_bytes(store, rows) + qbytes[variant] + per_row * rows
+                + per_query * BATCH + out_per_key * keys)
+
+    a, b, c, c32 = st["a"], st["b"], st["c"], st["c32"]
+    nt = ft.n_tiles_for(c._next_row, c.capacity)
+    rows = nt * ft.TILE_N
     # B1: cosine on the unit plane of store (a)
     q8, qmult, rowmult, rowbias, _ = ft._affine_factors(
         "cosine", a._scales, a._norms, a._valid, qp)
     run("intkey_scan", "int8", lambda: ft.intkey_scan(a._codes_unit, q8, nt),
-        lambda: ft.intkey_scan_ref(a._codes_unit, q8, nt), check_keys, True)
+        lambda: ft.intkey_scan_ref(a._codes_unit, q8, nt), check_keys, True,
+        rows=rows, nbytes=slice_bytes(a, "int8", nt, 0))
     # B2: euclidean on the magnitude plane of store (b)
     q8b, bias = ft.l2key_inputs(qp, b._norms, b._plane_scale)
     run("l2key_scan", "int8", lambda: ft.l2key_scan(b._codes_unit, q8b, bias, nt),
-        lambda: ft.l2key_scan_ref(b._codes_unit, q8b, bias, nt), check_keys, True)
-    # B3: the pos window over store (c)'s absmax codes, and over f32 rows
+        lambda: ft.l2key_scan_ref(b._codes_unit, q8b, bias, nt), check_keys,
+        True, rows=rows, nbytes=slice_bytes(b, "int8", nt, 4))
+    # B3 and B4 over store (c)'s absmax codes and store (c32)'s f32 rows
     f, g, m, bv = ft._pos_window(c._vectors, c._scales, c._norms, c._valid, q8,
                                  qmult, rowmult, rowbias, "cosine")
     run("pos_scan", "int8",
         lambda: ft.pos_scan(c._vectors, q8, qmult, f, g, m, bv, nt, False),
         lambda: ft.pos_scan_ref(c._vectors, q8, qmult, f, g, m, bv, nt, False),
-        check_keys, False)
-    t = ft.t_per_tile_for(nt, 16)
+        check_keys, False, rows=rows,
+        nbytes=slice_bytes(c, "int8", nt, 8, 12))
+    t32 = ft.t_per_tile_for(nt, 32)   # the k=32 request of path (c)
     run("fused_scan", "int8",
-        lambda: ft.fused_scan(c._vectors, q8, qmult, rowmult, rowbias, nt, t),
-        lambda: ft.fused_scan_ref(c._vectors, q8, qmult, rowmult, rowbias, nt, t),
-        check_tile, True)
-    norms32 = c._norms  # the f32 rows are the same corpus
-    qf, qmf, rmf, rbf, _ = ft._affine_factors("cosine", None, norms32, c._valid, qp)
-    f, g, m, bv = ft._pos_window(f32_codes, None, norms32, c._valid, qf, qmf,
-                                 rmf, rbf, "cosine")
+        lambda: ft.fused_scan(c._vectors, q8, qmult, rowmult, rowbias, nt, t32),
+        lambda: ft.fused_scan_ref(c._vectors, q8, qmult, rowmult, rowbias, nt, t32),
+        check_tile, True, rows=rows,
+        nbytes=slice_bytes(c, "int8", nt, 8, 4, t32, 8, True))
+    qf, qmf, rmf, rbf, _ = ft._affine_factors("cosine", None, c32._norms,
+                                              c32._valid, qp)
+    f, g, m, bv = ft._pos_window(c32._vectors, None, c32._norms, c32._valid, qf,
+                                 qmf, rmf, rbf, "cosine")
     run("pos_scan", "f32",
-        lambda: ft.pos_scan(f32_codes, qf, qmf, f, g, m, bv, nt, False),
-        lambda: ft.pos_scan_ref(f32_codes, qf, qmf, f, g, m, bv, nt, False),
-        check_keys, False)
+        lambda: ft.pos_scan(c32._vectors, qf, qmf, f, g, m, bv, nt, False),
+        lambda: ft.pos_scan_ref(c32._vectors, qf, qmf, f, g, m, bv, nt, False),
+        check_keys, False, rows=rows,
+        nbytes=slice_bytes(c32, "f32", nt, 8, 12))
+    # B4 f32 at the 20k-row shape of path (d): 5 tiles of the same rows
+    nt_d = ft.n_tiles_for(F32_ROWS, c32.capacity)
+    t_d = ft.t_per_tile_for(nt_d, 16)
     run("fused_scan", "f32",
-        lambda: ft.fused_scan(f32_codes, qf, qmf, rmf, rbf, nt, t),
-        lambda: ft.fused_scan_ref(f32_codes, qf, qmf, rmf, rbf, nt, t),
-        check_tile, False)
+        lambda: ft.fused_scan(c32._vectors, qf, qmf, rmf, rbf, nt_d, t_d),
+        lambda: ft.fused_scan_ref(c32._vectors, qf, qmf, rmf, rbf, nt_d, t_d),
+        check_tile, False, rows=nt_d * ft.TILE_N,
+        nbytes=slice_bytes(c32, "f32", nt_d, 8, 4, t_d, 8, True))
+
+    # B3 int4 over store (e)
+    e = st["e"]
+    q4, qm4, rm4, rb4, _ = ft._affine_factors("cosine", e._scales, e._norms,
+                                              e._valid, qp)
+    f, g, m, bv = ft._pos_window(e._vectors, e._scales, e._norms, e._valid, q4,
+                                 qm4, rm4, rb4, "cosine")
+    nt_e = ft.n_tiles_for(e._next_row, e.capacity)
+    run("pos_scan", "int4",
+        lambda: ft.pos_scan(e._vectors, q4, qm4, f, g, m, bv, nt_e, False),
+        lambda: ft.pos_scan_ref(e._vectors, q4, qm4, f, g, m, bv, nt_e, False),
+        check_keys, True, rows=nt_e * ft.TILE_N,
+        nbytes=slice_bytes(e, "int4", nt_e, 8, 12))
+    # B4 int4 at the shapes of path (g)
+    gr = st["g_ref"]
+    q4, qm4, rm4, rb4, _ = ft._affine_factors("cosine", gr._scales, gr._norms,
+                                              gr._valid, qp)
+    nt_g = ft.n_tiles_for(gr._next_row, gr.capacity)
+    t_g = ft.t_per_tile_for(nt_g, 16)
+    run("fused_scan", "int4",
+        lambda: ft.fused_scan(gr._vectors, q4, qm4, rm4, rb4, nt_g, t_g),
+        lambda: ft.fused_scan_ref(gr._vectors, q4, qm4, rm4, rb4, nt_g, t_g),
+        check_tile, True, rows=nt_g * ft.TILE_N,
+        nbytes=slice_bytes(gr, "int4", nt_g, 8, 4, t_g, 8, True))
+
+    # B5 over store (f), B6 over store (h): the factors fused_topk_residual
+    # hands them
+    for key, name in (("f", "pos_residual_scan"), ("h", "cell_scan")):
+        s = st[key]
+        nt_r = ft.n_tiles_for(s.capacity, s.capacity)
+        (q_in, qmult, rowmult, rowbias, _, qmult2, rowmult2, table,
+         qa) = ft.residual_factors("cosine", s._scales, s._norms, s._valid,
+                                   s._centroids, qp, nt_r, s._cell_cap)
+        tb_bytes = 4 * table.numel()
+        if name == "pos_residual_scan":
+            ma, mb, bb, fw, gw = ft._residual_window(
+                "cosine", s._norms, s._valid, q_in, qa, rowmult, rowmult2,
+                table, s._cell_cap, ft.max_code_norm(s._vectors))
+            args = (s._vectors, q_in, qa, fw, gw, ma, mb, bb, table, nt_r,
+                    s._cell_cap, ft.POS_RES_W, ft.POS_RES_T)
+            run(name, "int4", lambda: ft.pos_residual_scan(*args),
+                lambda: ft.pos_residual_scan_ref(*args), check_keys, True,
+                rows=nt_r * ft.TILE_N,
+                nbytes=slice_bytes(s, "int4", nt_r, 12, 12, ft.POS_RES_T)
+                + tb_bytes)
+        else:
+            t_h = ft.t_per_tile_for(nt_r, 16)
+            args = (s._vectors, q_in, qmult, rowmult, rowbias, qmult2,
+                    rowmult2, table, nt_r, t_h, s._cell_cap)
+            run(name, "int4", lambda: ft.cell_scan(*args),
+                lambda: ft.cell_scan_ref(*args), check_tile, True,
+                rows=nt_r * ft.TILE_N,
+                nbytes=slice_bytes(s, "int4", nt_r, 12, 8, t_h, 8, True)
+                + tb_bytes)
     return out
 
 
@@ -223,19 +349,40 @@ class Client:
     def tool(self, tool_name, **args):
         return self.tools([(tool_name, args)])[0]
 
+    def insert_rows(self, store, rows, ids):
+        """insert_vector requests pipelined 500 at a time."""
+        for i in range(0, len(rows), 500):
+            self.tools([("insert_vector", {"store": store, "id": ids[j],
+                                           "vector": rows[j].tolist()})
+                        for j in range(i, min(i + 500, len(rows)))])
+
 
 def b64(a) -> str:
     return base64.b64encode(np.ascontiguousarray(a, "<f4").tobytes()).decode()
 
 
-def batch_rows(client, store, qs):
+def batch_rows(client, store, qs, k=K):
+    """Rows (== ids of the bulk-built and in-order filled stores) of one
+    b64 search_vectors_batch."""
     r = client.tool("search_vectors_batch", store=store, vectors_b64=b64(qs),
-                    dim=DIM, k=K, encoding="b64")
-    rows = np.frombuffer(base64.b64decode(r["rows_b64"]), "<i4").reshape(len(qs), K)
-    dists = np.frombuffer(base64.b64decode(r["distances_b64"]), "<f4").reshape(len(qs), K)
+                    dim=DIM, k=k, encoding="b64")
+    rows = np.frombuffer(base64.b64decode(r["rows_b64"]), "<i4").reshape(len(qs), k)
+    dists = np.frombuffer(base64.b64decode(r["distances_b64"]), "<f4").reshape(len(qs), k)
     if not np.all(np.isfinite(dists)):
         raise AssertionError(f"{store}: non-finite distances")
     return rows
+
+
+def batch_ids(client, store, qs):
+    """Ids of one compact search_vectors_batch (cell stores keep their rows
+    permuted, so their answers are read by id)."""
+    r = client.tool("search_vectors_batch", store=store, vectors_b64=b64(qs),
+                    dim=DIM, k=K, compact=True)
+    if any(len(row) != K for row in r["ids"]):
+        raise AssertionError(f"{store}: short answers")
+    if not np.all(np.isfinite(np.asarray(r["distances"], np.float64))):
+        raise AssertionError(f"{store}: non-finite distances")
+    return r["ids"]
 
 
 def exact_rows(corpus_dev, queries, metric):
@@ -254,8 +401,31 @@ def exact_rows(corpus_dev, queries, metric):
     return torch.topk(score, K, dim=1).indices.cpu().numpy()
 
 
-def recall(got, want) -> float:
-    return float(np.mean([len(set(g) & set(w)) / K for g, w in zip(got, want)]))
+def plain_exact_ids(store, queries):
+    """Top-k ids of the plain exact scan over the store's own codes (the
+    port's core/search.py on the card)."""
+    import torch
+
+    from erlvectordb_tpu_torch.core import search as search_mod
+
+    q = torch.zeros((len(queries), store._vectors.shape[1] * 2),
+                    dtype=torch.float32, device=DEVICE)
+    q[:, :DIM] = torch.from_numpy(queries).to(DEVICE)
+    if store.dtype == "int4":
+        _, rows = search_mod.exact_topk_int4(
+            store._vectors, store._scales, store._norms, store._valid, q,
+            metric=store.metric, k=K)
+    else:
+        _, rows = search_mod.exact_topk_int4r(
+            store._vectors, store._scales, store._norms, store._valid,
+            store._centroids, q, metric=store.metric, k=K,
+            cell_cap=store._cell_cap)
+    return store._ids_view()[rows.cpu().numpy()].tolist()
+
+
+def overlap(got, want) -> float:
+    return float(np.mean([len(set(map(str, g)) & set(map(str, w))) / K
+                          for g, w in zip(got, want)]))
 
 
 def slice_phase(db, corpus, queries, f32_rows):
@@ -265,89 +435,172 @@ def slice_phase(db, corpus, queries, f32_rows):
     from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
     from erlvectordb_tpu_torch.utils.metrics import metrics
 
+    nq = queries[:N_RECALL]
+    launches, got, timing, exact_ids = {}, {}, {}, {}
+
+    def path(name, fn):
+        """Drive one path with the launch counts zeroed just before it and
+        read just after."""
+        ft.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k.__name__: dict(k.launches_by) for k in ft.KERNELS
+                          if k.launches}
+        return out
+
     server = MCPServer(db, host="127.0.0.1", port=0).start()
     try:
         port = server._sock.getsockname()[1]
         token = db.oauth.grant_client_credentials(
             "erlvectordb_client", "erlvectordb_secret")["access_token"]
         cl = Client(port, token)
-        # (d): a 20k-row f32 store created and filled over MCP
+        # (d): a 20k-row f32 store, (g): a 100k-row int4 store, both
+        # created and filled over MCP
         cl.tool("create_store", name="d", dimension=DIM, metric="cosine",
                 dtype="float32")
-        t0 = time.perf_counter()
-        for i in range(0, len(f32_rows), 500):
-            cl.tools([("insert_vector", {"store": "d", "id": str(j),
-                                         "vector": f32_rows[j].tolist()})
-                      for j in range(i, min(i + 500, len(f32_rows)))])
-        insert_s = time.perf_counter() - t0
-        nq = queries[:N_RECALL]
-        # warm the batch path, then count launches over the requests alone
-        for s in ("a", "b", "c", "d"):
+        _, timing["d_mcp_insert_s"] = timed(lambda: cl.insert_rows(
+            "d", f32_rows, [str(j) for j in range(len(f32_rows))]))
+        cl.tool("create_store", name="g", dimension=DIM, metric="cosine",
+                dtype="int4")
+        _, timing["g_mcp_insert_s"] = timed(lambda: cl.insert_rows(
+            "g", corpus[:SMALL_ROWS], [str(j) for j in range(SMALL_ROWS)]))
+        # warm every batch path, then count launches over the requests alone
+        for s in ("a", "b", "c", "c32", "d", "e", "f", "g", "h"):
             batch_rows(cl, s, nq[:8])
-        ft.reset_launches()
         metrics.reset()
-        hit = cl.tool("search_vectors", store="a", vector=corpus[123].tolist(), k=K)
-        if hit["results"][0]["id"] != "123":
-            raise AssertionError(f"search_vectors: {hit['results'][:2]}")
-        mcp_batch_s = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            rows_a = batch_rows(cl, "a", queries[:BATCH])
-            mcp_batch_s.append(time.perf_counter() - t0)
-        rows_b = batch_rows(cl, "b", nq)
-        rows_c = batch_rows(cl, "c", nq)
-        rows_d = batch_rows(cl, "d", nq)
-        # a fresh direction: int8 rescoring blurs cosine by ~1e-3, so the
-        # vector must not sit that close to a stored row
-        new = np.random.default_rng(SEED + 3).standard_normal(DIM).astype(np.float32)
-        cl.tool("insert_vector", store="a", id="new", vector=new.tolist())
-        first = cl.tool("search_vectors", store="a", vector=new.tolist(), k=K)
-        if first["results"][0]["id"] != "new":
-            raise AssertionError(f"inserted vector not first: {first['results'][:2]}")
-        cl.tool("delete_vector", store="a", id="new")
-        gone = cl.tool("search_vectors", store="a", vector=new.tolist(), k=K)
-        if "new" in [h["id"] for h in gone["results"]]:
-            raise AssertionError("deleted vector still returned")
-        launches = {k.__name__: k.launches for k in ft.KERNELS}
+
+        def path_a():
+            hit = cl.tool("search_vectors", store="a", vector=corpus[123].tolist(), k=K)
+            if hit["results"][0]["id"] != "123":
+                raise AssertionError(f"search_vectors: {hit['results'][:2]}")
+            mcp_s = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                rows_a = batch_rows(cl, "a", queries[:BATCH])
+                mcp_s.append(time.perf_counter() - t0)
+            timing["mcp_b64_batch_ms_all"] = [1e3 * x for x in mcp_s]
+            # a fresh direction: int8 rescoring blurs cosine by ~1e-3, so the
+            # vector must not sit that close to a stored row
+            new = np.random.default_rng(SEED + 3).standard_normal(DIM).astype(np.float32)
+            cl.tool("insert_vector", store="a", id="new", vector=new.tolist())
+            first = cl.tool("search_vectors", store="a", vector=new.tolist(), k=K)
+            if first["results"][0]["id"] != "new":
+                raise AssertionError(f"inserted vector not first: {first['results'][:2]}")
+            cl.tool("delete_vector", store="a", id="new")
+            gone = cl.tool("search_vectors", store="a", vector=new.tolist(), k=K)
+            if "new" in [h["id"] for h in gone["results"]]:
+                raise AssertionError("deleted vector still returned")
+            return rows_a[:N_RECALL]
+
+        got["a"] = path("a", path_a)
+        got["b"] = path("b", lambda: batch_rows(cl, "b", nq))
+        got["c"] = path("c", lambda: (batch_rows(cl, "c", nq),
+                                      batch_rows(cl, "c", nq, k=32)))[0]
+        got["c32"] = path("c32", lambda: batch_rows(cl, "c32", nq))
+        got["d"] = path("d", lambda: batch_rows(cl, "d", nq))
+        got["e"] = path("e", lambda: batch_rows(cl, "e", nq))
+        got["f"] = path("f", lambda: batch_ids(cl, "f", queries[:BATCH]))[:N_RECALL]
+        got["g"] = path("g", lambda: batch_rows(cl, "g", nq))
+
+        # (h): 1,000 new rows inserted over MCP, each read back as its own
+        # top-1 (the acknowledged-write read-back), plus the recall queries.
+        # The new rows are the corpus rows after (h)'s 100k: rows like the
+        # store's own land in its cells, where a row from elsewhere would
+        # miss its 8 nearest cells and spawn a block of 64 new ones
+        new_rows = corpus[SMALL_ROWS:SMALL_ROWS + N_NEW]
+        new_ids = [f"new{j}" for j in range(N_NEW)]
+
+        def path_h():
+            ids = batch_ids(cl, "h", nq)
+            exact_ids["h"] = plain_exact_ids(db.get_store("h"), nq)
+            _, timing["h_mcp_insert_s"] = timed(
+                lambda: cl.insert_rows("h", new_rows, new_ids))
+            return ids, batch_ids(cl, "h", new_rows)
+
+        got["h"], back = path("h", path_h)
+        readback = float(np.mean([r[0] == i for r, i in zip(back, new_ids)]))
         cl.sock.close()
     finally:
         server.stop()
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was never launched: {launches}")
+
+    expect = {"a": ("intkey_scan", "int8"), "b": ("l2key_scan", "int8"),
+              "c": ("pos_scan", "int8"), "c32": ("pos_scan", "f32"),
+              "d": ("fused_scan", "f32"), "e": ("pos_scan", "int4"),
+              "f": ("pos_residual_scan", "int4"), "g": ("fused_scan", "int4"),
+              "h": ("cell_scan", "int4")}
+    for p, (kname, variant) in expect.items():
+        if not launches[p].get(kname, {}).get(variant):
+            raise AssertionError(f"path {p} never launched {kname}[{variant}]: "
+                                 f"{launches[p]}")
+    if not launches["c"].get("fused_scan", {}).get("int8"):
+        raise AssertionError(f"path c (k=32) never launched fused_scan[int8]: "
+                             f"{launches['c']}")
+    if readback < 0.99:
+        raise AssertionError(f"rows inserted into (h) read back as top-1: {readback}")
 
     corpus_dev = torch.from_numpy(corpus).to(DEVICE)
     gt_cos = exact_rows(corpus_dev, nq, "cosine")
     gt_l2 = exact_rows(corpus_dev, nq, "euclidean")
     del corpus_dev
+    gt_small = exact_rows(torch.from_numpy(corpus[:SMALL_ROWS]).to(DEVICE), nq,
+                          "cosine")
     gt_d = exact_rows(torch.from_numpy(f32_rows).to(DEVICE), nq, "cosine")
-    rec = {"a_int8_intkey_cosine": recall(rows_a[:N_RECALL], gt_cos),
-           "b_int8_intkey_euclidean": recall(rows_b, gt_l2),
-           "c_int8_cosine": recall(rows_c, gt_cos),
-           "d_f32_cosine_20k": recall(rows_d, gt_d)}
+    # recall@10: overlap with the exact f32 top-10
+    rec = {"a_int8_intkey_cosine": overlap(got["a"], gt_cos),
+           "b_int8_intkey_euclidean": overlap(got["b"], gt_l2),
+           "c_int8_cosine": overlap(got["c"], gt_cos),
+           "c32_f32_cosine": overlap(got["c32"], gt_cos),
+           "d_f32_cosine_20k": overlap(got["d"], gt_d),
+           "e_int4_cosine": overlap(got["e"], gt_cos),
+           "f_int4r_cosine": overlap(got["f"], gt_cos),
+           "g_int4_cosine_100k": overlap(got["g"], gt_small),
+           "h_int4r_cosine_100k": overlap(got["h"], gt_small)}
+    # (h) against its exact scan before the inserts, when its answers were
+    # read
+    ovl = {s: overlap(got[s], exact_ids.get(s) or plain_exact_ids(
+        db.get_store(s), nq)) for s in ("e", "f", "g", "h")}
     if rec["a_int8_intkey_cosine"] < 0.95:
         raise AssertionError(f"recall@10 of store (a) below 0.95: {rec}")
     if rec["d_f32_cosine_20k"] < 0.99:
         raise AssertionError(f"f32 store (d) disagrees with exact search: {rec}")
+    if rec["f_int4r_cosine"] < 0.83:
+        raise AssertionError(f"recall@10 of the int4r store (f) below 0.83: {rec}")
+    if rec["f_int4r_cosine"] - rec["e_int4_cosine"] < 0.20:
+        raise AssertionError(f"int4r (f) not 0.20 above plain int4 (e): {rec}")
+    # (h)'s bar sits below (f)'s: its B6 scan keeps the top-8 of each tile
+    # by an 11-bit-mantissa key and rescores a 64-row pool, and the bench's
+    # queries (fresh centres) sit among near-ties, so its overlap with the
+    # exact scan is ~0.95 by design (0.946-0.952 over CPU builds)
+    if (min(ovl["e"], ovl["g"]) < 0.98 or ovl["f"] < 0.95
+            or ovl["h"] < 0.93):
+        raise AssertionError(f"overlap@10 with the plain exact scan: {ovl}")
 
     # end to end on the store API: 1024-query batches, host clock around
     # submit -> complete (the readback waits for the device)
-    store_a = db.get_store("a")
-    qa = queries[:BATCH]
-    lat = []
-    for _ in range(6):
-        t0 = time.perf_counter()
-        store_a.search_batch_complete_raw(store_a.search_batch_submit(qa, k=K))
-        lat.append(time.perf_counter() - t0)
-    lat = sorted(lat[1:])
-    emit("slice", recall_at_10=rec, launches=launches,
-         store_batch_ms_median=1e3 * lat[len(lat) // 2],
-         store_qps=BATCH / lat[len(lat) // 2],
-         mcp_b64_batch_ms_median=1e3 * float(np.median(mcp_batch_s)),
-         mcp_b64_batch_ms_all=[1e3 * x for x in mcp_batch_s],
+    store_lat = {}
+    for s in ("a", "f"):
+        store = db.get_store(s)
+        lat = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            store.search_batch_complete_raw(store.search_batch_submit(
+                queries[:BATCH], k=K))
+            lat.append(time.perf_counter() - t0)
+        store_lat[s] = sorted(lat[1:])[len(lat[1:]) // 2]
+    emit("slice", recall_at_10=rec, overlap_at_10_with_plain_exact=ovl,
+         h_insert_readback_top1=readback, launches=launches,
+         store_batch_ms_median={s: 1e3 * v for s, v in store_lat.items()},
+         store_qps={s: BATCH / v for s, v in store_lat.items()},
+         mcp_b64_batch_ms_median=float(np.median(timing["mcp_b64_batch_ms_all"])),
+         mcp_b64_batch_ms_all=timing["mcp_b64_batch_ms_all"],
          mean_ms_by_span={k: v["mean_ms"] for k, v in
                           metrics.snapshot()["latencies"].items()},
-         mcp_insert_rows_per_s=F32_ROWS / insert_s,
-         device_bytes={s: db.get_store(s).device_memory_bytes() for s in "abcd"},
+         mcp_insert_rows_per_s={"d": F32_ROWS / timing["d_mcp_insert_s"],
+                                "g": SMALL_ROWS / timing["g_mcp_insert_s"],
+                                "h": N_NEW / timing["h_mcp_insert_s"]},
+         device_bytes={s: db.get_store(s).device_memory_bytes()
+                       for s in ("d", "g", "h")},
+         h_capacity_after_inserts=db.get_store("h").capacity,
          torch_memory_allocated=int(torch.cuda.memory_allocated()),
          torch_max_memory_allocated=int(torch.cuda.max_memory_allocated()))
     return launches
@@ -385,31 +638,40 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_lib.library()
     build_s = time.perf_counter() - t0
-    regs = [ln.split("info    : ")[-1] for ln in
-            cuda_lib.build_info.get("log", "").splitlines()
-            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
-    emit("build", kernel_build_s=build_s, nvcc_report=regs)
+    log = cuda_lib.build_info.get("log", "").splitlines()
+    spills = [f"{log[i - 2].split('entry function')[-1].strip()} {ln.strip()}"
+              for i, ln in enumerate(log)
+              if "spill stores" in ln and not ln.strip().startswith("0 bytes")
+              and i >= 2]
+    emit("build", kernel_build_s=build_s, spills=spills,
+         entries=sum("Compiling entry" in ln for ln in log))
 
     corpus = make_corpus(SEED, N_ROWS)
     queries = make_corpus(SEED + 1, BATCH)
     dev = torch.device(DEVICE)
     stores, build_ms = {}, {}
-    for name, kw in (("a", dict(metric="cosine", intkey=True)),
-                     ("b", dict(metric="euclidean", intkey=True)),
-                     ("c", dict(metric="cosine"))):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stores[name] = VectorStore.from_matrix(name, corpus, dtype="int8",
-                                               device=dev, **kw)
-        torch.cuda.synchronize()
-        build_ms[name] = 1e3 * (time.perf_counter() - t0)
-    f32 = VectorStore.from_matrix("f32", corpus, device=dev)
+    specs = (("a", corpus, dict(dtype="int8", metric="cosine", intkey=True)),
+             ("b", corpus, dict(dtype="int8", metric="euclidean", intkey=True)),
+             ("c", corpus, dict(dtype="int8", metric="cosine")),
+             ("c32", corpus, dict(dtype="float32", metric="cosine")),
+             ("e", corpus, dict(dtype="int4", metric="cosine")),
+             ("f", corpus, dict(dtype="int4r", metric="cosine")),
+             ("g_ref", corpus[:SMALL_ROWS], dict(dtype="int4", metric="cosine")),
+             ("h", corpus[:SMALL_ROWS], dict(dtype="int4r", metric="cosine")))
+    for name, x, kw in specs:
+        stores[name], secs = timed(lambda: VectorStore.from_matrix(
+            name, x, device=dev, **kw))
+        build_ms[name] = 1e3 * secs
     emit("build", store_build_ms=build_ms,
-         build_rows_per_s_a=N_ROWS / (build_ms["a"] / 1e3),
-         n_tiles=ft.n_tiles_for(N_ROWS, stores["a"].capacity))
+         build_rows_per_s={s: len(x) / (build_ms[s] / 1e3) for s, x, _ in specs},
+         device_bytes={s: st.device_memory_bytes() for s, st in stores.items()},
+         n_tiles={s: ft.n_tiles_for(st._next_row, st.capacity)
+                  for s, st in stores.items()},
+         f_cells=len(stores["f"]._cell_next), h_cells=len(stores["h"]._cell_next),
+         f_build_stats=stores["f"].build_stats)
 
-    kernels = kernel_phase(stores, f32._vectors, queries)
-    del f32
+    kernels = kernel_phase(stores, queries)
+    del stores["g_ref"]
     torch.cuda.empty_cache()
 
     db = Database(load_config(overrides={"persistence_enabled": False}, env={}),
@@ -422,15 +684,24 @@ def main() -> int:
     finally:
         db.stop()
 
+    served = {}   # (kernel, variant) -> launches on the path that serves it
+    for counts in launches.values():
+        for kname, by in counts.items():
+            for variant, n in by.items():
+                served[(kname, variant)] = served.get((kname, variant), 0) + n
     summary = []
-    for name, variants in kernels.items():
-        main_v = variants["int8"]
+    for (name, variant), r in kernels.items():
+        src, line = KERNEL_INFO[name]
         summary.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
-            "ms": main_v["ms"], "plain_ms": main_v["plain_ms"],
-            "variants": variants})
+            "name": f"{name}_{variant}" if name in ("pos_scan", "fused_scan")
+            else name,
+            "route": "cuda", "source": CSRC + src, "replaces": JAX_FT + line,
+            "launches": served.get((name, variant), 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library": NO_LIBRARY, "variant": variant, "rows": r["rows"],
+            "mismatch": r["mismatch"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
-from erlvectordb_tpu_torch.core.registry import StoreNotFound, StoreRegistry
+from erlvectordb_tpu_torch.core.registry import (
+    StoreExists,
+    StoreNotFound,
+    StoreRegistry,
+)
 from erlvectordb_tpu_torch.core.store import VectorStore, default_device
 from erlvectordb_tpu_torch.infra.config import Config, ConfigError, load_config
 from erlvectordb_tpu_torch.serve.batcher import QueryBatcher
@@ -23,7 +27,8 @@ from erlvectordb_tpu_torch.serve.oauth import OAuthServer
 
 
 class Database:
-    """A running erlvectordb instance on one device (CUDA when present)."""
+    """A running erlvectordb instance on one device: the CUDA card unless
+    the caller names another (``device="cpu"``)."""
 
     def __init__(self, config: Optional[Config] = None,
                  device: Optional[torch.device] = None):
@@ -74,6 +79,22 @@ class Database:
                      intkey: bool = False) -> dict:
         store = self.registry.create(name, dim=dim, metric=metric,
                                      dtype=dtype, intkey=intkey)
+        return store.get_stats()
+
+    def create_store_streaming(self, name: str, chunks, *, n: int,
+                               dim: int, metric: str = "cosine",
+                               **build_kw) -> dict:
+        """Bulk build of an int4r store from a stream of [CH, dim] f32
+        chunks (host arrays or tensors) through the device-side cell build
+        (VectorStore.from_chunks): the corpus never exists as one host array.
+        Ids are implicit "0".."n-1" by arrival order.  Extra kwargs reach
+        ops/cell_build.py (cell_rows, cell_cap, aniso_eta...)."""
+        if self.registry.exists(name):
+            raise StoreExists(f"store {name!r} already exists")
+        store = VectorStore.from_chunks(name, chunks, n=n, dim=dim,
+                                        metric=metric, device=self.device,
+                                        **build_kw)
+        self.registry.adopt(store)
         return store.get_stats()
 
     def delete_store(self, name: str) -> bool:

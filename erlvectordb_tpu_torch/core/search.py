@@ -1,4 +1,4 @@
-"""Batched exact-scan distance + top-k (the f32/int8 subset).
+"""Batched exact-scan distance + top-k for f32, int8, int4 and int4r rows.
 
 Counterpart of ``erlvectordb_tpu/core/search.py``.  These are the store's
 path below the fused-kernel gate (small stores, manhattan, CPU tensors) and
@@ -8,7 +8,9 @@ the oracle the fused kernels are held against:
   * euclidean:      the ``|x|^2 - 2 q.x + |q|^2`` expansion;
   * manhattan:      ``torch.cdist(p=1)`` (no matmul form exists);
   * int8 rows:      the query is quantized symmetrically and the int8 x int8
-                    dot is taken exactly (in float64), then rescaled.
+                    dot is taken exactly (in float64), then rescaled;
+  * int4 rows:      packed nibbles unpacked to int8, then as int8 rows;
+  * int4r rows:     the int4 residual dot plus the row's cell-centroid dot.
 
 followed by ``torch.topk`` over masked distances.  ``k`` is bucketed to the
 next power of two, as in the JAX package, so that the candidate depth of
@@ -21,7 +23,11 @@ from typing import Tuple
 
 import torch
 
-from erlvectordb_tpu_torch.ops.fused_topk import div_scalar, full_f32_matmul
+from erlvectordb_tpu_torch.ops.fused_topk import (  # noqa: F401 (re-export)
+    div_scalar,
+    full_f32_matmul,
+    unpack_int4,
+)
 
 Metric = str  # "cosine" | "euclidean" | "manhattan" | "dot"
 
@@ -83,6 +89,14 @@ def exact_topk(vectors, norms, valid, queries, *, metric: Metric, k: int
                           valid, k)
 
 
+def _quantize_queries(queries):
+    """Symmetric per-query int8 codes (as f32 values) and scales [B, 1]."""
+    q_absmax = queries.abs().amax(dim=-1, keepdim=True)
+    q_scale = torch.where(q_absmax > 0, div_scalar(q_absmax, 127.0),
+                          torch.ones_like(q_absmax))
+    return torch.clamp(torch.round(queries / q_scale), -127, 127), q_scale
+
+
 def int8_distances(
     codes: torch.Tensor,     # [N, D] int8 symmetric-quantized rows
     scales: torch.Tensor,    # [N]    f32 per-row scale
@@ -95,10 +109,7 @@ def int8_distances(
     if metric == "manhattan":
         deq = codes.float() * scales[:, None]
         return torch.cdist(queries, deq, p=1.0)
-    q_absmax = queries.abs().amax(dim=-1, keepdim=True)
-    q_scale = torch.where(q_absmax > 0, div_scalar(q_absmax, 127.0),
-                          torch.ones_like(q_absmax))
-    q_codes = torch.clamp(torch.round(queries / q_scale), -127, 127)
+    q_codes, q_scale = _quantize_queries(queries)
     idots = (q_codes.double() @ codes.double().T).float()
     dots = idots * q_scale * scales[None, :]
     return _from_dots(dots, norms, queries, metric)
@@ -109,3 +120,33 @@ def exact_topk_int8(codes, scales, norms, valid, queries, *, metric: Metric,
     """Top-k over an int8-quantized store, in the quantized domain."""
     return _topk_smallest(int8_distances(codes, scales, norms, queries, metric),
                           valid, k)
+
+
+def exact_topk_int4(packed, scales, norms, valid, queries, *, metric: Metric,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a packed int4 store ([N, W/2] uint8, x ~= scale * code4):
+    the nibbles unpack to int8 and the int8 scan answers."""
+    return exact_topk_int8(unpack_int4(packed), scales, norms, valid, queries,
+                           metric=metric, k=k)
+
+
+def exact_topk_int4r(packed, scales, norms, valid, centroids, queries, *,
+                     metric: Metric, k: int, cell_cap: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a cell-residual int4 store.  Row r's vector is
+    ``centroids[r // cell_cap] + unpack(packed[r]) * scales[r]``, so the raw
+    dot decomposes into the centroid table plus the quantized residual dot;
+    ``norms`` are the rows' reconstruction norms."""
+    codes = unpack_int4(packed)
+    cells = torch.arange(packed.shape[0], device=packed.device) // cell_cap
+    if metric == "manhattan":
+        deq = centroids[cells] + codes.float() * scales[:, None]
+        dists = torch.cdist(queries, deq, p=1.0)
+    else:
+        q_codes, q_scale = _quantize_queries(queries)
+        rdots = ((q_codes.double() @ codes.double().T).float()
+                 * q_scale * scales[None, :])
+        with full_f32_matmul():
+            table = queries @ centroids.T
+        dists = _from_dots(rdots + table[:, cells], norms, queries, metric)
+    return _topk_smallest(dists, valid, k)

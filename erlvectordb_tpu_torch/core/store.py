@@ -1,10 +1,17 @@
-"""Device-resident vector store (f32 and int8 rows) on a torch device.
+"""Device-resident vector store (f32, int8, int4 and int4r rows) on a torch
+device.
 
-Counterpart of ``erlvectordb_tpu/core/store.py``, the f32/int8 subset.  Each
-store is a struct-of-arrays on one ``torch.device``:
+Counterpart of ``erlvectordb_tpu/core/store.py``.  Each store is a
+struct-of-arrays on one ``torch.device``:
 
   * ``vectors [N_cap, W]`` float32 rows, or int8 absmax codes + per-row
-    ``scales`` for a quantized store; W is the dimension padded to 128;
+    ``scales`` for a quantized store, or packed int4 codes ``[N_cap, W/2]``
+    uint8 (two signed nibbles a byte) + scales; W is the dimension padded to
+    128;
+  * int4r (cell-residual) stores keep rows at ``cell * cell_cap + slot``
+    with 4-bit codes of the row's RESIDUAL against its cell centroid
+    (``centroids [K, W]``): the quantizer sees a 3-4x smaller range than
+    whole-vector int4, which is what makes 4-bit rows search-grade;
   * ``norms [N_cap]`` float32 L2 norms of the original rows;
   * ``valid [N_cap]`` bool — delete is a mask clear, insert reuses free rows;
   * optionally (``intkey=True``, int8 only) a second int8 KEY PLANE whose raw
@@ -21,8 +28,9 @@ CPU, the exact scans of core/search.py answer.
 
 Insert semantics preserved: dimension is fixed by the first insert (or at
 creation), every element must be a finite real number, inserting an existing
-id overwrites it.  ``dtype="int4"``/``"int4r"`` and ``nprobe`` are not ported
-yet and raise ``NotImplementedError``.
+id overwrites it.  Multiprobe search (``nprobe``, ``recall_target``), the
+int4r second stage (``rq_m``) and spilled layouts are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +55,13 @@ MIN_CAPACITY = 1024
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device a store takes when its caller names none: the CUDA card.
+    Without one this raises; callers that mean the CPU say so."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: erlvectordb_tpu_torch runs on the card unless "
+            "the caller asks for another device (device='cpu')")
+    return torch.device("cuda")
 
 
 def _next_pow2(n: int) -> int:
@@ -177,11 +191,123 @@ def _bulk_build_int8(arr, cap):
     return codes, scales, norms, valid
 
 
+def _pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-8, 7] -> packed uint8, first value in the high
+    nibble."""
+    nib = (q.to(torch.int16) & 0xF).to(torch.uint8)
+    return (nib[:, 0::2] << 4) | nib[:, 1::2]
+
+
+def _unpack_int4_np(packed: np.ndarray) -> np.ndarray:
+    hi = (packed >> 4).astype(np.int8)
+    lo = (packed & 0xF).astype(np.int8)
+    hi = np.where(hi > 7, hi - 16, hi)
+    lo = np.where(lo > 7, lo - 16, lo)
+    return np.stack([hi, lo], axis=-1).reshape(packed.shape[0], -1)
+
+
+def _quantize_int4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row absmax int4 codes (packed) and scales.  The scale
+    is absmax times the f32 reciprocal of 7: XLA compiles the JAX package's
+    ``absmax / 7.0`` so (one f32 multiply, the same on every device)."""
+    absmax = x.abs().amax(dim=-1)
+    inv7 = torch.tensor(1.0 / 7.0, dtype=torch.float32, device=x.device)
+    scale = torch.where(absmax > 0, absmax * inv7, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(x / scale[:, None]), -7, 7).to(torch.int8)
+    return _pack_int4(q), scale
+
+
+def _scatter_insert_int4(packed, scales, norms, valid, rows, new_vecs):
+    q, scale = _quantize_int4(new_vecs)
+    packed.index_copy_(0, rows, q)
+    scales.index_copy_(0, rows, scale)
+    norms.index_copy_(0, rows, _row_norms(new_vecs))
+    valid.index_fill_(0, rows, True)
+
+
+def _bulk_build_int4(arr, cap):
+    n, w = arr.shape
+    q, scale = _quantize_int4(arr)
+    packed = torch.zeros((cap, w // 2), dtype=torch.uint8, device=arr.device)
+    packed[:n] = q
+    scales = torch.ones((cap,), dtype=torch.float32, device=arr.device)
+    scales[:n] = scale
+    norms = torch.zeros((cap,), dtype=torch.float32, device=arr.device)
+    norms[:n] = _row_norms(arr)
+    valid = torch.zeros((cap,), dtype=torch.bool, device=arr.device)
+    valid[:n] = True
+    return packed, scales, norms, valid
+
+
+def _quantize_residual(res: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """4-bit residual quantization with per-row optimal clipping: try a few
+    clip fractions of absmax and keep the min-MSE one (clipping trades rare
+    saturation for finer steps everywhere)."""
+    absmax = res.abs().amax(dim=-1)
+    best_q = best_s = best_e = None
+    for c in (0.7, 0.8, 0.9, 1.0):
+        s = torch.where(absmax > 0, ft.div_scalar(c * absmax, 7.0),
+                        torch.ones_like(absmax))
+        q = torch.clamp(torch.round(res / s[:, None]), -7, 7).to(torch.int8)
+        e = torch.sum((q.float() * s[:, None] - res) ** 2, dim=-1)
+        if best_q is None:
+            best_q, best_s, best_e = q, s, e
+        else:
+            take = e < best_e
+            best_q = torch.where(take[:, None], q, best_q)
+            best_s = torch.where(take, s, best_s)
+            best_e = torch.minimum(e, best_e)
+    return best_q, best_s
+
+
+def _encode_residual(new_vecs, cents_rows):
+    """(packed codes, scales, reconstruction norms) of rows against their
+    cells' centroids.  Stored norms are the norms of the RECONSTRUCTION
+    c + q*s: cosine/euclidean then rank by the quantized vector's own
+    geometry."""
+    q, scale = _quantize_residual(new_vecs - cents_rows)
+    recon = cents_rows + q.float() * scale[:, None]
+    return _pack_int4(q), scale, _row_norms(recon)
+
+
+def _scatter_insert_int4r(packed, scales, norms, valid, rows, new_vecs,
+                          cents_rows):
+    """Residual insert: quantize (x - centroid) to packed int4."""
+    codes, scale, rnorm = _encode_residual(new_vecs, cents_rows)
+    packed.index_copy_(0, rows, codes)
+    scales.index_copy_(0, rows, scale)
+    norms.index_copy_(0, rows, rnorm)
+    valid.index_fill_(0, rows, True)
+
+
+def _bulk_build_int4r(xp, cents_rows, pos, n_rows):
+    """Bulk residual build into the cell-major layout: xp [n, W] f32,
+    cents_rows [n, W] (each row's centroid), pos [n] target rows."""
+    codes, scale, rnorm = _encode_residual(xp, cents_rows)
+    dev = xp.device
+    packed = torch.zeros((n_rows, xp.shape[1] // 2), dtype=torch.uint8,
+                         device=dev)
+    packed[pos] = codes
+    scales = torch.ones((n_rows,), dtype=torch.float32, device=dev)
+    scales[pos] = scale
+    norms = torch.zeros((n_rows,), dtype=torch.float32, device=dev)
+    norms[pos] = rnorm
+    valid = torch.zeros((n_rows,), dtype=torch.bool, device=dev)
+    valid[pos] = True
+    return packed, scales, norms, valid
+
+
 def _pad_rows(t: torch.Tensor, new_cap: int, fill=0) -> torch.Tensor:
     out = torch.full((new_cap, *t.shape[1:]), fill, dtype=t.dtype,
                      device=t.device)
     out[: t.shape[0]] = t
     return out
+
+
+def _implicit_ids(rows_np: np.ndarray) -> np.ndarray:
+    """Original-row results of a streaming-built store as ids (None where
+    the slot was empty, perm == -1)."""
+    return np.where(rows_np >= 0, rows_np.astype(str).astype(object), None)
 
 
 @dataclass
@@ -200,6 +326,10 @@ class SearchTicket:
     kb: int       # result columns computed on the device (the k bucket)
     t0: float = 0.0  # submit timestamp (for the store.search latency metric)
     event: Any = None  # torch.cuda.Event recorded after the search (CUDA)
+    rows_are_orig: bool = False  # streaming-built store: rows were mapped
+    #                    slot -> original row on the device, so ids are
+    #                    str(row) (valid even if the store materializes its
+    #                    host tables before completion)
 
 
 class DimensionMismatch(ValueError):
@@ -218,11 +348,16 @@ class VectorStore:
     name:    store name (unique within a registry).
     dim:     optional fixed dimension; otherwise set by the first insert.
     metric:  default distance metric ("cosine", like the reference).
-    dtype:   "float32" (exact) or "int8" (symmetric per-row quantized —
-             searched in the quantized domain).
-    device:  the torch.device holding the store (default: CUDA if present).
+    dtype:   "float32" (exact), "int8" (symmetric per-row quantized —
+             searched in the quantized domain), "int4" (packed nibbles, half
+             of int8's memory) or "int4r" (int4 cell residuals).
+    device:  the torch.device holding the store (default: the CUDA card;
+             without one, pass ``device="cpu"``).
     intkey:  int8 only: keep the key plane for the intkey scans.
     """
+
+    CELL_BLOCK = 64  # cells appended per growth step; keeps K a multiple of
+    #                  TILE_N / cell_cap so the fused scans stay tile-aligned
 
     def __init__(
         self,
@@ -235,10 +370,10 @@ class VectorStore:
     ):
         if metric not in VALID_METRICS:
             raise ValueError(f"metric must be one of {VALID_METRICS}, got {metric!r}")
-        if dtype in ("int4", "int4r"):
-            raise _not_ported(f"dtype={dtype!r}")
-        if dtype not in ("float32", "int8"):
-            raise ValueError(f"dtype must be 'float32' or 'int8', got {dtype!r}")
+        if dtype not in ("float32", "int8", "int4", "int4r"):
+            raise ValueError(
+                "dtype must be 'float32', 'int8', 'int4' or 'int4r', "
+                f"got {dtype!r}")
         if intkey and dtype != "int8":
             raise ValueError("intkey requires dtype='int8'")
         self.name = name
@@ -262,6 +397,24 @@ class VectorStore:
         self._codes_unit: Optional[torch.Tensor] = None
         self._plane_scale: Optional[float] = None
 
+        # int4r (cell-residual) state: rows live at cell*cell_cap + slot;
+        # codes are 4-bit residuals against the row's cell centroid
+        self._centroids: Optional[torch.Tensor] = None  # [K, W] f32
+        self._cell_cap = 0
+        self._cell_next: Optional[np.ndarray] = None   # per-cell slot HWM
+        self._cell_avail: Optional[np.ndarray] = None  # free slots per cell
+        self._cell_free: Dict[int, List[int]] = {}     # freed rows per cell
+        # realized max |int4 code|_2, the residual scan's key-window bound
+        # (lazy; invalidated by int4r inserts — a stale underestimate only
+        # costs worst-match rows their rank, never correctness)
+        self._code_norm_max: Optional[float] = None
+        # cell-layout drift since the last bulk build/refit (is_stale)
+        self._built_rows = 0
+        self._churn_inserts = 0
+        self._churn_deletes = 0
+        self._cells_at_build = 0
+        self.build_stats: dict = {}
+
         # Host state.
         self._id_to_row: Dict[str, int] = {}
         self._row_to_id: Dict[int, str] = {}
@@ -283,6 +436,13 @@ class VectorStore:
         # Bulk builds with implicit ids "0".."n-1" keep the dicts above empty
         # until the first targeted mutation materializes them.
         self._contig = 0
+        # Streaming cell builds (from_chunks) leave rows permuted by cell
+        # with the slot -> original-row map on the device: ids stay implicit
+        # ("0".."n-1" by original row) and search results are mapped by a
+        # device gather; the first targeted mutation materializes host
+        # tables from one perm readback.
+        self._perm_dev: Optional[torch.Tensor] = None
+        self._perm_count = 0
 
         self.version = 0
         self.created_at = time.time()
@@ -295,7 +455,7 @@ class VectorStore:
 
     @property
     def count(self) -> int:
-        return len(self._id_to_row) + self._contig
+        return len(self._id_to_row) + self._contig + self._perm_count
 
     @property
     def capacity(self) -> int:
@@ -305,12 +465,13 @@ class VectorStore:
         return self.count
 
     def __contains__(self, vector_id: str) -> bool:
-        if self._contig:
+        implicit = self._contig or self._perm_count
+        if implicit:
             sid = str(vector_id)
             # canonical form only: '007'/' 7'/'+7' are NOT stored ids
             if not (sid.isdigit() and (sid == "0" or sid[0] != "0")):
                 return False
-            return 0 <= int(sid) < self._contig
+            return 0 <= int(sid) < implicit
         return vector_id in self._id_to_row
 
     def _materialize(self) -> None:
@@ -318,9 +479,23 @@ class VectorStore:
         the first targeted mutation after a bulk build).  Guarded by its own
         mutex with ``_contig`` cleared LAST, since callers may hold only the
         read side of the store lock."""
-        if not self._contig:
+        if not self._contig and not self._perm_count:
             return
         with self._mat_lock:
+            if self._perm_count:
+                # streaming-built store: one perm readback (slot -> original
+                # row), then id tables keyed by original row, valued by slot
+                perm = self._perm_dev.cpu().numpy()
+                slots = np.where(perm >= 0)[0]
+                sids = perm[slots].astype(str)
+                self._id_to_row = dict(zip(sids.tolist(), slots.tolist()))
+                self._row_to_id = dict(zip(slots.tolist(), sids.tolist()))
+                if self._ids_np is None or len(self._ids_np) < self._capacity:
+                    self._ids_np = np.full((self._capacity,), None, object)
+                self._ids_np[slots] = sids.astype(object)
+                self._perm_count = 0   # publish: tables complete
+                self._perm_dev = None  # dispatch stops perm-mapping rows
+                return
             n = self._contig
             if not n:  # lost the race: another thread materialized
                 return
@@ -353,10 +528,31 @@ class VectorStore:
         if self._vectors is not None:
             return
         width = _pad128(self._dim)
+        dev = self.device
+        if self.dtype == "int4r":
+            # cell-residual stores start with zero cells; capacity grows by
+            # appending cells as inserts arrive (_place_in_cells)
+            self._cell_cap = self._cell_cap or 128
+            self._capacity = 0
+            self._vectors = torch.zeros((0, width // 2), dtype=torch.uint8,
+                                        device=dev)
+            self._scales = torch.ones((0,), dtype=torch.float32, device=dev)
+            self._norms = torch.zeros((0,), dtype=torch.float32, device=dev)
+            self._valid = torch.zeros((0,), dtype=torch.bool, device=dev)
+            self._centroids = torch.zeros((0, width), dtype=torch.float32,
+                                          device=dev)
+            self._cell_next = np.zeros((0,), np.int64)
+            self._cell_avail = np.zeros((0,), np.int64)
+            if self._ids_np is None:
+                self._ids_np = np.full((0,), None, object)
+            return
         cap = MIN_CAPACITY
         self._capacity = cap
-        dev = self.device
-        if self.dtype == "int8":
+        if self.dtype == "int4":
+            self._vectors = torch.zeros((cap, width // 2), dtype=torch.uint8,
+                                        device=dev)
+            self._scales = torch.ones((cap,), dtype=torch.float32, device=dev)
+        elif self.dtype == "int8":
             self._vectors = torch.zeros((cap, width), dtype=torch.int8, device=dev)
             self._scales = torch.ones((cap,), dtype=torch.float32, device=dev)
             if self.intkey and _plane_kind(self.metric) == "unit":
@@ -375,6 +571,9 @@ class VectorStore:
         new_cap = max(_next_pow2(new_cap), MIN_CAPACITY)
         if new_cap <= self._capacity:
             return
+        self._pad_capacity(new_cap)
+
+    def _pad_capacity(self, new_cap: int) -> None:
         self._vectors = _pad_rows(self._vectors, new_cap)
         if self._codes_unit is not None:
             self._codes_unit = _pad_rows(self._codes_unit, new_cap)
@@ -391,6 +590,103 @@ class VectorStore:
             newcol[: self._capacity] = col
             self._tag_cols[k] = newcol
         self._capacity = new_cap
+
+    # ------------------------------------------------- int4r cell machinery
+
+    def _take_slot(self, cell: int) -> int:
+        free = self._cell_free.get(cell)
+        if free:
+            row = free.pop()
+            if not free:
+                self._cell_free.pop(cell, None)
+        else:
+            row = cell * self._cell_cap + int(self._cell_next[cell])
+            self._cell_next[cell] += 1
+        self._cell_avail[cell] -= 1
+        return row
+
+    def _append_cells(self, new_cents: np.ndarray) -> int:
+        """Append real cells (padded to a CELL_BLOCK multiple with blocked
+        dummy cells so capacity stays scan-tile-aligned).  Returns the index
+        of the first new real cell."""
+        k_old = int(self._cell_next.shape[0])
+        a_real = new_cents.shape[0]
+        a_total = -(-(k_old + a_real) // self.CELL_BLOCK) * self.CELL_BLOCK - k_old
+        cents_pad = np.zeros((a_total, self._centroids.shape[1]), np.float32)
+        cents_pad[:a_real] = new_cents
+        self._centroids = torch.cat([self._centroids, self._put(cents_pad)])
+        next_pad = np.zeros((a_total,), np.int64)
+        next_pad[a_real:] = self._cell_cap  # blocked padding cells: full
+        avail_pad = np.full((a_total,), self._cell_cap, np.int64)
+        avail_pad[a_real:] = 0
+        self._cell_next = np.concatenate([self._cell_next, next_pad])
+        self._cell_avail = np.concatenate([self._cell_avail, avail_pad])
+        self._pad_capacity(self._capacity + a_total * self._cell_cap)
+        return k_old
+
+    def _place_in_cells(self, vecs: np.ndarray) -> np.ndarray:
+        """Assign fresh vectors to cells: nearest cell with space (top-J
+        preference walk), overflow spawning new cells trained on the
+        overflow itself.  Returns target rows."""
+        from erlvectordb_tpu_torch.core.ivf import _top_choices
+
+        m = vecs.shape[0]
+        rows = np.empty(m, np.int64)
+        unplaced = list(range(m))
+        k_cur = int(self._cell_next.shape[0])
+        width = self._centroids.shape[1]
+        if k_cur and int(self._cell_avail.sum()) > 0:
+            # the blocked padding cells (zero centroid, no space) are left
+            # out of the preference lists: a zero centroid sits closer to a
+            # row than every real cell but its own, so it would crowd the
+            # row's real neighbours out of its top-J (the JAX package keeps
+            # them, and a row whose own cell is full then spawns a block of
+            # new cells)
+            blocked = (self._cell_avail == 0) & ~torch.any(
+                self._centroids != 0, dim=1).cpu().numpy()
+            cand = np.where(~blocked)[0]
+            j = min(8, len(cand))
+            vp = np.zeros((m, width), np.float32)
+            vp[:, : vecs.shape[1]] = vecs
+            _, choices = _top_choices(self._put(vp),
+                                      self._centroids[self._put(cand)], j=j)
+            choices = cand[choices.cpu().numpy()]
+            still = []
+            for i in unplaced:
+                for jj in range(j):
+                    c = int(choices[i, jj])
+                    if self._cell_avail[c] > 0:
+                        rows[i] = self._take_slot(c)
+                        break
+                else:
+                    still.append(i)
+            unplaced = still
+        if unplaced:
+            ovp = np.zeros((len(unplaced), width), np.float32)
+            ovp[:, : vecs.shape[1]] = vecs[unplaced]
+            # target half-full new cells so neighbours of these rows have room
+            k_new = max(1, -(-len(unplaced) // max(1, self._cell_cap // 2)))
+            if k_new == 1 or len(unplaced) <= 2:
+                cents = ovp[:1]
+            else:
+                from erlvectordb_tpu_torch.ops.kmeans import kmeans_fit
+
+                cj, _ = kmeans_fit(self._put(ovp), 7, k=k_new, iters=5)
+                cents = cj.cpu().numpy()
+            first = self._append_cells(cents)
+            # nearest NEW cell with space (small set: host loop)
+            d2 = ((ovp[:, None, :] - cents[None, :, :]) ** 2).sum(-1)
+            pref = np.argsort(d2, axis=1)
+            for i_local, i in enumerate(unplaced):
+                for c_local in pref[i_local]:
+                    c = first + int(c_local)
+                    if self._cell_avail[c] > 0:
+                        rows[i] = self._take_slot(c)
+                        break
+                else:  # every new cell full: spawn a singleton cell
+                    rows[i] = self._take_slot(
+                        self._append_cells(ovp[i_local:i_local + 1]))
+        return rows
 
     def _alloc_rows(self, n: int) -> List[int]:
         rows: List[int] = []
@@ -460,6 +756,7 @@ class VectorStore:
             fast = (
                 not self._id_to_row
                 and not self._free_rows
+                and self.dtype != "int4r"  # rows place by cell, not append
                 and len(set(map(str, ids))) == len(ids)
             ) if len(ids) >= 1024 else False
             if fast:
@@ -471,22 +768,34 @@ class VectorStore:
                 self._next_row += n_new
             else:
                 rows = np.empty(len(ids), np.int64)
-                fresh_needed = []
-                for i, vid in enumerate(ids):
-                    existing = self._id_to_row.get(str(vid))
-                    if existing is not None:
-                        rows[i] = existing
-                    else:
-                        fresh_needed.append(i)
-                fresh_rows = self._alloc_rows(len(fresh_needed))
-                for i, row in zip(fresh_needed, fresh_rows):
-                    rows[i] = row
+                if self.dtype == "int4r":
+                    rows[:] = self._place_int4r(ids, arr)
+                else:
+                    fresh_needed = []
+                    for i, vid in enumerate(ids):
+                        existing = self._id_to_row.get(str(vid))
+                        if existing is not None:
+                            rows[i] = existing
+                        else:
+                            fresh_needed.append(i)
+                    fresh_rows = self._alloc_rows(len(fresh_needed))
+                    for i, row in zip(fresh_needed, fresh_rows):
+                        rows[i] = row
             width = _pad128(arr.shape[1])
             arr_dev = np.zeros((len(ids), width), np.float32)
             arr_dev[:, : arr.shape[1]] = arr
             rows_t = self._put(rows)
             vecs_t = self._put(arr_dev)
-            if self.dtype == "int8":
+            if self.dtype == "int4r":
+                cells_t = self._put(rows // self._cell_cap)
+                _scatter_insert_int4r(self._vectors, self._scales, self._norms,
+                                      self._valid, rows_t, vecs_t,
+                                      self._centroids[cells_t])
+                self._code_norm_max = None  # realized bound may have grown
+            elif self.dtype == "int4":
+                _scatter_insert_int4(self._vectors, self._scales, self._norms,
+                                     self._valid, rows_t, vecs_t)
+            elif self.dtype == "int8":
                 _scatter_insert_int8(self._vectors, self._scales, self._norms,
                                      self._valid, rows_t, vecs_t)
                 if self.intkey and self._codes_unit is not None:
@@ -525,6 +834,34 @@ class VectorStore:
             self._update_tags(rows, metadatas)
             self.version += 1
 
+    def _place_int4r(self, ids, arr) -> np.ndarray:
+        """Target rows of an int4r insert batch.  Overwrites RE-PLACE: the
+        residual of a new vector against the old cell's centroid can be
+        whole-vector sized, so the old slot is freed and the row placed
+        afresh; freed slots this batch does not reuse become invalid."""
+        stale = []
+        for vid in map(str, ids):
+            old = self._id_to_row.get(vid)
+            if old is not None:
+                stale.append(old)
+                cell = old // self._cell_cap
+                self._cell_free.setdefault(cell, []).append(old)
+                self._cell_avail[cell] += 1
+                del self._id_to_row[vid]
+                del self._row_to_id[old]
+                self._ids_np[old] = None
+                for col in self._tag_cols.values():
+                    col[old] = 0
+        rows = self._place_in_cells(arr)
+        self._churn_inserts += len(ids)
+        if stale:
+            taken = set(rows.tolist())
+            dead = [r for r in stale if r not in taken]
+            if dead:
+                _scatter_delete(self._valid,
+                                self._put(np.asarray(dead, np.int64)))
+        return rows
+
     # ---------------------------------------------------------------- delete
 
     def delete(self, vector_id: str) -> bool:
@@ -556,7 +893,13 @@ class VectorStore:
                 del self._id_to_row[vid]
                 del self._row_to_id[row]
                 self._metadata.pop(vid, None)
-                self._free_rows.append(row)
+                if self.dtype == "int4r":
+                    cell = row // self._cell_cap
+                    self._cell_free.setdefault(cell, []).append(row)
+                    self._cell_avail[cell] += 1
+                    self._churn_deletes += 1
+                else:
+                    self._free_rows.append(row)
                 self._ids_np[row] = None
             for col in self._tag_cols.values():
                 col[rows] = 0
@@ -712,7 +1055,8 @@ class VectorStore:
         metrics.inc("store.search_total")
         metrics.inc("store.queries_total", t.nq)
         with self._lock.read():
-            return self._map_results(dists_np, rows_np, t.k, t.kb)
+            return self._map_results(dists_np, rows_np, t.k, t.kb,
+                                     rows_are_orig=t.rows_are_orig)
 
     def search_batch_complete_raw(self, t: SearchTicket):
         """Columnar completion: (distances [nq, kk] f32, rows [nq, kk] int32,
@@ -724,6 +1068,9 @@ class VectorStore:
         dists_np, rows_np = self._readback(t)
         dists_np = dists_np[:, :kk]
         rows_np = rows_np[:, :kk]
+        if t.rows_are_orig:
+            # streaming-built store: rows already ARE the implicit ids
+            return dists_np, rows_np, _implicit_ids(rows_np)
         with self._lock.read():
             ids = self._ids_view()[rows_np]
         return dists_np, rows_np, ids
@@ -736,11 +1083,14 @@ class VectorStore:
         kb = t.kb
         return arr[:, :kb], np.ascontiguousarray(arr[:, kb:]).view(np.int32)
 
-    def _map_results(self, dists_np, rows_np, k, kb):
+    def _map_results(self, dists_np, rows_np, k, kb, rows_are_orig=False):
         """Vectorized row->id mapping: one fancy-index into the columnar id
         table + tolist()."""
         kk = min(k, kb)
-        ids_l = self._ids_view()[rows_np[:, :kk]].tolist()
+        if rows_are_orig:
+            ids_l = _implicit_ids(rows_np[:, :kk]).tolist()
+        else:
+            ids_l = self._ids_view()[rows_np[:, :kk]].tolist()
         d_l = dists_np[:, :kk].tolist()
         md = self._metadata
         isfinite = math.isfinite
@@ -780,6 +1130,8 @@ class VectorStore:
                 fm = fm[: valid.shape[0]]
             valid = valid & fm
 
+        if self.dtype == "int4r":
+            return self._dispatch_int4r(q_t, valid, nq, k, kb, metric)
         if ft.fused_topk_available(self.count, self._capacity, metric,
                                    self.device, kb):
             nt = ft.n_tiles_for(self._next_row, self._capacity)
@@ -795,16 +1147,46 @@ class VectorStore:
                     ps = self._plane_scale
             dists, rows = ft.fused_topk(
                 self._vectors,
-                self._scales if self.dtype == "int8" else None,
+                self._scales if self.dtype in ("int8", "int4") else None,
                 self._norms, valid, q_t, metric=metric, k=kb, n_tiles=nt,
                 codes_unit=cu, plane_scale=ps)
         elif self.dtype == "int8":
             dists, rows = search_mod.exact_topk_int8(
                 self._vectors, self._scales, self._norms, valid, q_t,
                 metric=metric, k=kb)
+        elif self.dtype == "int4":
+            dists, rows = search_mod.exact_topk_int4(
+                self._vectors, self._scales, self._norms, valid, q_t,
+                metric=metric, k=kb)
         else:
             dists, rows = search_mod.exact_topk(
                 self._vectors, self._norms, valid, q_t, metric=metric, k=kb)
+        return self._finish_ticket(dists, rows, nq, k)
+
+    def _dispatch_int4r(self, q_t, valid, nq, k, kb, metric) -> SearchTicket:
+        """int4r search: the residual scans (B5 at >= POS_MIN_TILES tiles,
+        B6 below) on a CUDA device, the exact scan otherwise; rows of a
+        streaming-built store are mapped slot -> original row on the
+        device."""
+        if ft.residual_scan_applies(self._capacity, self._cell_cap, metric,
+                                    self.device, kb):
+            if self._code_norm_max is None:
+                self._code_norm_max = ft.max_code_norm(self._vectors)
+            dists, rows = ft.fused_topk_residual(
+                self._vectors, self._scales, self._norms, valid,
+                self._centroids, q_t, metric=metric, k=kb,
+                n_tiles=ft.n_tiles_for(self._capacity, self._capacity),
+                cell_cap=self._cell_cap, code_norm_bound=self._code_norm_max,
+                slice_w=ft.POS_RES_W, t_top=ft.POS_RES_T)
+        else:
+            dists, rows = search_mod.exact_topk_int4r(
+                self._vectors, self._scales, self._norms, valid,
+                self._centroids, q_t, metric=metric, k=kb,
+                cell_cap=self._cell_cap)
+        if self._perm_dev is not None:
+            rows = self._perm_dev[torch.clamp(rows.long(), 0,
+                                              self._perm_dev.shape[0] - 1)]
+            return self._finish_ticket(dists, rows, nq, k, rows_are_orig=True)
         return self._finish_ticket(dists, rows, nq, k)
 
     def _ensure_unit_plane(self):
@@ -829,7 +1211,7 @@ class VectorStore:
                     self._vectors, self._scales, self._valid, self._plane_scale)
         return self._codes_unit
 
-    def _finish_ticket(self, dists, rows, nq, k):
+    def _finish_ticket(self, dists, rows, nq, k, rows_are_orig=False):
         """Pack (dists | rows bitcast to f32) into one tensor so completion
         is a single device->host copy, and record an event behind it.  The
         ticket's width is the result's own: a key scan over fewer slices than
@@ -841,7 +1223,7 @@ class VectorStore:
             event = torch.cuda.Event()
             event.record()
         return SearchTicket(packed, nq, min(k, self.count), int(dists.shape[1]),
-                            event=event)
+                            event=event, rows_are_orig=rows_are_orig)
 
     # ------------------------------------------------------------- accessors
 
@@ -852,9 +1234,15 @@ class VectorStore:
             row = self._id_to_row.get(str(vector_id))
             if row is None:
                 return None
-            vec = self._vectors[row].cpu().numpy()[: self._dim]
-            if self.dtype == "int8":
+            vec = self._vectors[row].cpu().numpy()
+            if self.dtype in ("int4", "int4r"):
+                vec = _unpack_int4_np(vec[None, :])[0]
+            vec = vec[: self._dim]
+            if self.dtype != "float32":
                 vec = vec.astype(np.float32) * float(self._scales[row])
+            if self.dtype == "int4r":
+                cent = self._centroids[row // self._cell_cap].cpu().numpy()
+                vec = vec + cent[: self._dim]
             return vec, self._metadata.get(str(vector_id), {})
 
     def get_all_vectors(self) -> List[Tuple[str, np.ndarray, Any]]:
@@ -865,14 +1253,20 @@ class VectorStore:
                 return []
             rows = sorted(self._row_to_id)
             mat = self._vectors.cpu().numpy()  # one transfer
-            scales = (self._scales.cpu().numpy() if self.dtype == "int8"
+            if self.dtype in ("int4", "int4r"):
+                mat = _unpack_int4_np(mat)
+            scales = (self._scales.cpu().numpy() if self.dtype != "float32"
                       else None)
+            cents = (self._centroids.cpu().numpy() if self.dtype == "int4r"
+                     else None)
             out = []
             for row in rows:
                 vid = self._row_to_id[row]
                 vec = mat[row][: self._dim]
                 if scales is not None:
                     vec = vec.astype(np.float32) * scales[row]
+                if cents is not None:
+                    vec = vec + cents[row // self._cell_cap][: self._dim]
                 out.append((vid, vec, self._metadata.get(vid, {})))
             return out
 
@@ -898,6 +1292,8 @@ class VectorStore:
             total += self._codes_unit.numel()
         if self._scales is not None:
             total += self._scales.numel() * 4
+        if self._centroids is not None:
+            total += self._centroids.numel() * 4
         return int(total)
 
     # ----------------------------------------------------- state export/import
@@ -926,6 +1322,12 @@ class VectorStore:
                 state["valid"] = self._valid.cpu().numpy()
                 if self._scales is not None:
                     state["scales"] = self._scales.cpu().numpy()
+            if self.dtype == "int4r" and self._centroids is not None:
+                state["centroids"] = self._centroids.cpu().numpy()
+                state["cell_cap"] = self._cell_cap
+                state["cell_next"] = [int(x) for x in self._cell_next]
+                state["cell_free"] = {
+                    str(c): list(v) for c, v in self._cell_free.items()}
             return state
 
     @classmethod
@@ -933,7 +1335,13 @@ class VectorStore:
                    ) -> "VectorStore":
         """A store from an exported state dict — this package's or the JAX
         package's ``VectorStore.export_state()`` (numpy arrays).  An intkey
-        store's key plane is re-derived from the absmax plane."""
+        store's key plane is re-derived from the absmax plane.  States with
+        the int4r second stage (``rq_codes``) or a spilled layout are
+        refused: neither is ported yet."""
+        if "rq_codes" in state:
+            raise _not_ported("the int4r second stage (rq_m)")
+        if state.get("spilled"):
+            raise _not_ported("spilled (multi-assigned) cell layouts")
         store = cls(
             state["name"],
             dim=state.get("dim"),
@@ -952,6 +1360,18 @@ class VectorStore:
             store._valid = store._put(np.asarray(state["valid"], bool))
             if state.get("scales") is not None:
                 store._scales = store._put(np.asarray(state["scales"], np.float32))
+        if store.dtype == "int4r" and "centroids" in state:
+            store._centroids = store._put(
+                np.asarray(state["centroids"], np.float32))
+            store._cell_cap = int(state.get("cell_cap", 64))
+            store._cell_next = np.asarray(state.get("cell_next", []), np.int64)
+            store._cell_free = {
+                int(c): [int(r) for r in v]
+                for c, v in (state.get("cell_free") or {}).items()}
+            store._cell_avail = (
+                store._cell_cap - store._cell_next
+                + np.array([len(store._cell_free.get(c, []))
+                            for c in range(len(store._cell_next))], np.int64))
         store._id_to_row = {str(k): int(v)
                             for k, v in state.get("id_to_row", {}).items()}
         store._row_to_id = {v: k for k, v in store._id_to_row.items()}
@@ -982,6 +1402,213 @@ class VectorStore:
                 n += 1
         return n
 
+    # ------------------------------------------------------- cell refit/drift
+
+    def drift(self) -> dict:
+        """Cell-layout drift since the last bulk build/refit (int4r):
+        ``fraction`` is (inserts + deletes) / built rows, the knob
+        ``is_stale`` thresholds on; ``overflow_cells`` counts cells spawned
+        after the build (insert overflow)."""
+        cells_now = (int(self._cell_next.shape[0])
+                     if self._cell_next is not None else 0)
+        churn = self._churn_inserts + self._churn_deletes
+        return {
+            "built_rows": self._built_rows,
+            "inserts_since_build": self._churn_inserts,
+            "deletes_since_build": self._churn_deletes,
+            "overflow_cells": max(0, cells_now - self._cells_at_build),
+            "fraction": churn / max(self._built_rows, 1),
+        }
+
+    def is_stale(self, threshold: float = 0.25) -> bool:
+        """True when cell-layout churn exceeds ``threshold`` of the built
+        corpus — the refit trigger."""
+        if self.dtype != "int4r" or not self._built_rows:
+            return False
+        return self.drift()["fraction"] > threshold
+
+    def rebuild_cells(self) -> dict:
+        """Refit the cell layout in place: dequantize the live corpus, re-run
+        the bulk residual build (fresh k-means + balanced assignment +
+        encode), keep ids and metadata.  The refit sees only the store's
+        quantized codes, so each refit re-quantizes reconstructions.
+        Returns the post-refit drift dict (zeroed counters)."""
+        if self.dtype != "int4r":
+            raise ValueError("rebuild_cells applies to int4r stores only")
+        with self._lock.write():
+            self._materialize()
+            if not self._id_to_row:
+                return self.drift()
+            ids, rows = zip(*sorted(self._id_to_row.items(),
+                                    key=lambda kv: kv[1]))
+            rows_t = self._put(np.asarray(rows, np.int64))
+            q = ft.unpack_int4(self._vectors[rows_t]).float()
+            vecs = (self._centroids[rows_t // self._cell_cap]
+                    + q * self._scales[rows_t][:, None])
+            self._build_int4r(vecs[:, : self._dim].cpu().numpy(), list(ids))
+            self._tag_cols = {}
+            self._dmask_cache = {}
+            self.version += 1
+            return self.drift()
+
+    # ------------------------------------------------------------ bulk build
+
+    def _build_int4r(self, matrix, ids: Optional[Sequence[str]]) -> None:
+        """Bulk cell-residual build: k-means cells (~96 rows each), balanced
+        capacity-128 assignment with two capacity-constrained Lloyd
+        refinements, residual int4 quantization.  From 200k rows the
+        device-side streaming engine builds instead (ops/cell_build.py)."""
+        from erlvectordb_tpu_torch.core.ivf import _balanced_assign
+        from erlvectordb_tpu_torch.ops.kmeans import kmeans_fit
+
+        x = np.asarray(matrix, np.float32)
+        n, d = x.shape
+        if n >= 200_000:
+            self._build_int4r_device(x, ids)
+            return
+        width = _pad128(d)
+        xp = x if width == d else np.pad(x, ((0, 0), (0, width - d)))
+        cap_c = 128
+        k_real = max(1, -(-n // 96))  # 75% occupancy of cap-128 cells
+        k_total = -(-k_real // self.CELL_BLOCK) * self.CELL_BLOCK
+        # the initial k-means only SEEDS the cells (the capacity-constrained
+        # refit rounds below run full-data Lloyd steps)
+        if n > 300_000:
+            sel = np.random.default_rng(0).choice(n, 300_000, replace=False)
+            train = xp[sel]
+        else:
+            train = xp
+        cents_t, _ = kmeans_fit(self._put(train), 0, k=k_real, iters=10)
+        cents_np = cents_t.cpu().numpy()
+        owner = _balanced_assign(xp, cents_np, cap_c, j=16, device=self.device)
+        # capacity-constrained Lloyd refinement: refit each centroid to the
+        # members it actually got, then reassign
+        xp_t = self._put(xp)
+        for _ in range(2):
+            owner_t = self._put(owner)
+            sums = torch.zeros((k_real, width), dtype=torch.float32,
+                               device=self.device).index_add_(0, owner_t, xp_t)
+            cnt = torch.zeros((k_real,), dtype=torch.float32,
+                              device=self.device).index_add_(
+                0, owner_t, torch.ones((n,), dtype=torch.float32,
+                                       device=self.device))
+            cents_np = (sums / torch.clamp(cnt, min=1.0)[:, None]).cpu().numpy()
+            owner = _balanced_assign(xp, cents_np, cap_c, j=16,
+                                     device=self.device)
+        order = np.argsort(owner, kind="stable")
+        counts = np.bincount(owner, minlength=k_real)
+        starts = np.zeros(k_real, np.int64)
+        starts[1:] = np.cumsum(counts)[:-1]
+        rank = np.empty(n, np.int64)
+        rank[order] = np.arange(n) - starts[owner[order]]
+        pos = owner * cap_c + rank
+
+        n_rows = k_total * cap_c
+        cents_rows = self._put(cents_np)[self._put(owner)]
+        (self._vectors, self._scales, self._norms,
+         self._valid) = _bulk_build_int4r(xp_t, cents_rows, self._put(pos),
+                                          n_rows)
+        del xp_t, cents_rows
+        cents_pad = np.zeros((k_total, width), np.float32)
+        cents_pad[:k_real] = cents_np
+        cell_next = np.zeros(k_total, np.int64)
+        cell_next[:k_real] = counts
+        self._set_cells(self._put(cents_pad), cap_c, cell_next, k_real)
+        sids = self._bulk_ids(ids, n)
+        self._id_to_row = dict(zip(sids, pos.tolist()))
+        self._row_to_id = dict(zip(pos.tolist(), sids))
+        self._ids_np = np.full((n_rows,), None, object)
+        self._ids_np[pos] = sids
+        self._built_rows = n
+
+    def _set_cells(self, centroids, cell_cap, cell_next, k_real) -> None:
+        """Adopt a freshly built cell layout (cells past ``k_real`` are
+        blocked padding)."""
+        self._centroids = centroids
+        self._cell_cap = cell_cap
+        self._capacity = centroids.shape[0] * cell_cap
+        self._next_row = self._capacity
+        cell_next = cell_next.copy()
+        cell_next[k_real:] = cell_cap
+        self._cell_next = cell_next
+        self._cell_avail = np.where(np.arange(len(cell_next)) < k_real,
+                                    cell_cap - cell_next, 0)
+        self._cell_free = {}
+        self._code_norm_max = None
+        self._churn_inserts = self._churn_deletes = 0
+        self._cells_at_build = k_real
+
+    @staticmethod
+    def _bulk_ids(ids, n) -> List[str]:
+        sids = ([str(v) for v in ids] if ids is not None
+                else [str(i) for i in range(n)])
+        if ids is not None and len(sids) != n:
+            raise ValueError("ids and matrix length mismatch")
+        if len(set(sids)) != n:
+            raise ValueError("duplicate ids in bulk build")
+        return sids
+
+    def _adopt_cell_build(self, res) -> None:
+        self._vectors, self._scales = res.codes, res.scales
+        self._norms, self._valid = res.norms, res.valid
+        self._set_cells(res.centroids, res.cell_cap, res.counts,
+                        res.stats["n_cells_real"])
+        self.build_stats = res.stats
+
+    def _build_int4r_device(self, x: np.ndarray,
+                            ids: Optional[Sequence[str]]) -> None:
+        """Bulk int4r build through the device streaming engine, with the
+        from_matrix contract (explicit ids, materialized host tables).  The
+        one O(N) readback is the slot permutation."""
+        from erlvectordb_tpu_torch.ops.cell_build import build_cells_streaming
+
+        n, d = x.shape
+        ch = min(n, 262_144)
+        res = build_cells_streaming(
+            (x[i:i + ch] for i in range(0, n, ch)), n=n, dim=d, cell_rows=96,
+            cell_cap=128, residual_bits=4, k_block=self.CELL_BLOCK,
+            kmeans_init="random", kmeans_iters=6, refits=1,
+            aniso_eta=4.0 if self.metric in ("cosine", "dot") else 1.0,
+            device=self.device)
+        self._adopt_cell_build(res)
+        perm = res.perm.cpu().numpy()
+        slots = np.where(perm >= 0)[0]
+        sarr = np.asarray(self._bulk_ids(ids, n), object)[perm[slots]]
+        self._id_to_row = dict(zip(sarr.tolist(), slots.tolist()))
+        self._row_to_id = dict(zip(slots.tolist(), sarr.tolist()))
+        self._ids_np = np.full((self._capacity,), None, object)
+        self._ids_np[slots] = sarr
+        self._built_rows = n
+
+    @classmethod
+    def from_chunks(cls, name: str, chunks, *, n: int, dim: int,
+                    metric: str = "cosine",
+                    device: Optional[torch.device] = None,
+                    cell_rows: int = 96, cell_cap: int = 128,
+                    **build_kw) -> "VectorStore":
+        """Streaming int4r bulk build: consumes [CH, dim] f32 chunks (host
+        arrays or tensors) through the device-side cell build engine
+        (ops/cell_build.py) — centroids, balanced assignment, residual
+        encode and the slot -> row permutation all stay on the device.
+
+        Ids are implicit ("0".."n-1" by arrival order); the first targeted
+        mutation (get/delete/insert) materializes host id tables from one
+        perm readback.  Build stats land in ``store.build_stats``."""
+        from erlvectordb_tpu_torch.ops.cell_build import build_cells_streaming
+
+        store = cls(name, dim=dim, metric=metric, dtype="int4r", device=device)
+        res = build_cells_streaming(
+            chunks, n=n, dim=dim, cell_rows=cell_rows, cell_cap=cell_cap,
+            residual_bits=4, k_block=cls.CELL_BLOCK, device=store.device,
+            **build_kw)
+        store._adopt_cell_build(res)
+        store._perm_dev = res.perm
+        store._perm_count = n
+        store._ids_np = None   # allocated on materialization only
+        store._built_rows = n
+        store.version = 1
+        return store
+
     @classmethod
     def from_matrix(
         cls,
@@ -993,6 +1620,7 @@ class VectorStore:
         device: Optional[torch.device] = None,
         metadatas: Optional[Sequence[dict]] = None,
         intkey: bool = False,
+        rq_m: int = 0,
     ) -> "VectorStore":
         """Bulk index build: one host->device transfer and a few tensor ops,
         no per-row host bookkeeping.  With ``ids=None`` row i gets the
@@ -1001,6 +1629,21 @@ class VectorStore:
         (already on the device, for corpora generated there)."""
         store = cls(name, metric=metric, dtype=dtype, device=device,
                     intkey=intkey)
+        if rq_m:
+            raise _not_ported("the int4r second stage (rq_m)")
+        if store.dtype == "int4r":
+            x = (matrix.detach().cpu().numpy() if isinstance(matrix, torch.Tensor)
+                 else np.asarray(matrix, np.float32))
+            store._dim = x.shape[1]
+            store._build_int4r(x, ids)
+            if metadatas is not None:
+                if len(metadatas) != x.shape[0]:
+                    raise ValueError("metadatas and matrix length mismatch")
+                eff = ids if ids is not None else range(x.shape[0])
+                store._metadata = {str(v): (m or {})
+                                   for v, m in zip(eff, metadatas)}
+            store.version = 1
+            return store
         if isinstance(matrix, torch.Tensor):
             arr = matrix.to(device=store.device, dtype=torch.float32)
         else:
@@ -1025,6 +1668,9 @@ class VectorStore:
                         store._plane_scale = 1.25 * nmax
                         store._codes_unit = _bulk_build_mag(
                             arr, cap, 127.0 / store._plane_scale)
+        elif store.dtype == "int4":
+            (store._vectors, store._scales, store._norms,
+             store._valid) = _bulk_build_int4(arr, cap)
         else:
             store._vectors, store._norms, store._valid = _bulk_build_f32(arr, cap)
         del arr

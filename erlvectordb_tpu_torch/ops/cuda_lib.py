@@ -2,9 +2,11 @@
 
 The sources are compiled at first use into a plain-C shared library for
 ``sm_90a`` (Hopper) under ``build/erlvectordb_tpu_torch/<hash>/`` beside the
-package, keyed by a hash of the sources and flags so an edited kernel is
-never served from a stale build.  Nothing here runs at import: the CPU test
-suite imports every module and has no nvcc.
+package, keyed by a hash of the sources, the shared header and the flags so
+an edited kernel is never served from a stale build.  Each source compiles
+in its own nvcc process, all started together, and one link joins the
+objects.  Nothing here runs at import: the CPU test suite imports every
+module and has no nvcc.
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_topk.cu",)
+SOURCES = ("fused_topk.cu", "residual_scan.cu")
+HEADERS = ("scan_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "erlvectordb_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +39,12 @@ _SIGNATURES = {
     "evdb_pos_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "evdb_fused_scan_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "evdb_fused_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_pos_scan_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "evdb_fused_scan_i4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_pos_residual_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _P, _P],
+    "evdb_cell_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -58,7 +67,7 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for name in SOURCES:
+        for name in SOURCES + HEADERS:
             digest.update((CSRC / name).read_bytes())
         out_dir = BUILD_ROOT / digest.hexdigest()[:16]
         so = out_dir / "libevdb_kernels.so"
@@ -66,16 +75,7 @@ def library() -> ctypes.CDLL:
         log = ""
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[str(CSRC / s) for s in SOURCES]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, so)
+            log = _build(out_dir, so)
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in _SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
@@ -84,6 +84,36 @@ def library() -> ctypes.CDLL:
                           log=log)
         _lib = lib
         return lib
+
+
+def _build(out_dir: Path, so: Path) -> str:
+    """One nvcc per source, all running at once, then one link; the
+    library lands under its final name by an atomic rename."""
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        nvcc = _nvcc()
+        objs = [work / (Path(src).stem + ".o") for src in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        failed = [src for src, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = work / so.name
+        proc = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+        return log
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def check(rc: int, name: str) -> None:

@@ -155,7 +155,7 @@ TOOLS: Dict[str, dict] = {
                 "name": {"type": "string", "description": "Store name"},
                 "dimension": {"type": "integer", "description": "Optional fixed dimension"},
                 "metric": {"type": "string", "enum": ["cosine", "euclidean", "manhattan", "dot"]},
-                "dtype": {"type": "string", "enum": ["float32", "int8"]},
+                "dtype": {"type": "string", "enum": ["float32", "int8", "int4"]},
                 "intkey": {"type": "boolean",
                            "description": "int8 stores: keep the int8 key "
                            "plane that the fastest scans select on"},

@@ -5,7 +5,8 @@ machine with a card (and no JAX), run them with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: tests/conftest.py configures JAX for the rest of the
-suite).  Shapes are small but ragged — a query count that is not a multiple
+suite).  Besides the kernels, the int4 and int4r stores run insert, delete
+and search through the store's kernel dispatch on the card.  Shapes are small but ragged — a query count that is not a multiple
 of the kernels' query groups, rows two staged pieces wide — so the edges of
 the kernels' tiling are exercised; chip_smoke.py checks the same bars at the
 full config-3 shapes.
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 import erlvectordb_tpu_torch.ops.fused_topk as ft
-from erlvectordb_tpu_torch.core.store import _encode_unit
+from erlvectordb_tpu_torch.core.store import _encode_unit, _pack_int4
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +136,193 @@ def test_wrappers_validate(inputs):
         ft.intkey_scan(codes, q_in, N_TILES + 1)
     with pytest.raises(ValueError):
         ft.intkey_scan(codes, q_in.float(), N_TILES)
+
+
+# ------------------------------------------------ packed int4, B5 and B6
+
+
+def _pack4(x):
+    """Packed int4 codes and scales of rows x (the int4 store's encoding)."""
+    absmax = x.abs().amax(dim=1)
+    scales = torch.where(absmax > 0, ft.div_scalar(absmax, 7.0),
+                         torch.ones_like(absmax))
+    q = torch.clamp(torch.round(x / scales[:, None]), -7, 7).to(torch.int8)
+    return _pack_int4(q), scales
+
+
+@pytest.fixture(scope="module")
+def int4_inputs(inputs):
+    x, q, valid, codes, scales, norms = inputs
+    packed, s4 = _pack4(x)
+    return x, q, valid, packed, s4, norms
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_pos_kernel_keys_int4(int4_inputs, metric):
+    x, q, valid, packed, s4, norms = int4_inputs
+    q_in, qmult, rowmult, rowbias, _ = ft._affine_factors(metric, s4, norms,
+                                                          valid, q)
+    f, g, m, b = ft._pos_window(packed, s4, norms, valid, q_in, qmult, rowmult,
+                                rowbias, metric)
+    use_qm = metric == "euclidean"
+    ft.reset_launches()
+    kern = ft.pos_scan(packed, q_in, qmult, f, g, m, b, N_TILES, use_qm)
+    assert ft.pos_scan.launches_by == {"int4": 1}
+    torch.testing.assert_close(
+        kern, ft.pos_scan_ref(packed, q_in, qmult, f, g, m, b, N_TILES, use_qm),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t_per_tile", [2, 4, 8])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_fused_kernel_int4(int4_inputs, metric, t_per_tile):
+    x, q, valid, packed, s4, norms = int4_inputs
+    q_in, qmult, rowmult, rowbias, _ = ft._affine_factors(metric, s4, norms,
+                                                          valid, q)
+    vk, rk = ft.fused_scan(packed, q_in, qmult, rowmult, rowbias, N_TILES,
+                           t_per_tile)
+    vr, rr = ft.fused_scan_ref(packed, q_in, qmult, rowmult, rowbias, N_TILES,
+                               t_per_tile)
+    torch.testing.assert_close(rk, rr, rtol=0, atol=0)
+    torch.testing.assert_close(vk, vr, rtol=0, atol=0)
+
+
+def _residual_args(inputs, metric, cell_cap):
+    """A cell layout over the fixture rows: centroid of each cell's rows,
+    packed residuals, reconstruction norms, and both scans' factors."""
+    x, q, valid, *_ = inputs
+    n = ROWS
+    cents = x[:n].reshape(n // cell_cap, cell_cap, -1).mean(dim=1)
+    packed, s4 = _pack4(x[:n] - cents.repeat_interleave(cell_cap, dim=0))
+    recon = (cents.repeat_interleave(cell_cap, dim=0)
+             + ft.unpack_int4(packed).float() * s4[:, None])
+    norms, vld = recon.norm(dim=1), valid[:n]
+    (q_in, qmult, rowmult, rowbias, _, qmult2, rowmult2, table,
+     qa) = ft.residual_factors(metric, s4, norms, vld, cents, q, N_TILES,
+                               cell_cap)
+    ma, mb, bb, f, g = ft._residual_window(
+        metric, norms, vld, q_in, qa, rowmult, rowmult2, table, cell_cap,
+        ft.max_code_norm(packed))
+    return packed, dict(q_in=q_in, qmult=qmult, rowmult=rowmult,
+                        rowbias=rowbias, qmult2=qmult2, rowmult2=rowmult2,
+                        table=table, qa=qa, f=f, g=g, ma=ma, mb=mb, bb=bb)
+
+
+@pytest.mark.parametrize("slice_w,t_top", [(1024, 8), (1024, 2), (512, 4),
+                                           (256, 1)])
+@pytest.mark.parametrize("cell_cap", [128, 512])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_pos_residual_kernel_bit_identical(inputs, metric, cell_cap, slice_w,
+                                           t_top):
+    packed, a = _residual_args(inputs, metric, cell_cap)
+    args = (packed, a["q_in"], a["qa"], a["f"], a["g"], a["ma"], a["mb"],
+            a["bb"], a["table"], N_TILES, cell_cap, slice_w, t_top)
+    ft.reset_launches()
+    kern = ft.pos_residual_scan(*args)
+    assert ft.pos_residual_scan.launches == 1
+    torch.testing.assert_close(kern, ft.pos_residual_scan_ref(*args),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t_per_tile", [2, 4, 8])
+@pytest.mark.parametrize("cell_cap", [128, 512])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_cell_kernel_bit_identical(inputs, metric, cell_cap, t_per_tile):
+    packed, a = _residual_args(inputs, metric, cell_cap)
+    args = (packed, a["q_in"], a["qmult"], a["rowmult"], a["rowbias"],
+            a["qmult2"], a["rowmult2"], a["table"], N_TILES, t_per_tile,
+            cell_cap)
+    ft.reset_launches()
+    vk, rk = ft.cell_scan(*args)
+    assert ft.cell_scan.launches == 1
+    vr, rr = ft.cell_scan_ref(*args)
+    torch.testing.assert_close(rk, rr, rtol=0, atol=0)
+    torch.testing.assert_close(vk, vr, rtol=0, atol=0)
+
+
+def test_residual_wrappers_validate(inputs):
+    packed, a = _residual_args(inputs, "cosine", 128)
+    with pytest.raises(ValueError):   # table too narrow for the scanned rows
+        ft.pos_residual_scan(packed, a["q_in"], a["qa"], a["f"], a["g"],
+                             a["ma"], a["mb"], a["bb"], a["table"][:, :5],
+                             N_TILES, 128, 1024, 8)
+    with pytest.raises(ValueError):   # t_top the kernel has no variant for
+        ft.pos_residual_scan(packed, a["q_in"], a["qa"], a["f"], a["g"],
+                             a["ma"], a["mb"], a["bb"], a["table"], N_TILES,
+                             128, 1024, 3)
+    with pytest.raises(ValueError):   # B6 takes packed codes only
+        ft.cell_scan(inputs[3], a["q_in"], a["qmult"], a["rowmult"],
+                     a["rowbias"], a["qmult2"], a["rowmult2"], a["table"],
+                     N_TILES, 2, 128)
+
+
+# ------------------------------------------- stores through the kernels
+
+
+def _clustered(rng, n, d=100, centres=64, noise=0.35):
+    c = rng.standard_normal((centres, d)).astype(np.float32)
+    return (c[rng.integers(0, centres, n)]
+            + noise * rng.standard_normal((n, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("pos", [False, True], ids=["B6", "B5"])
+def test_int4r_store_through_kernels(dev, monkeypatch, pos):
+    """An int4r store on the card: insert, delete and search go through the
+    store's kernel dispatch (B6 below the pos gate, B5 above it), and agree
+    with the same store's exact scan on the CPU."""
+    from erlvectordb_tpu_torch.core.store import VectorStore
+
+    if pos:
+        monkeypatch.setattr(ft, "POS_MIN_TILES", 1)
+    rng = np.random.default_rng(3)
+    data = _clustered(rng, 20_000)
+    st = VectorStore.from_matrix("r", data, dtype="int4r", device=dev)
+    new = _clustered(np.random.default_rng(4), 300)
+    st.insert_batch([f"n{i}" for i in range(300)], new)
+    assert st.delete("17") and st.delete("n5")
+    ft.reset_launches()
+    qs = np.concatenate([data[:40], new[:40]])
+    got = st.search_batch(qs, k=10)
+    kern = ft.pos_residual_scan if pos else ft.cell_scan
+    assert kern.launches >= 1
+    cpu = VectorStore.from_state(st.export_state(), device=torch.device("cpu"))
+    want = cpu.search_batch(qs, k=10)
+    overlap = np.mean([len({h[0] for h in a} & {h[0] for h in b}) / 10
+                       for a, b in zip(got, want)])
+    assert overlap >= 0.95
+    top1 = [h[0][0] for h in got]
+    assert all(t == str(i) for i, t in enumerate(top1[:40]) if i != 17)
+    assert "17" not in {h[0] for hits in got for h in hits}
+    assert "n5" not in {h[0] for hits in got for h in hits}
+    assert sum(t == f"n{i}" for i, t in enumerate(top1[40:])) >= 38
+
+
+def test_int4_store_through_kernels(dev, monkeypatch):
+    """An int4 store on the card through the masked (B4) and pos (B3) scans,
+    against the same store on the CPU sent down the same path (the plain
+    versions): the same rows, distances to 1e-4."""
+    from erlvectordb_tpu_torch.core.store import VectorStore
+
+    rng = np.random.default_rng(5)
+    data = _clustered(rng, 20_000)
+    st = VectorStore.from_matrix("i4", data, dtype="int4", device=dev)
+    cpu = VectorStore.from_state(st.export_state(), device=torch.device("cpu"))
+    real = ft.fused_topk_available
+    for pos in (False, True):
+        if pos:
+            monkeypatch.setattr(ft, "POS_MIN_TILES", 1)
+        ft.reset_launches()
+        got = st.search_batch(data[:64], k=10)
+        kern = ft.pos_scan if pos else ft.fused_scan
+        assert kern.launches_by.get("int4", 0) >= 1
+        monkeypatch.setattr(ft, "fused_topk_available",
+                            lambda c, cap, m, d, k=10: real(
+                                c, cap, m, torch.device("cuda"), k))
+        want = cpu.search_batch(data[:64], k=10)
+        monkeypatch.setattr(ft, "fused_topk_available", real)
+        overlap = np.mean([len({h[0] for h in a} & {h[0] for h in b}) / 10
+                           for a, b in zip(got, want)])
+        assert overlap >= 0.99
+        np.testing.assert_allclose([h[0][2] for h in got],
+                                   [h[0][2] for h in want], rtol=1e-4,
+                                   atol=1e-4)

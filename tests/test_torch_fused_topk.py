@@ -362,3 +362,207 @@ def test_wrappers_refuse_non_cuda_accelerators():
     with pytest.raises(ValueError):
         tft.intkey_scan(c, q, 1)
     assert tft.intkey_scan.launches == 0
+
+
+# -------------------------------------------- packed int4 (B3/B4) and int4r
+
+
+def _quantize4(data):
+    """The int4 store's codes: absmax/7 scales, packed nibbles."""
+    absmax = np.abs(data).max(axis=1)
+    scale = np.where(absmax > 0, absmax / 7.0, 1.0).astype(np.float32)
+    q4 = np.clip(np.round(data / scale[:, None]), -7, 7).astype(np.int8)
+    u = q4.astype(np.uint8)
+    return (((u[:, 0::2] & 0xF) << 4) | (u[:, 1::2] & 0xF)).astype(np.uint8), scale
+
+
+def _jax_rows(b, x):
+    """A JAX scan's batch must fill its query tiles: pad to 64 rows with
+    zero queries (the port runs the ragged batch as it is)."""
+    pad = np.zeros((-(-b // 64) * 64 - b,) + x.shape[1:], x.dtype)
+    return jnp.asarray(np.concatenate([x, pad]))
+
+
+def test_unpack_int4_matches_jax():
+    from erlvectordb_tpu.core.search import unpack_int4 as junpack
+
+    packed = np.random.default_rng(1).integers(0, 256, (37, 64)).astype(np.uint8)
+    np.testing.assert_array_equal(tft.unpack_int4(_t(packed)).numpy(),
+                                  np.asarray(junpack(jnp.asarray(packed))))
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_pos_scan_keys_int4(spiked_corpus, metric):
+    """B3 over packed int4 codes, ragged batch of 29: bit-identical keys."""
+    data, norms, valid, queries, _ = spiked_corpus
+    packed, scales = _quantize4(data)
+    q_in, qmult, rowmult, rowbias, _ = tft._affine_factors(
+        metric, _t(scales), _t(norms), _t(valid), _t(queries[:29]))
+    f, g, m, b = tft._pos_window(_t(packed), _t(scales), _t(norms), _t(valid),
+                                 q_in, qmult, rowmult, rowbias, metric)
+    use_qm = metric == "euclidean"
+    nt = 3
+    kj = np.asarray(jft._pos_scan(
+        jnp.asarray(packed), _jax_rows(29, q_in.numpy()),
+        _jax_rows(29, qmult.numpy()), _jax_rows(29, f.numpy()),
+        _jax_rows(29, g.numpy()), jnp.asarray(m.numpy()[None]),
+        jnp.asarray(b.numpy()[None]), n_tiles=nt, use_qm=use_qm))[:29, :4 * nt]
+    kt = tft.pos_scan(_t(packed), q_in, qmult, f, g, m, b, nt, use_qm).numpy()
+    assert kt.shape == (29, 4 * nt)
+    np.testing.assert_array_equal(kt, kj)
+
+
+@pytest.mark.parametrize("t_per_tile", [2, 8])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_fused_scan_int4_matches(corpus, metric, t_per_tile):
+    """B4 over packed int4 codes: rows identical, values bit-identical."""
+    data, norms, valid, queries, _ = corpus
+    packed, scales = _quantize4(data)
+    q_in, qmult, rowmult, rowbias, _ = tft._affine_factors(
+        metric, _t(scales), _t(norms), _t(valid), _t(queries[:45]))
+    nt = 2
+    vj, rj = map(np.asarray, jft._fused_scan(
+        jnp.asarray(packed), _jax_rows(45, q_in.numpy()),
+        _jax_rows(45, qmult.numpy()), jnp.asarray(rowmult.numpy()[None]),
+        jnp.asarray(rowbias.numpy()[None]), n_tiles=nt,
+        t_per_tile=t_per_tile))
+    cols = t_per_tile * nt
+    vt, rt = tft.fused_scan(_t(packed), q_in, qmult, rowmult, rowbias, nt,
+                            t_per_tile)
+    np.testing.assert_array_equal(rt.numpy(), rj[:45, :cols])
+    np.testing.assert_array_equal(vt.numpy(), vj[:45, :cols])
+
+
+def _residual_inputs(seed, cell_cap, n_tiles=2, b=45, w=128):
+    """A cell-major int4r layout (packed residual codes, scales, reconstruction
+    norms, centroids [K, W]) and queries near its rows."""
+    rng = np.random.default_rng(seed)
+    n = n_tiles * TILE_N
+    k = n // cell_cap
+    cents = rng.standard_normal((k, w)).astype(np.float32)
+    resid = 0.3 * rng.standard_normal((n, w)).astype(np.float32)
+    packed, scales = _quantize4(resid)
+    q4 = tft.unpack_int4(_t(packed)).numpy().astype(np.float32)
+    recon = cents.repeat(cell_cap, axis=0) + q4 * scales[:, None]
+    norms = np.linalg.norm(recon, axis=1).astype(np.float32)
+    valid = np.ones(n, bool)
+    valid[[3, 700, n - 1]] = False
+    queries = (recon[rng.integers(0, n, b)]
+               + 0.2 * rng.standard_normal((b, w))).astype(np.float32)
+    return packed, scales, norms, valid, cents, queries
+
+
+def _residual_factors(metric, packed, scales, norms, valid, cents, queries,
+                      cell_cap, n_tiles):
+    """Both residual scans' inputs, as fused_topk_residual computes them."""
+    (q_in, qmult, rowmult, rowbias, _, qmult2, rowmult2, table,
+     qa) = tft.residual_factors(metric, _t(scales), _t(norms), _t(valid),
+                                _t(cents), _t(queries), n_tiles, cell_cap)
+    ma, mb, bb, f, g = tft._residual_window(
+        metric, _t(norms), _t(valid), q_in, qa, rowmult, rowmult2, table,
+        cell_cap, tft.max_code_norm(_t(packed)))
+    return dict(q_in=q_in, qmult=qmult, rowmult=rowmult, rowbias=rowbias,
+                qmult2=qmult2, rowmult2=rowmult2, table=table, qa=qa, ma=ma,
+                mb=mb, bb=bb, f=f, g=g)
+
+
+@pytest.mark.parametrize("t_top", [2, 8])
+@pytest.mark.parametrize("cell_cap", [128, 512])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_pos_residual_scan_bit_identical(metric, cell_cap, t_top):
+    """B5 keys, ragged batch of 45: bit-identical with the interpret-mode
+    kernel.  XLA fuses ``(dots*qa)*ma + tdot*mb`` into one multiply-add
+    (the residual product is the one folded in); the port does the same."""
+    packed, scales, norms, valid, cents, queries = _residual_inputs(
+        11, cell_cap)
+    nt = 2
+    a = _residual_factors(metric, packed, scales, norms, valid, cents,
+                          queries, cell_cap, nt)
+    n = lambda x: x.numpy()
+    kj = np.asarray(jft._pos_residual_scan(
+        jnp.asarray(packed), _jax_rows(45, n(a["q_in"])),
+        _jax_rows(45, n(a["qa"])), _jax_rows(45, n(a["f"])),
+        _jax_rows(45, n(a["g"])), jnp.asarray(n(a["ma"])[None]),
+        jnp.asarray(n(a["mb"])[None]), jnp.asarray(n(a["bb"])[None]),
+        _jax_rows(45, n(a["table"])).T, n_tiles=nt, cell_cap=cell_cap,
+        slice_w=1024, t_top=t_top))[:45]
+    kt = tft.pos_residual_scan(_t(packed), a["q_in"], a["qa"], a["f"], a["g"],
+                               a["ma"], a["mb"], a["bb"], a["table"], nt,
+                               cell_cap, 1024, t_top).numpy()
+    assert kt.shape == (45, t_top * nt * TILE_N // 1024)
+    np.testing.assert_array_equal(kt, kj[:, :kt.shape[1]])
+
+
+@pytest.mark.parametrize("t_per_tile", [2, 8])
+@pytest.mark.parametrize("cell_cap", [128, 512])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_cell_scan_matches(metric, cell_cap, t_per_tile):
+    """B6, ragged batch of 45: rows identical, values bit-identical.  XLA
+    fuses the cell term ``trep*qmult2*rowmult2`` into a multiply-add onto
+    B4's sims; the port does the same."""
+    packed, scales, norms, valid, cents, queries = _residual_inputs(
+        13, cell_cap)
+    nt = 2
+    a = _residual_factors(metric, packed, scales, norms, valid, cents,
+                          queries, cell_cap, nt)
+    n = lambda x: x.numpy()
+    vj, rj = map(np.asarray, jft._fused_scan(
+        jnp.asarray(packed), _jax_rows(45, n(a["q_in"])),
+        _jax_rows(45, n(a["qmult"])), jnp.asarray(n(a["rowmult"])[None]),
+        jnp.asarray(n(a["rowbias"])[None]), _jax_rows(45, n(a["qmult2"])),
+        jnp.asarray(n(a["rowmult2"])[None]), _jax_rows(45, n(a["table"])).T,
+        n_tiles=nt, t_per_tile=t_per_tile, cell_cap=cell_cap))
+    cols = t_per_tile * nt
+    vt, rt = tft.cell_scan(_t(packed), a["q_in"], a["qmult"], a["rowmult"],
+                           a["rowbias"], a["qmult2"], a["rowmult2"], a["table"],
+                           nt, t_per_tile, cell_cap)
+    np.testing.assert_array_equal(rt.numpy(), rj[:45, :cols])
+    np.testing.assert_array_equal(vt.numpy(), vj[:45, :cols])
+
+
+def test_max_code_norm_matches_jax():
+    packed = np.random.default_rng(4).integers(0, 256, (8192, 64)).astype(np.uint8)
+    packed[5000] = 0x77            # one all-sevens row: the max
+    assert tft.max_code_norm(_t(packed), chunk=3000) == pytest.approx(
+        float(jft.max_code_norm(jnp.asarray(packed))), rel=1e-6)
+
+
+@pytest.mark.parametrize("path", ["masked", "pos"])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_fused_topk_residual_matches_jax(monkeypatch, metric, path):
+    """fused_topk_residual end to end on the same inputs: identical ids,
+    distances to 1e-5 (the pool rescore's f32 sums run in another order)."""
+    packed, scales, norms, valid, cents, queries = _residual_inputs(17, 128,
+                                                                    b=32)
+    if path == "pos":
+        monkeypatch.setattr(jft, "POS_MIN_TILES", 1)
+        monkeypatch.setattr(tft, "POS_MIN_TILES", 1)
+    cnb = tft.max_code_norm(_t(packed))
+    # a k of its own per path: JAX caches the traced function by its static
+    # arguments, and the path is chosen while tracing (POS_MIN_TILES)
+    kw = dict(metric=metric, k=8 if path == "masked" else 7, n_tiles=2,
+              cell_cap=128, t_top=8)
+    dj, rj = map(np.asarray, jft.fused_topk_residual(
+        jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(norms),
+        jnp.asarray(valid), jnp.asarray(cents), jnp.asarray(queries),
+        code_norm_bound=jnp.float32(cnb), **kw))
+    dt, rt = tft.fused_topk_residual(
+        _t(packed), _t(scales), _t(norms), _t(valid), _t(cents), _t(queries),
+        code_norm_bound=cnb, **kw)
+    np.testing.assert_array_equal(rt.numpy(), rj)
+    np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-5, atol=1e-5)
+
+
+def test_residual_gate_matches():
+    for cap, cc in ((4096, 128), (8192, 128), (4096 * 3, 512), (4096, 3000),
+                    (6000, 128), (2048, 128)):
+        for k in (10, 100):
+            want = (cap >= TILE_N and cap % TILE_N == 0 and TILE_N % cc == 0
+                    and k <= jft.MAX_T_PER_TILE * jft.n_tiles_for(cap, cap))
+            assert tft.residual_scan_applies(cap, cc, "cosine",
+                                             torch.device("cuda"), k) == want
+            assert not tft.residual_scan_applies(cap, cc, "cosine",
+                                                 torch.device("cpu"), k)
+    assert not tft.residual_scan_applies(8192, 128, "manhattan",
+                                         torch.device("cuda"))
+    assert (tft.POS_RES_W, tft.POS_RES_T) == (jft.POS_RES_W, jft.POS_RES_T)

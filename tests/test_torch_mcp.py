@@ -82,8 +82,8 @@ class Client:
         self.sock.close()
 
 
-def _serve(db_cls, server_cls, cfg):
-    db = db_cls(cfg).start()
+def _serve(db_cls, server_cls, cfg, **db_kw):
+    db = db_cls(cfg, **db_kw).start()
     server = server_cls(db, host="127.0.0.1", port=0).start()
     port = server._sock.getsockname()[1]
     token = db.oauth.grant_client_credentials(
@@ -97,7 +97,8 @@ def pair():
     jax_side = _serve(JaxDatabase, JaxMCPServer,
                       jax_load_config(overrides=overrides, env={}))
     port_side = _serve(Database, MCPServer,
-                       load_config(overrides=overrides, env={}))
+                       load_config(overrides=overrides, env={}),
+                       device=torch.device("cpu"))
     yield port_side[2], jax_side[2]
     for db, server, client in (jax_side, port_side):
         client.close()
@@ -252,3 +253,24 @@ def test_tools_list_is_the_ported_subset(pair):
 def test_persistence_is_refused():
     with pytest.raises(ConfigError, match="not yet ported"):
         Database(load_config(overrides={"persistence_enabled": True}, env={}))
+
+
+def test_int4_store_over_mcp(pair, data):
+    """create_store dtype=int4 on both servers, the same rows, the same
+    answers (both exact scans on the CPU)."""
+    x, _ = data
+    port, jax_ = pair
+    for c in (port, jax_):
+        made = c.tool("create_store", name="i4", dimension=DIM,
+                      metric="cosine", dtype="int4")
+        assert made["dtype"] == "int4"
+        c.pipeline([("tools/call", {"name": "insert_vector", "arguments": {
+            "store": "i4", "id": f"r{i}", "vector": x[i].tolist()}})
+            for i in range(120)])
+    got, want = _both(pair, lambda c: c.tool(
+        "search_vectors", store="i4", vector=x[7].tolist(), k=5))
+    _same_results(got, want)
+    assert got["results"][0]["id"] == "r7"
+    schema = {t["name"]: t for t in port.call("tools/list")["result"]["tools"]}
+    assert "int4" in schema["create_store"]["inputSchema"]["properties"][
+        "dtype"]["enum"]

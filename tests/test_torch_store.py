@@ -143,9 +143,17 @@ def test_from_state_of_jax_store(rng, metric, dtype, intkey):
 
 
 @pytest.mark.parametrize("kind", ["int4", "int4r"])
-def test_unported_dtypes_refused(kind):
+def test_unported_dtypes_refused(rng, kind):
+    """int4 and int4r stores are ported; what they still refuse as not
+    ported: multiprobe search, and the int4r second stage (rq_m)."""
+    data = rng.standard_normal((300, 8)).astype(np.float32)
+    st = VectorStore.from_matrix("x", data, dtype=kind, device=CPU)
+    assert st.count == 300 and st.dtype == kind
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        VectorStore("x", dtype=kind, device=CPU)
+        st.search(data[0], k=3, nprobe=4)
+    if kind == "int4r":
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            VectorStore.from_matrix("y", data, dtype=kind, device=CPU, rq_m=4)
 
 
 def test_multiprobe_refused(rng):
@@ -547,3 +555,22 @@ def test_fused_dispatch_matches_jax_fused(rng, fused_on_cpu, monkeypatch):
     for b in range(32):
         assert len(set(r_t[b]) & set(r_j[b])) >= 9, b
     np.testing.assert_allclose(d_t[:, 0], d_j[:, 0], rtol=1e-4, atol=1e-4)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no device named, a store, a registry and a Database go to the
+    CUDA card; without one they raise instead of falling back to the CPU."""
+    from erlvectordb_tpu_torch.api import Database
+    from erlvectordb_tpu_torch.core.store import default_device
+    from erlvectordb_tpu_torch.infra.config import load_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config(overrides={"persistence_enabled": False}, env={})
+    for make in (default_device, lambda: VectorStore("x"), StoreRegistry,
+                 lambda: Database(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert VectorStore("x", device=CPU).device == CPU
+    assert Database(cfg, device=CPU).device == CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device() == torch.device("cuda")
