@@ -85,6 +85,8 @@ def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
     dev = torch.device(device) if device is not None else torch.device("cpu")
     n = data.shape[0]
     c = centroids.shape[0]
+    if c * cap < n:
+        raise ValueError(f"{c} cells x {cap} slots cannot hold {n} rows")
     j = min(j, c)
     # bound the [chunk, C] distance intermediate for large cell counts
     chunk = min(chunk, max(4096, (1 << 27) // max(c, 1)))

@@ -173,6 +173,11 @@ def test_balanced_assign_identical_owners(cap, j):
     assert np.bincount(got, minlength=60).max() <= cap
 
 
+def test_balanced_assign_refuses_too_little_capacity():
+    with pytest.raises(ValueError, match="cannot hold"):
+        tivf._balanced_assign(_dyadic(1, 3000, 8), _dyadic(2, 60, 8), 40)
+
+
 def test_top_choices_match_jax():
     data, cents = _dyadic(3, 500, 8), _dyadic(4, 50, 8)
     dj, ij = map(np.asarray, jivf._top_choices(jnp.asarray(data),
