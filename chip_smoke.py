@@ -504,9 +504,10 @@ def slice_phase(db, corpus, queries, f32_rows):
 
         # (h): 1,000 new rows inserted over MCP, each read back as its own
         # top-1 (the acknowledged-write read-back), plus the recall queries.
-        # The new rows are the corpus rows after (h)'s 100k: rows like the
-        # store's own land in its cells, where a row from elsewhere would
-        # miss its 8 nearest cells and spawn a block of 64 new ones
+        # The new rows are the corpus rows after (h)'s 100k.  A row whose 8
+        # nearest cells are full (its own, and the blocked zero-centroid
+        # padding cells, which rank before most real cells, as in the JAX
+        # package) spawns a block of 64 new cells
         new_rows = corpus[SMALL_ROWS:SMALL_ROWS + N_NEW]
         new_ids = [f"new{j}" for j in range(N_NEW)]
 
@@ -569,8 +570,11 @@ def slice_phase(db, corpus, queries, f32_rows):
         raise AssertionError(f"int4r (f) not 0.20 above plain int4 (e): {rec}")
     # (h)'s bar sits below (f)'s: its B6 scan keeps the top-8 of each tile
     # by an 11-bit-mantissa key and rescores a 64-row pool, and the bench's
-    # queries (fresh centres) sit among near-ties, so its overlap with the
-    # exact scan is ~0.95 by design (0.946-0.952 over CPU builds)
+    # queries (fresh centres) sit among near-ties.  Its overlap with the
+    # exact scan moves with the build (0.9445 to 0.959 over card and CPU
+    # builds), and the JAX package's B6 path gives the port's overlap on the
+    # same state (tests/test_torch_int4r.py::
+    # test_h_store_b6_overlap_is_the_reference_level)
     if (min(ovl["e"], ovl["g"]) < 0.98 or ovl["f"] < 0.95
             or ovl["h"] < 0.93):
         raise AssertionError(f"overlap@10 with the plain exact scan: {ovl}")

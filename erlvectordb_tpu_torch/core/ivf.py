@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from erlvectordb_tpu_torch.core.store import default_device
 from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
 
 
@@ -81,8 +82,8 @@ def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
     far from its natural cell is findable only by luck.  So bumped rows walk
     DOWN THEIR OWN preference list (J deep), and the rare stragglers get a
     genuine nearest-cell-with-space pass — never an arbitrary dump.  The
-    choice lists are computed on ``device`` (default: the CPU)."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    choice lists are computed on ``device`` (default: the CUDA card)."""
+    dev = torch.device(device) if device is not None else default_device()
     n = data.shape[0]
     c = centroids.shape[0]
     if c * cap < n:

@@ -636,21 +636,11 @@ class VectorStore:
         k_cur = int(self._cell_next.shape[0])
         width = self._centroids.shape[1]
         if k_cur and int(self._cell_avail.sum()) > 0:
-            # the blocked padding cells (zero centroid, no space) are left
-            # out of the preference lists: a zero centroid sits closer to a
-            # row than every real cell but its own, so it would crowd the
-            # row's real neighbours out of its top-J (the JAX package keeps
-            # them, and a row whose own cell is full then spawns a block of
-            # new cells)
-            blocked = (self._cell_avail == 0) & ~torch.any(
-                self._centroids != 0, dim=1).cpu().numpy()
-            cand = np.where(~blocked)[0]
-            j = min(8, len(cand))
+            j = min(8, k_cur)
             vp = np.zeros((m, width), np.float32)
             vp[:, : vecs.shape[1]] = vecs
-            _, choices = _top_choices(self._put(vp),
-                                      self._centroids[self._put(cand)], j=j)
-            choices = cand[choices.cpu().numpy()]
+            _, choices = _top_choices(self._put(vp), self._centroids, j=j)
+            choices = choices.cpu().numpy()
             still = []
             for i in unplaced:
                 for jj in range(j):

@@ -5,8 +5,8 @@
 //
 //   B5 pos_residual_scan <- _pos_residual_scan / _make_pos_residual_kernel
 //        s = (fma(dot * qa[b], ma[r], table[b, cell] * mb[r]) + bb[r] - f[b]) * g[b]
-//        key = (int32(clip(rint(s), +-2e9)) & ~(slice_w-1)) | lane;
-//        the top t_top keys of each slice_w-row slice, max first
+//        key = (int32(clip(rint(s), +-2e9)) & ~1023) | lane;
+//        the top t_top (2 or 8) keys of each 1024-row slice, max first
 //   B6 cell_scan         <- _fused_scan / _make_scan_kernel, cell_cap > 0
 //        B4's masked extraction plus fma(table[b, cell] * qmult2[b], rowmult2[r], sims)
 //        (tile_scan_kernel in scan_common.cuh with CELL)
@@ -38,11 +38,11 @@ namespace {
 
 using namespace evdb;
 
-// B5: one block per (slice_w-row slice, 8 queries).
+// B5: one block per (kSlice-row slice, 8 queries).
 template <int T>
 __global__ void __launch_bounds__(kThreads) residual_slice_kernel(
     const int* __restrict__ q, const int* __restrict__ codes, int B, int ww,
-    int n_slices, int slice_w, const float* __restrict__ qa,
+    int n_slices, const float* __restrict__ qa,
     const float* __restrict__ f, const float* __restrict__ g,
     const float* __restrict__ ma, const float* __restrict__ mb,
     const float* __restrict__ bb, const float* __restrict__ table, int ldt,
@@ -58,20 +58,18 @@ __global__ void __launch_bounds__(kThreads) residual_slice_kernel(
     f_s[t] = ok ? f[q0 + t] : 0.f;
     g_s[t] = ok ? g[q0 + t] : 0.f;
   }
-  const uint32_t lane_mask = (uint32_t)slice_w - 1u;
-
   int top[kTileQ][T];
 #pragma unroll
   for (int j = 0; j < kTileQ; ++j)
 #pragma unroll
     for (int i = 0; i < T; ++i) top[j][i] = INT32_MIN;
 
-  for (int p = 0; p < slice_w / kThreads; ++p) {
-    const long long row0 = (long long)s * slice_w + p * kThreads;
+  for (int p = 0; p < kSlice / kThreads; ++p) {
+    const long long row0 = (long long)s * kSlice + p * kThreads;
     int acc[kTileQ];
     piece_dots<I4, kTileQ>(q, codes, B, ww, q0, row0, cs, qs, acc);
     const long long row = row0 + t;
-    const uint32_t lane = (uint32_t)(p * kThreads + t);  // row & (slice_w - 1)
+    const uint32_t lane = (uint32_t)(p * kThreads + t);  // row & (kSlice - 1)
     const float mar = ma[row], mbr = mb[row], br = bb[row];
     const long long cell = row / cell_cap;
 #pragma unroll
@@ -81,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) residual_slice_kernel(
       v = __fadd_rn(v, br);
       v = __fmul_rn(__fsub_rn(v, f_s[j]), g_s[j]);
       v = fminf(fmaxf(rintf(v), -2.0e9f), 2.0e9f);
-      push_top<T>(top[j], (int)(((uint32_t)(int)v & ~lane_mask) | lane));
+      push_top<T>(top[j], (int)(((uint32_t)(int)v & ~(uint32_t)(kSlice - 1)) | lane));
     }
   }
 
@@ -99,12 +97,12 @@ __global__ void __launch_bounds__(kThreads) residual_slice_kernel(
 
 template <int T>
 void launch_residual(dim3 grid, cudaStream_t st, const void* q, const void* codes,
-                     int B, int ww, int n_slices, int slice_w, const void* qa,
+                     int B, int ww, int n_slices, const void* qa,
                      const void* f, const void* g, const void* ma, const void* mb,
                      const void* bb, const void* table, int ldt, int cell_cap,
                      void* out) {
   residual_slice_kernel<T><<<grid, kThreads, 0, st>>>(
-      (const int*)q, (const int*)codes, B, ww, n_slices, slice_w,
+      (const int*)q, (const int*)codes, B, ww, n_slices,
       (const float*)qa, (const float*)f, (const float*)g, (const float*)ma,
       (const float*)mb, (const float*)bb, (const float*)table, ldt, cell_cap,
       (int*)out);
@@ -123,16 +121,13 @@ int evdb_pos_residual_scan(const void* q, const void* codes, const void* qa,
                            const void* f, const void* g, const void* ma,
                            const void* mb, const void* bb, const void* table,
                            int ldt, int cell_cap, int B, int ww, int n_slices,
-                           int slice_w, int t_top, void* out, void* stream) {
-  if (slice_w < kThreads || slice_w > kTile || (slice_w & (slice_w - 1)) || cell_cap < 1)
-    return (int)cudaErrorInvalidValue;
+                           int t_top, void* out, void* stream) {
+  if (cell_cap < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(n_slices, (B + kTileQ - 1) / kTileQ);
   cudaStream_t st = (cudaStream_t)stream;
   switch (t_top) {
-    case 1: launch_residual<1>(grid, st, q, codes, B, ww, n_slices, slice_w, qa, f, g, ma, mb, bb, table, ldt, cell_cap, out); break;
-    case 2: launch_residual<2>(grid, st, q, codes, B, ww, n_slices, slice_w, qa, f, g, ma, mb, bb, table, ldt, cell_cap, out); break;
-    case 4: launch_residual<4>(grid, st, q, codes, B, ww, n_slices, slice_w, qa, f, g, ma, mb, bb, table, ldt, cell_cap, out); break;
-    case 8: launch_residual<8>(grid, st, q, codes, B, ww, n_slices, slice_w, qa, f, g, ma, mb, bb, table, ldt, cell_cap, out); break;
+    case 2: launch_residual<2>(grid, st, q, codes, B, ww, n_slices, qa, f, g, ma, mb, bb, table, ldt, cell_cap, out); break;
+    case 8: launch_residual<8>(grid, st, q, codes, B, ww, n_slices, qa, f, g, ma, mb, bb, table, ldt, cell_cap, out); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

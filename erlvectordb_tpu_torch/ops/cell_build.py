@@ -38,6 +38,7 @@ from typing import Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from erlvectordb_tpu_torch.core.store import default_device
 from erlvectordb_tpu_torch.ops.fused_topk import div_scalar, full_f32_matmul
 from erlvectordb_tpu_torch.ops.kmeans import kmeans_fit
 
@@ -387,7 +388,8 @@ def build_cells_streaming(
     """Streaming device build of a balanced cell-residual layout.
 
     ``n`` must be exact; every chunk except the last must have the same row
-    count.  Returns device tensors ready to serve as an int4r VectorStore."""
+    count.  Returns device tensors ready to serve as an int4r VectorStore,
+    on ``device`` (default: the CUDA card)."""
     if residual_bits == 8:
         raise NotImplementedError(
             "residual_bits=8 (cell-probe cells) is not yet ported to "
@@ -405,7 +407,7 @@ def build_cells_streaming(
             f"cell_cap ({cell_cap}) must be >= cell_rows ({cell_rows})")
     if n <= 0:
         raise ValueError("n must be positive")
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = torch.device(device) if device is not None else default_device()
     t_start = time.perf_counter()
     w = _pad128(dim)
     k_real = max(1, -(-n // cell_rows))

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "evdb_pos_scan_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "evdb_fused_scan_i4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "evdb_pos_residual_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _I, _P, _P],
+                               _I, _I, _I, _I, _P, _P],
     "evdb_cell_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P, _P],
 }

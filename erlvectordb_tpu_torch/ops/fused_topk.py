@@ -472,11 +472,10 @@ def pos_residual_scan(codes, q, qa, f, g, ma, mb, bb, table, n_tiles,
     bq, ww, variant = _kernel_args(q, codes, n_tiles)
     if variant != "int4":
         raise ValueError("pos_residual_scan needs packed int4 codes")
-    if slice_w not in (256, 512, 1024, 2048, 4096):
-        raise ValueError(f"slice_w must be a power of two in [256, 4096], "
-                         f"got {slice_w}")
-    if t_top not in (1, 2, 4, 8):
-        raise ValueError(f"t_top must be 1, 2, 4 or 8, got {t_top}")
+    if slice_w != POS_SLICE:   # the kernel's slice is fixed at 1024 rows
+        raise ValueError(f"slice_w must be {POS_SLICE}, got {slice_w}")
+    if t_top not in (2, 8):    # the store's depth (8) and the JAX default
+        raise ValueError(f"t_top must be 2 or 8, got {t_top}")
     n = n_tiles * TILE_N
     n_slices = n // slice_w
     tb = _table_arg(table, bq, n, cell_cap)
@@ -488,8 +487,8 @@ def pos_residual_scan(codes, q, qa, f, g, ma, mb, bb, table, n_tiles,
     qk = _kernel_query(q, variant)
     cuda_lib.check(lib.evdb_pos_residual_scan(
         qk.data_ptr(), codes.data_ptr(), *[a.data_ptr() for a in args],
-        tb.data_ptr(), tb.shape[1], cell_cap, bq, ww, n_slices, slice_w,
-        t_top, out.data_ptr(), _stream()), "pos_residual_scan")
+        tb.data_ptr(), tb.shape[1], cell_cap, bq, ww, n_slices, t_top,
+        out.data_ptr(), _stream()), "pos_residual_scan")
     _count(pos_residual_scan, variant)
     return out
 

@@ -168,14 +168,31 @@ def test_balanced_assign_identical_owners(cap, j):
     data = _dyadic(1, 3000, 8)
     cents = _dyadic(2, 60, 8)
     want = jivf._balanced_assign(data, cents, cap, j=j)
-    got = tivf._balanced_assign(data, cents, cap, j=j)
+    got = tivf._balanced_assign(data, cents, cap, j=j, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert np.bincount(got, minlength=60).max() <= cap
 
 
 def test_balanced_assign_refuses_too_little_capacity():
     with pytest.raises(ValueError, match="cannot hold"):
-        tivf._balanced_assign(_dyadic(1, 3000, 8), _dyadic(2, 60, 8), 40)
+        tivf._balanced_assign(_dyadic(1, 3000, 8), _dyadic(2, 60, 8), 40,
+                              device="cpu")
+
+
+@pytest.mark.parametrize("build", ["balanced_assign", "build_cells_streaming"])
+def test_default_device_is_the_card(monkeypatch, build):
+    """With no device named, both builds run on the CUDA card; without one
+    they raise instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data, cents = _dyadic(1, 300, 8), _dyadic(2, 10, 8)
+    run = {"balanced_assign": lambda **kw: tivf._balanced_assign(
+               data, cents, 64, j=4, **kw),
+           "build_cells_streaming": lambda **kw: cb.build_cells_streaming(
+               _chunks(data, 100), n=300, dim=8, cell_rows=32, cell_cap=64,
+               train_rows=300, k_block=1, **kw)}[build]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    run(device="cpu")
 
 
 def test_top_choices_match_jax():
@@ -354,7 +371,7 @@ class TestBuildStreaming:
         n, d = corpus.shape
         res = cb.build_cells_streaming(
             _chunks(corpus, 512), n=n, dim=d, cell_rows=24, cell_cap=32,
-            residual_bits=4, train_rows=1024, k_block=8)
+            residual_bits=4, train_rows=1024, k_block=8, device="cpu")
         assert res.stats["dumped_rows"] <= n * 0.02
         valid = res.valid.numpy()
         assert valid.sum() == n
@@ -379,31 +396,33 @@ class TestBuildStreaming:
         n, d = corpus.shape
         res = cb.build_cells_streaming(
             _chunks(corpus, 512), n=n, dim=d, cell_rows=24, cell_cap=32,
-            train_rows=1024, k_block=8, refits=0)
+            train_rows=1024, k_block=8, refits=0, device="cpu")
         cents = res.centroids.numpy()[:res.stats["n_cells_real"], :d]
         slots, _, orig_rows = _decode(res, d)
         d_dev = np.linalg.norm(corpus[orig_rows]
                                - cents[slots // res.cell_cap], axis=1).mean()
-        owner_host = tivf._balanced_assign(corpus, cents, 32, j=16)
+        owner_host = tivf._balanced_assign(corpus, cents, 32, j=16,
+                                          device="cpu")
         d_host = np.linalg.norm(corpus - cents[owner_host], axis=1).mean()
         assert d_dev <= d_host * 1.10
 
     def test_uneven_last_chunk_and_single_cell(self):
         data = np.random.default_rng(3).standard_normal((70, 16)).astype(np.float32)
         res = cb.build_cells_streaming(_chunks(data, 32), n=70, dim=16,
-                                       cell_rows=128, cell_cap=128, k_block=1)
+                                       cell_rows=128, cell_cap=128, k_block=1,
+                                       device="cpu")
         assert res.n_cells == 1 and res.valid.numpy().sum() == 70
 
     def test_chunk_exhaustion_raises(self):
         data = np.random.default_rng(3).standard_normal((64, 16)).astype(np.float32)
         with pytest.raises(ValueError, match="exhausted"):
             cb.build_cells_streaming(_chunks(data, 32), n=200, dim=16,
-                                     cell_rows=32, cell_cap=64)
+                                     cell_rows=32, cell_cap=64, device="cpu")
 
     def test_refit_reduces_residuals(self, corpus):
         n, d = corpus.shape
         kw = dict(n=n, dim=d, cell_rows=24, cell_cap=32, train_rows=512,
-                  kmeans_iters=2, k_block=8)
+                  kmeans_iters=2, k_block=8, device="cpu")
         r0 = cb.build_cells_streaming(_chunks(corpus, 512), refits=0, **kw)
         r2 = cb.build_cells_streaming(_chunks(corpus, 512), refits=2, **kw)
 
@@ -420,7 +439,7 @@ class TestBuildStreaming:
         x = _clusters(7, 32_768, 32, 6)
         res = cb.build_cells_streaming(
             _chunks(x, 4096), n=len(x), dim=32, cell_rows=24, cell_cap=32,
-            train_rows=2048, k_block=8, refits=1)
+            train_rows=2048, k_block=8, refits=1, device="cpu")
         assert res.stats["dumped_rows"] <= len(x) * 0.15, res.stats
         assert res.counts.sum() == len(x) and res.counts.max() <= res.cell_cap
 
@@ -428,18 +447,19 @@ class TestBuildStreaming:
         x = np.random.default_rng(5).standard_normal((5 * 1024, 32)).astype(np.float32)
         res = cb.build_cells_streaming(
             _chunks(x, 1024), n=len(x), dim=32, cell_rows=24, cell_cap=32,
-            train_rows=1024, k_block=8, refits=1, route_sub=1024)
+            train_rows=1024, k_block=8, refits=1, route_sub=1024, device="cpu")
         assert res.counts.sum() == len(x)
 
     def test_unported_options_refused(self, corpus):
         n, d = corpus.shape
         with pytest.raises(NotImplementedError, match="not yet ported"):
             cb.build_cells_streaming(_chunks(corpus, 512), n=n, dim=d,
-                                     cell_rows=24, cell_cap=32, spill_mult=1.3)
+                                     cell_rows=24, cell_cap=32, spill_mult=1.3,
+                                     device="cpu")
         with pytest.raises(NotImplementedError, match="not yet ported"):
             cb.build_cells_streaming(_chunks(corpus, 512), n=n, dim=d,
                                      cell_rows=24, cell_cap=32,
-                                     residual_bits=8)
+                                     residual_bits=8, device="cpu")
 
     def test_recall_close_to_jax_build(self):
         """The exhaustive scan of each package's build of the same corpus
@@ -466,6 +486,7 @@ class TestBuildStreaming:
             return np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, truth)])
 
         r_jax = recall(jcb.build_cells_streaming(_chunks(x, 1000), **kw))
-        r_port = recall(cb.build_cells_streaming(_chunks(x, 1000), **kw))
+        r_port = recall(cb.build_cells_streaming(_chunks(x, 1000), device="cpu",
+                                                 **kw))
         assert abs(r_port - r_jax) <= 0.03, (r_port, r_jax)
         assert r_port >= 0.6

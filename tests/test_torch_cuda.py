@@ -208,15 +208,13 @@ def _residual_args(inputs, metric, cell_cap):
                         table=table, qa=qa, f=f, g=g, ma=ma, mb=mb, bb=bb)
 
 
-@pytest.mark.parametrize("slice_w,t_top", [(1024, 8), (1024, 2), (512, 4),
-                                           (256, 1)])
+@pytest.mark.parametrize("t_top", [2, 8])
 @pytest.mark.parametrize("cell_cap", [128, 512])
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
-def test_pos_residual_kernel_bit_identical(inputs, metric, cell_cap, slice_w,
-                                           t_top):
+def test_pos_residual_kernel_bit_identical(inputs, metric, cell_cap, t_top):
     packed, a = _residual_args(inputs, metric, cell_cap)
     args = (packed, a["q_in"], a["qa"], a["f"], a["g"], a["ma"], a["mb"],
-            a["bb"], a["table"], N_TILES, cell_cap, slice_w, t_top)
+            a["bb"], a["table"], N_TILES, cell_cap, 1024, t_top)
     ft.reset_launches()
     kern = ft.pos_residual_scan(*args)
     assert ft.pos_residual_scan.launches == 1
@@ -250,6 +248,10 @@ def test_residual_wrappers_validate(inputs):
         ft.pos_residual_scan(packed, a["q_in"], a["qa"], a["f"], a["g"],
                              a["ma"], a["mb"], a["bb"], a["table"], N_TILES,
                              128, 1024, 3)
+    with pytest.raises(ValueError):   # a slice width the kernel has not
+        ft.pos_residual_scan(packed, a["q_in"], a["qa"], a["f"], a["g"],
+                             a["ma"], a["mb"], a["bb"], a["table"], N_TILES,
+                             128, 512, 8)
     with pytest.raises(ValueError):   # B6 takes packed codes only
         ft.cell_scan(inputs[3], a["q_in"], a["qmult"], a["rowmult"],
                      a["rowbias"], a["qmult2"], a["rowmult2"], a["table"],

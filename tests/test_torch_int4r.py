@@ -246,24 +246,40 @@ class TestMutation:
         assert st.capacity % 4096 == 0
         assert st.search(corpus[150], k=1)[0][0] == "b50"
 
-    def test_padding_cells_never_crowd_the_preference_list(self, corpus):
-        """A row whose own cell is full lands in a real neighbour cell with
-        space: the blocked padding cells (zero centroids) are left out of
-        its preference list, so no block of new cells is spawned."""
-        st = R("pad", corpus[:2000])
-        full = [c for c in range(len(st._cell_next))
-                if st._cell_avail[c] == 0 and st._cell_next[c] > 0
-                and bool(torch.any(st._centroids[c] != 0))]
-        assert full, "the build left no full real cell to aim at"
-        src = st._id_to_row
-        row = next(r for vid, r in src.items()
-                   if r // st._cell_cap == full[0])
-        vid = st._row_to_id[row]
-        cap = st.capacity
-        st.insert("twin", corpus[int(vid)] + 0.01)
-        assert st.capacity == cap
-        assert st._id_to_row["twin"] // st._cell_cap != full[0]
-        assert st.search(corpus[int(vid)] + 0.01, k=2)[0][0] in ("twin", vid)
+    @pytest.mark.parametrize("kind", ["twins_of_full_cells", "in_distribution",
+                                      "far_away"])
+    def test_placement_matches_jax(self, corpus, kind):
+        """Rows inserted one at a time into a JAX-built store carried across
+        land in the same rows, cells and capacity as in the JAX store: the
+        nearest cell with space among the 8 nearest centroids (blocked
+        padding cells included), else a new block of cells."""
+        j = jstore.VectorStore.from_matrix("p", corpus[:2000], dtype="int4r")
+        t = VectorStore.from_state(j.export_state(), device=CPU)
+        rng = np.random.default_rng(3)
+        if kind == "twins_of_full_cells":
+            full = {c for c in range(len(j._cell_next))
+                    if j._cell_avail[c] == 0 and j._cell_next[c] > 0}
+            src = [int(vid) for vid, r in j._id_to_row.items()
+                   if r // j._cell_cap in full][:40]
+            assert src, "the build left no full cell to aim at"
+            new = corpus[src] + 0.01
+        elif kind == "in_distribution":
+            new = corpus[2000:2060]
+        else:
+            new = 6.0 * rng.standard_normal((6, corpus.shape[1])).astype(
+                np.float32)
+        cap0 = t.capacity
+        for i, v in enumerate(new):
+            j.insert(f"x{i}", v)
+            t.insert(f"x{i}", v)
+        assert t.capacity == j.capacity
+        if kind == "twins_of_full_cells":   # a row whose 8 nearest cells
+            assert t.capacity > cap0         # are full spawns new ones
+        np.testing.assert_array_equal(t._cell_next, j._cell_next)
+        np.testing.assert_array_equal(t._cell_avail, j._cell_avail)
+        assert ({f"x{i}": t._id_to_row[f"x{i}"] for i in range(len(new))}
+                == {f"x{i}": j._id_to_row[f"x{i}"] for i in range(len(new))})
+        assert _ids(t.search_batch(new, k=3)) == _ids(j.search_batch(new, k=3))
 
 
 class TestPersistence:
@@ -345,6 +361,66 @@ class TestFusedResidualPath:
             assert got[b][0] == r_x[b][0], (metric, b)
             assert len(set(got[b]) & set(r_wide[b])) >= 2, (metric, b)
             assert len(set(got[b])) == len(got[b])
+
+
+def _bench_corpus(seed, n_draw, n):
+    """The first n rows of chip_smoke.py's make_corpus(seed, n_draw): 1024
+    Gaussian centres in 100 dims, noise 0.35, with numpy's generator."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((1024, 100), dtype=np.float32)
+    z = centres[rng.integers(0, 1024, n_draw)[:n]]
+    return z + 0.35 * rng.standard_normal((n, 100), dtype=np.float32)
+
+
+def test_h_store_b6_overlap_is_the_reference_level(monkeypatch):
+    """chip_smoke.py's store (h) (the first 100k rows of its corpus, int4r
+    cosine, host build: 1,088 cells, 34 tiles), built by the port on the CPU
+    and carried into the JAX package, searched with chip_smoke's 256 recall
+    queries through each package's B6 path (JAX: fused_topk_residual in
+    interpret mode; port: the store dispatch forced onto the plain
+    versions).  Each path's overlap@10 with its own package's exact scan of
+    the same codes is printed: the port's equals the reference's, and both
+    paths return the same ids on >= 99.5% of entries."""
+    import erlvectordb_tpu.ops.fused_topk as jft
+    from erlvectordb_tpu.core.search import exact_topk_int4r
+
+    x = _bench_corpus(0, 1_200_000, 100_000)
+    q = _bench_corpus(1, 1024, 256)
+    t = R("h", x, metric="cosine")
+    assert len(t._cell_next) == 1088
+    nt = tft.n_tiles_for(t.capacity, t.capacity)
+    assert nt == 34 < tft.POS_MIN_TILES
+    j = jstore.VectorStore.from_state(t.export_state())
+    qp = np.zeros((len(q), 128), np.float32)
+    qp[:, :100] = q
+    kb = tsearch.k_bucket(10, t.capacity)
+
+    def overlap(a, b):
+        return float(np.mean([len(set(r[:10]) & set(w[:10])) / 10
+                              for r, w in zip(a, b)]))
+
+    _force_fused(monkeypatch)
+    path_t = _ids(t.search_batch(q, k=10))
+    _, rx = tsearch.exact_topk_int4r(
+        t._vectors, t._scales, t._norms, t._valid, t._centroids, _t(qp),
+        metric="cosine", k=10, cell_cap=t._cell_cap)
+    exact_t = [[t._ids_view()[r] for r in row] for row in rx.numpy()]
+    _, rj = jft.fused_topk_residual(
+        j._vectors, j._scales, j._norms, j._valid, j._centroids,
+        jnp.asarray(qp), metric="cosine", k=kb, n_tiles=nt,
+        cell_cap=j._cell_cap, code_norm_bound=jft.max_code_norm(j._vectors),
+        slice_w=tft.POS_RES_W, t_top=tft.POS_RES_T)
+    path_j = [[j._rid(int(r)) for r in row[:10]] for row in np.asarray(rj)]
+    _, rjx = exact_topk_int4r(
+        j._vectors, j._scales, j._norms, j._valid, j._centroids,
+        jnp.asarray(qp), metric="cosine", k=10, cell_cap=j._cell_cap)
+    exact_j = [[j._rid(int(r)) for r in row] for row in np.asarray(rjx)]
+    ov_t, ov_j = overlap(path_t, exact_t), overlap(path_j, exact_j)
+    print(f"(h) overlap@10 with the exact scan: port B6 {ov_t!r}, "
+          f"JAX B6 {ov_j!r}; paths agree on "
+          f"{np.mean(np.array(path_t) == np.array(path_j))!r}")
+    assert np.mean(np.array(path_t) == np.array(path_j)) >= 0.995
+    assert ov_t == pytest.approx(ov_j, abs=0.005)
 
 
 def test_top8_recovers_one_cell_topk(monkeypatch):
