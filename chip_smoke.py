@@ -26,21 +26,33 @@ Phases, each printing one JSON line of its own numbers:
                     rows inserted over MCP, each read back as its own top-1
                     (a row that finds its nearest cells full spawns a block
                     of 64 cells, so the read-back may run through B5)
+                (f-mp) store (f) searched with nprobe and recall_target over
+                    MCP (config 9), calibrate_store, and an exact-mode
+                    calibration through the Python API -> B7 gather_dots int4
               recall@10 against exact f32 ground truth on the card, and
               overlap@10 of the int4/int4r stores with the plain exact scan
               of the same codes;
+  5. index    (i) config 10 phase B: a CellProbeIndex of 8,388,608 x 768
+              rows (int8 residual cells, SOAR spill) built by streaming from
+              a manifold corpus drawn on the card, with the exact f32 top-10
+              gathered while it is drawn; B7 int8 against its plain version
+              at the index's shapes, the recall@10 curve over nprobe and the
+              per-dispatch ms at 8 queries -> B7 gather_dots int8;
 
 then the kernels summary line, the nvidia-smi line and, last, the contract
 line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits non-zero without that line, as it does without a CUDA device
-or outside a checkout.  The corpus follows bench.py's make_corpus recipe
-(1024 Gaussian centres, noise 0.35), drawn with numpy from a seed.
+or outside a checkout.  The stores' corpus follows bench.py's make_corpus
+recipe (1024 Gaussian centres, noise 0.35), drawn with numpy from a seed;
+the index's follows bench.py's _manifold_gen, drawn with torch generators on
+the card.
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import math
 import os
 import socket
 import subprocess
@@ -54,24 +66,41 @@ BATCH, K, N_RECALL, SEED = 1024, 10, 256, 0
 F32_ROWS = 20_000    # store (d), filled over MCP
 SMALL_ROWS = 100_000  # stores (g) and (h)
 N_NEW = 1_000        # rows inserted into (h) over MCP
+MP_NPROBE = (16, 32, 64, 512)  # (f-mp)'s recall curve over MCP
+MP_PROBE, MP_TARGET = 64, 0.95  # (f-mp)'s latency probe width, recall target
+# (i): bench.py config 10 phase B (bench.py:1549-1583), the corpus of
+# bench.py::_manifold_gen: 4096 centres in a 48-d latent space, projected to
+# 768-d, drawn in 262,144-row chunks
+I_ROWS, I_DIM, I_CHUNK, I_QUERIES = 8_388_608, 768, 262_144, 1024
+I_CENTRES, I_LATENT, I_NOISE, I_NOISE_D = 4096, 48, 0.35, 0.05
+I_BUILD = dict(cell_rows=416, cell_cap=512, spill_mult=1.3,
+               train_rows=262_144, kmeans_iters=6, kmeans_init="random",
+               refits=1, j=16)
+I_NPROBE = (8, 16, 32, 64, 128, 256)
+I_DISPATCH_NPROBE, I_BQ = (8, 32, 64), 8
+B7_BATCH = {"int4": 1024, "int8": 256}   # B7's kernel-phase shapes
+B7_NPROBE = 64
 DEVICE = "cuda"
 CSRC = "erlvectordb_tpu_torch/csrc/"
 JAX_FT = "erlvectordb_tpu/ops/fused_topk.py:"
 # kernel -> (source, the TPU kernel's pallas_call)
 KERNEL_INFO = {
-    "intkey_scan": ("fused_topk.cu", "479"),
-    "l2key_scan": ("fused_topk.cu", "551"),
-    "pos_scan": ("fused_topk.cu", "335"),
-    "fused_scan": ("fused_topk.cu", "989"),
-    "pos_residual_scan": ("residual_scan.cu", "889"),
-    "cell_scan": ("residual_scan.cu", "989"),
+    "intkey_scan": ("fused_topk.cu", JAX_FT + "479"),
+    "l2key_scan": ("fused_topk.cu", JAX_FT + "551"),
+    "pos_scan": ("fused_topk.cu", JAX_FT + "335"),
+    "fused_scan": ("fused_topk.cu", JAX_FT + "989"),
+    "pos_residual_scan": ("residual_scan.cu", JAX_FT + "889"),
+    "cell_scan": ("residual_scan.cu", JAX_FT + "989"),
+    "gather_dots": ("cell_probe.cu", "erlvectordb_tpu/ops/cell_probe.py:150"),
 }
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops/s (the
-# int4 codes are counted at the int8 rate they run at after unpacking), f32
+# int4 codes are counted at the int8 rate they run at after unpacking), bf16
+# tensor-core FLOP/s (B7: a bf16-exact query against int8-exact codes), f32
 # outside the tensor cores, and HBM bytes/s
-PEAK = {"int8": 1979e12, "int4": 1979e12, "f32": 67e12}
+PEAK = {"int8": 1979e12, "int4": 1979e12, "bf16": 989e12, "f32": 67e12}
 HBM = 3.35e12
 NO_LIBRARY = "none: no single PyTorch call computes the scan and its selection"
+NO_LIBRARY_B7 = "none: a gather plus a product is not one PyTorch call"
 
 
 def emit(phase: str, **numbers) -> None:
@@ -109,6 +138,35 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def profile_calls(fn, reps: int = 20) -> dict:
+    """Where one call of fn() spends its time: host ms per call (ending in a
+    device synchronise) and device ms per call under torch.profiler after a
+    warm-up, the device's busy share, and the five kernels with the most
+    device time (ms per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    # device-side events only: an operator's entry repeats its kernels' time
+    dev = {e.key: e.self_device_time_total / 1e3 / reps
+           for e in prof.key_averages()
+           if e.device_type != DeviceType.CPU and e.self_device_time_total > 0}
+    device_ms = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+    return dict(host_ms=1e3 * wall, device_ms=device_ms,
+                device_busy_share=device_ms / (1e3 * wall),
+                top_kernels_ms={k[:80]: v for k, v in top})
 
 
 def timed(fn):
@@ -162,6 +220,70 @@ def bound(variant, ops, nbytes):
     peak rate of their type and the bytes over the HBM rate."""
     t_ops, t_bytes = ops / PEAK[variant], nbytes / HBM
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def reset_launches() -> None:
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+    import erlvectordb_tpu_torch.ops.fused_topk as ft
+
+    ft.reset_launches()
+    cp.reset_launches()
+
+
+def read_launches() -> dict:
+    """kernel -> {variant: launches} of every wrapper that launched."""
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+    import erlvectordb_tpu_torch.ops.fused_topk as ft
+
+    return {k.__name__: dict(k.launches_by) for k in (*ft.KERNELS, *cp.KERNELS)
+            if k.launches}
+
+
+def gather_check(out, variant, codes3, probe, q):
+    """B7 against its plain version on the same inputs: every entry within
+    1e-5 of sum |q| |c| (the kernel sums in f32, the plain version in
+    float64).  The bound counts each distinct probed cell's block once, the
+    query and probe lists, and the [B, nprobe, cap] f32 output; the bytes the
+    kernel reads (a block per query and probe) are reported beside it."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+    from erlvectordb_tpu_torch.ops.fused_topk import unpack_int4
+
+    kern = cp.gather_dots(codes3, probe, q)
+    ref = cp.gather_dots_ref(codes3, probe, q)
+    # |q| . |c| over the same blocks, a chunk of queries at a time (the
+    # magnitudes of a whole code table would double the index's bytes)
+    mag = torch.empty_like(ref)
+    for i in range(0, q.shape[0], 64):
+        cells, inv = torch.unique(probe[i:i + 64], return_inverse=True)
+        blk = codes3[cells]
+        blk = (unpack_int4(blk) if variant == "int4" else blk).abs()
+        mag[i:i + 64] = cp.gather_dots_ref(blk, inv.to(torch.int32),
+                                           q[i:i + 64].abs())
+    torch.cuda.synchronize()
+    err = (kern - ref).abs()
+    over = float((err > 1e-5 * mag + 1e-30).float().mean())
+    if over:
+        raise AssertionError(f"gather_dots[{variant}]: {over:.2e} of entries "
+                             "beyond 1e-5 of sum |q| |c|")
+    ms = cuda_ms(lambda: cp.gather_dots(codes3, probe, q))
+    plain_ms = cuda_ms(lambda: cp.gather_dots_ref(codes3, probe, q), reps=3)
+    b, nprobe = probe.shape
+    _, cap, wc = codes3.shape
+    cells = int(torch.unique(probe).numel())
+    nbytes = (cells * cap * wc + 4 * b * q.shape[1] + 4 * b * nprobe
+              + 4 * b * nprobe * cap)
+    b_ms, b_by = bound("bf16", 2.0 * b * nprobe * cap * q.shape[1], nbytes)
+    rec = dict(max_abs_err=float(err.max()), mismatch=over, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               rows=b * nprobe * cap,
+               extra=dict(batch=b, nprobe=nprobe, cap=cap, width=q.shape[1],
+                          distinct_cells=cells, bound_bytes=nbytes,
+                          bytes_read=b * nprobe * cap * wc))
+    out[("gather_dots", variant)] = rec
+    emit("kernel", name="gather_dots", variant=variant,
+         **{k: v for k, v in rec.items() if k != "extra"}, **rec["extra"])
 
 
 def kernel_phase(st, queries):
@@ -302,6 +424,19 @@ def kernel_phase(st, queries):
                 rows=nt_r * ft.TILE_N,
                 nbytes=slice_bytes(s, "int4", nt_r, 12, 8, t_h, 8, True)
                 + tb_bytes)
+
+    # B7 packed at (f-mp)'s shapes: store (f)'s cells, the probe lists of its
+    # own routing, the bf16-rounded query multiprobe_topk hands the kernel
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+
+    f = st["f"]
+    n_cells, cap = f._centroids.shape[0], f._cell_cap
+    probe = cp.route_probes(
+        f._centroids, qp[:B7_BATCH["int4"]],
+        f._valid.reshape(n_cells, cap).any(dim=1), metric="cosine",
+        nprobe=B7_NPROBE).to(torch.int32).contiguous()
+    gather_check(out, "int4", f._vectors.reshape(n_cells, cap, -1), probe,
+                 qp[:B7_BATCH["int4"]].to(torch.bfloat16).float())
     return out
 
 
@@ -373,11 +508,12 @@ def batch_rows(client, store, qs, k=K):
     return rows
 
 
-def batch_ids(client, store, qs):
+def batch_ids(client, store, qs, **probe):
     """Ids of one compact search_vectors_batch (cell stores keep their rows
-    permuted, so their answers are read by id)."""
+    permuted, so their answers are read by id); ``probe``: nprobe or
+    recall_target."""
     r = client.tool("search_vectors_batch", store=store, vectors_b64=b64(qs),
-                    dim=DIM, k=K, compact=True)
+                    dim=DIM, k=K, compact=True, **probe)
     if any(len(row) != K for row in r["ids"]):
         raise AssertionError(f"{store}: short answers")
     if not np.all(np.isfinite(np.asarray(r["distances"], np.float64))):
@@ -431,7 +567,10 @@ def overlap(got, want) -> float:
 def slice_phase(db, corpus, queries, f32_rows):
     import torch
 
-    import erlvectordb_tpu_torch.ops.fused_topk as ft
+    from erlvectordb_tpu_torch.core.calibration import (
+        RecallUnachievable,
+        exact_ground_truth,
+    )
     from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
     from erlvectordb_tpu_torch.utils.metrics import metrics
 
@@ -441,11 +580,10 @@ def slice_phase(db, corpus, queries, f32_rows):
     def path(name, fn):
         """Drive one path with the launch counts zeroed just before it and
         read just after."""
-        ft.reset_launches()
+        reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        launches[name] = {k.__name__: dict(k.launches_by) for k in ft.KERNELS
-                          if k.launches}
+        launches[name] = read_launches()
         return out
 
     server = MCPServer(db, host="127.0.0.1", port=0).start()
@@ -520,6 +658,42 @@ def slice_phase(db, corpus, queries, f32_rows):
 
         got["h"], back = path("h", path_h)
         readback = float(np.mean([r[0] == i for r, i in zip(back, new_ids)]))
+
+        # (f-mp): store (f) through the multiprobe path (config 9): the
+        # recall curve over nprobe and a recall_target batch after
+        # calibrate_store (ceiling mode) over MCP, the single-query latency
+        # over MCP, then an exact-mode calibration through the Python API,
+        # whose ceiling refuses a target above it
+        f_store = db.get_store("f")
+
+        def path_fmp():
+            curve = {p: batch_ids(cl, "f", nq, nprobe=p) for p in MP_NPROBE}
+            cal = cl.tool("calibrate_store", store="f")
+            at_target = batch_ids(cl, "f", nq, recall_target=MP_TARGET)
+            lat = []
+            for i in range(21):
+                t0 = time.perf_counter()
+                cl.tool("search_vectors", store="f", vector=nq[i].tolist(),
+                        k=K, nprobe=MP_PROBE)
+                lat.append(time.perf_counter() - t0)
+            gt = exact_ground_truth(corpus, nq, k=K, metric="cosine",
+                                    device=DEVICE)
+            exact = f_store.calibrate_nprobe(queries=nq, k=K, metric="cosine",
+                                             ground_truth=gt)
+            ceiling = f_store._calib.get(K, "cosine").ceiling
+            try:
+                f_store.search(nq[0], k=K,
+                               recall_target=min(1.0, ceiling + 0.01))
+            except RecallUnachievable as e:
+                refusal = str(e)
+            else:
+                raise AssertionError("a recall_target above the exact-mode "
+                                     f"ceiling {ceiling} was served")
+            return dict(curve=curve, cal=cal, at_target=at_target,
+                        lat=lat[1:], exact=exact, ceiling=ceiling,
+                        refusal=refusal)
+
+        mp = path("f-mp", path_fmp)
         cl.sock.close()
     finally:
         server.stop()
@@ -528,7 +702,7 @@ def slice_phase(db, corpus, queries, f32_rows):
               "c": ("pos_scan", "int8"), "c32": ("pos_scan", "f32"),
               "d": ("fused_scan", "f32"), "e": ("pos_scan", "int4"),
               "f": ("pos_residual_scan", "int4"), "g": ("fused_scan", "int4"),
-              "h": ("cell_scan", "int4")}
+              "h": ("cell_scan", "int4"), "f-mp": ("gather_dots", "int4")}
     for p, (kname, variant) in expect.items():
         if not launches[p].get(kname, {}).get(variant):
             raise AssertionError(f"path {p} never launched {kname}[{variant}]: "
@@ -578,6 +752,14 @@ def slice_phase(db, corpus, queries, f32_rows):
     if (min(ovl["e"], ovl["g"]) < 0.98 or ovl["f"] < 0.95
             or ovl["h"] < 0.93):
         raise AssertionError(f"overlap@10 with the plain exact scan: {ovl}")
+    # (f-mp): recall@10 over nprobe against the same exact f32 top-10
+    mp_curve = {p: overlap(ids, gt_cos) for p, ids in mp["curve"].items()}
+    steps = [mp_curve[p] for p in MP_NPROBE]
+    if (mp_curve[64] < 0.80 or mp_curve[512] < 0.83
+            or min(b - a for a, b in zip(steps, steps[1:])) < -0.005):
+        raise AssertionError(f"(f-mp) recall@10 over nprobe: {mp_curve}")
+    cal_curve = {int(p): r for p, r in mp["cal"]["curve"].items()}
+    chosen = min(p for p, r in cal_curve.items() if r >= MP_TARGET)
 
     # end to end on the store API: 1024-query batches, host clock around
     # submit -> complete (the readback waits for the device)
@@ -591,6 +773,31 @@ def slice_phase(db, corpus, queries, f32_rows):
                 queries[:BATCH], k=K))
             lat.append(time.perf_counter() - t0)
         store_lat[s] = sorted(lat[1:])[len(lat[1:]) // 2]
+    # (f-mp) at the store API: small batches through B7 at nprobe 64 beside
+    # the full B5 scan of the same store (config 9's comparison)
+    f_store = db.get_store("f")
+    mp_lat = {}
+    for bq in (1, 16):
+        for label, kw in (("nprobe64", {"nprobe": MP_PROBE}), ("b5_scan", {})):
+            lat = []
+            for _ in range(11):
+                t0 = time.perf_counter()
+                f_store.search_batch_complete_raw(f_store.search_batch_submit(
+                    queries[:bq], k=K, **kw))
+                lat.append(time.perf_counter() - t0)
+            mp_lat[f"bq{bq}_{label}"] = 1e3 * float(np.median(lat[1:]))
+    mp_profile = profile_calls(lambda: f_store.search_batch_complete_raw(
+        f_store.search_batch_submit(queries[:16], k=K, nprobe=MP_PROBE)))
+    emit("multiprobe", store="f", recall_at_10_by_nprobe=mp_curve,
+         calibrate_store=mp["cal"], recall_target=MP_TARGET,
+         nprobe_chosen=chosen,
+         recall_at_10_at_target=overlap(mp["at_target"], gt_cos),
+         exact_mode_curve=mp["exact"], exact_mode_ceiling=mp["ceiling"],
+         refusal_above_ceiling=mp["refusal"],
+         mcp_search_vectors_ms_median=1e3 * float(np.median(mp["lat"])),
+         mcp_search_vectors_ms_all=[1e3 * x for x in mp["lat"]],
+         store_api_ms_median=mp_lat, profile_bq16_nprobe64=mp_profile,
+         launches=launches["f-mp"])
     emit("slice", recall_at_10=rec, overlap_at_10_with_plain_exact=ovl,
          h_insert_readback_top1=readback, launches=launches,
          store_batch_ms_median={s: 1e3 * v for s, v in store_lat.items()},
@@ -608,6 +815,131 @@ def slice_phase(db, corpus, queries, f32_rows):
          torch_memory_allocated=int(torch.cuda.memory_allocated()),
          torch_max_memory_allocated=int(torch.cuda.max_memory_allocated()))
     return launches
+
+
+# -------------------------------------------------------------------- index
+
+
+def manifold(seed: int):
+    """bench.py::_manifold_gen with torch generators on the card: 4096
+    centres in a 48-d latent space, a latent -> 768 projection of N(0, 1) /
+    sqrt(48) entries, latent noise 0.35 and 0.05 isotropic noise in 768-d.
+    Returns chunk(stream, rows): the rows of one seeded stream."""
+    import torch
+
+    from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    centres = torch.randn((I_CENTRES, I_LATENT), generator=g, device=DEVICE)
+    proj = (torch.randn((I_LATENT, I_DIM), generator=g, device=DEVICE)
+            / math.sqrt(I_LATENT))
+
+    def chunk(stream: int, rows: int):
+        gs = torch.Generator(device=DEVICE)
+        gs.manual_seed((seed << 32) + stream + 1)
+        z = centres[torch.randint(0, I_CENTRES, (rows,), generator=gs,
+                                  device=DEVICE)]
+        z = z + I_NOISE * torch.randn((rows, I_LATENT), generator=gs,
+                                      device=DEVICE)
+        with full_f32_matmul():
+            x = z @ proj
+        return x + I_NOISE_D * torch.randn((rows, I_DIM), generator=gs,
+                                           device=DEVICE)
+
+    return chunk
+
+
+def index_phase(kernels, launches):
+    """(i): the cell-probe index of config 10 phase B, built by streaming
+    from chunks drawn on the card (never whole on the host) while the exact
+    f32 cosine top-10 of the queries is gathered over them; B7 int8 against
+    its plain version at the index's shapes; then the path, with the launch
+    counts zeroed just before it: the recall@10 curve over nprobe (1024
+    queries) and the per-dispatch ms of multiprobe_topk at 8 queries."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+    from erlvectordb_tpu_torch.core.cell_probe import CellProbeIndex
+    from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
+
+    chunk = manifold(SEED)
+    queries = chunk(10 ** 6, I_QUERIES)              # a stream of their own
+    qn = queries / queries.norm(dim=1, keepdim=True)
+    top = [torch.full((I_QUERIES, K), -2.0, device=DEVICE),
+           torch.full((I_QUERIES, K), -1, dtype=torch.int64, device=DEVICE)]
+
+    def chunks():
+        for i in range(I_ROWS // I_CHUNK):
+            c = chunk(i, I_CHUNK)
+            with full_f32_matmul():
+                sims = (qn @ c.T) / torch.clamp(c.norm(dim=1), min=1e-9)
+            d, r = torch.topk(sims, K, dim=1)
+            d, sel = torch.topk(torch.cat([top[0], d], 1), K, dim=1)
+            top[1] = torch.gather(torch.cat([top[1], r + i * I_CHUNK], 1), 1,
+                                  sel)
+            top[0] = d
+            yield c
+
+    torch.cuda.reset_peak_memory_stats()
+    idx, build_s = timed(lambda: CellProbeIndex.build_streaming(
+        chunks(), n=I_ROWS, dim=I_DIM, device=DEVICE, **I_BUILD))
+    build_peak = torch.cuda.max_memory_allocated()
+    gt = top[1].cpu().numpy()
+    n_cells, cap = idx.n_cells, idx.cell_cap
+    qb = queries[:B7_BATCH["int8"]]
+    probe = cp.route_probes(
+        idx.centroids, qb, idx.valid.reshape(n_cells, cap).any(dim=1),
+        metric="cosine", nprobe=B7_NPROBE, centroids_route=idx.cents_route,
+        cn2=idx.cn2).to(torch.int32).contiguous()
+    gather_check(kernels, "int8", idx.codes.reshape(n_cells, cap, -1), probe,
+                 qb.to(torch.bfloat16).float())
+    del probe, qb
+
+    qnp = queries.cpu().numpy()
+    q8 = queries[:I_BQ]
+
+    def run():
+        curve = {p: overlap(idx.search(qnp, k=K, nprobe=p)[1], gt)
+                 for p in I_NPROBE}
+        dispatch = {}
+        for p in I_DISPATCH_NPROBE:
+            def call():
+                return cp.multiprobe_topk(
+                    idx.codes, idx.scales, idx.norms, idx.valid,
+                    idx.centroids, q8, metric="cosine", k=2 * K, nprobe=p,
+                    cell_cap=cap, centroids_route=idx.cents_route,
+                    cn2=idx.cn2)
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(32):
+                call()
+            torch.cuda.synchronize()
+            dispatch[p] = 1e3 * (time.perf_counter() - t0) / 32
+        return curve, dispatch
+
+    reset_launches()
+    curve, dispatch = run()
+    torch.cuda.synchronize()
+    launches["i"] = read_launches()
+    if not launches["i"].get("gather_dots", {}).get("int8"):
+        raise AssertionError(f"path i never launched gather_dots[int8]: "
+                             f"{launches['i']}")
+    if curve[64] < 0.95:
+        raise AssertionError(f"(i) recall@10 at nprobe 64 below 0.95: {curve}")
+    profile = profile_calls(lambda: cp.multiprobe_topk(
+        idx.codes, idx.scales, idx.norms, idx.valid, idx.centroids, q8,
+        metric="cosine", k=2 * K, nprobe=64, cell_cap=cap,
+        centroids_route=idx.cents_route, cn2=idx.cn2))
+    dev_bytes = sum(t.numel() * t.element_size() for t in (
+        idx.codes, idx.scales, idx.norms, idx.valid, idx.centroids,
+        idx.cents_route, idx.cn2, idx.row_map_dev))
+    emit("index", rows=I_ROWS, dim=I_DIM, build_s=build_s,
+         build_stats=idx.build_stats, stats=idx.stats(),
+         device_bytes=dev_bytes, build_peak_bytes=build_peak,
+         recall_at_10_by_nprobe=curve, dispatch_ms_bq8=dispatch,
+         profile_bq8_nprobe64=profile, launches=launches["i"])
 
 
 def main() -> int:
@@ -687,6 +1019,10 @@ def main() -> int:
         launches = slice_phase(db, corpus, queries, f32_rows)
     finally:
         db.stop()
+    stores.clear()
+    del db, corpus
+    torch.cuda.empty_cache()
+    index_phase(kernels, launches)
 
     served = {}   # (kernel, variant) -> launches on the path that serves it
     for counts in launches.values():
@@ -695,17 +1031,19 @@ def main() -> int:
                 served[(kname, variant)] = served.get((kname, variant), 0) + n
     summary = []
     for (name, variant), r in kernels.items():
-        src, line = KERNEL_INFO[name]
+        src, replaces = KERNEL_INFO[name]
         summary.append({
-            "name": f"{name}_{variant}" if name in ("pos_scan", "fused_scan")
-            else name,
-            "route": "cuda", "source": CSRC + src, "replaces": JAX_FT + line,
+            "name": (f"{name}_{variant}"
+                     if name in ("pos_scan", "fused_scan", "gather_dots")
+                     else name),
+            "route": "cuda", "source": CSRC + src, "replaces": replaces,
             "launches": served.get((name, variant), 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "library": NO_LIBRARY, "variant": variant, "rows": r["rows"],
-            "mismatch": r["mismatch"]})
+            "library": NO_LIBRARY_B7 if name == "gather_dots" else NO_LIBRARY,
+            "variant": variant, "rows": r["rows"], "mismatch": r["mismatch"],
+            **r.get("extra", {})})
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

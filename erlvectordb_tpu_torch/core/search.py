@@ -26,6 +26,7 @@ import torch
 from erlvectordb_tpu_torch.ops.fused_topk import (  # noqa: F401 (re-export)
     div_scalar,
     full_f32_matmul,
+    mul_recip,
     unpack_int4,
 )
 
@@ -92,7 +93,7 @@ def exact_topk(vectors, norms, valid, queries, *, metric: Metric, k: int
 def _quantize_queries(queries):
     """Symmetric per-query int8 codes (as f32 values) and scales [B, 1]."""
     q_absmax = queries.abs().amax(dim=-1, keepdim=True)
-    q_scale = torch.where(q_absmax > 0, div_scalar(q_absmax, 127.0),
+    q_scale = torch.where(q_absmax > 0, mul_recip(q_absmax, 127.0),
                           torch.ones_like(q_absmax))
     return torch.clamp(torch.round(queries / q_scale), -127, 127), q_scale
 

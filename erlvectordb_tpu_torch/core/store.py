@@ -28,9 +28,12 @@ CPU, the exact scans of core/search.py answer.
 
 Insert semantics preserved: dimension is fixed by the first insert (or at
 creation), every element must be a finite real number, inserting an existing
-id overwrites it.  Multiprobe search (``nprobe``, ``recall_target``), the
-int4r second stage (``rq_m``) and spilled layouts are not ported yet and
-raise ``NotImplementedError``.
+id overwrites it.  int4r stores also answer the sub-linear multiprobe search
+(``nprobe``, or ``recall_target`` through a calibration curve) over their own
+cell layout (ops/cell_probe.py, kernel B7).  Streaming builds with spill
+copies (``spill_mult``) over-fetch and dedup per query and refuse targeted
+mutations.  The int4r second stage (``rq_m``) is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from erlvectordb_tpu_torch.core import search as search_mod
+from erlvectordb_tpu_torch.core.calibration import CalibrationSet, measure_curve
 from erlvectordb_tpu_torch.core.search import VALID_METRICS
 from erlvectordb_tpu_torch.ops import fused_topk as ft
 from erlvectordb_tpu_torch.utils.locks import RWLock
@@ -94,7 +98,7 @@ def _row_norms(x: torch.Tensor) -> torch.Tensor:
 def _quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row absmax int8 codes and scales."""
     absmax = x.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, ft.div_scalar(absmax, 127.0),
+    scale = torch.where(absmax > 0, ft.mul_recip(absmax, 127.0),
                         torch.ones_like(absmax))
     q = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
@@ -408,6 +412,17 @@ class VectorStore:
         # (lazy; invalidated by int4r inserts — a stale underestimate only
         # costs worst-match rows their rank, never correctness)
         self._code_norm_max: Optional[float] = None
+        # multiprobe routing: a persistent bf16 copy of the centroids and
+        # their |c|^2, renewed when the centroid tensor changes
+        self._cents_rt: Optional[torch.Tensor] = None
+        self._cents_cn2: Optional[torch.Tensor] = None
+        self._cents_rt_src: Optional[torch.Tensor] = None
+        # recall_target calibration curves, keyed (k, metric); lazy
+        # first-use calibration is serialized by the set's lock
+        self._calib = CalibrationSet()
+        # streaming builds with spill copies hold some rows twice: searches
+        # over-fetch 2k and dedup, targeted mutations are refused
+        self._spilled = False
         # cell-layout drift since the last bulk build/refit (is_stale)
         self._built_rows = 0
         self._churn_inserts = 0
@@ -482,6 +497,11 @@ class VectorStore:
         if not self._contig and not self._perm_count:
             return
         with self._mat_lock:
+            if self._perm_count and self._spilled:
+                raise ValueError(
+                    "store was built with spill_mult (multi-assigned rows): "
+                    "targeted mutations are not supported on spilled "
+                    "layouts; rebuild without spill for mutable use")
             if self._perm_count:
                 # streaming-built store: one perm readback (slot -> original
                 # row), then id tables keyed by original row, valued by slot
@@ -898,6 +918,99 @@ class VectorStore:
 
     # ---------------------------------------------------------------- search
 
+    def calibrate_nprobe(self, queries=None, n_sample: int = 256,
+                         k: int = 10, metric: Optional[str] = None,
+                         ground_truth=None) -> dict:
+        """Measure the multiprobe recall@k curve so searches can take a
+        ``recall_target=`` instead of a raw ``nprobe=`` (int4r stores).
+
+        With ``ground_truth`` ([S, >=k] exact store rows for ``queries``,
+        computed on the original f32 data with
+        calibration.exact_ground_truth) the curve is in exact mode: values
+        are absolute recall@k, the deep probe's value is the quantization
+        ceiling, and recall_target refuses targets above it
+        (RecallUnachievable).  Otherwise it is in ceiling mode, against the
+        store's own deep probe (nprobe = min(n_cells, 512)).  ``queries``
+        defaults to ``n_sample`` live rows decoded from the codes.  Curves
+        are keyed by (k, metric) and travel with export_state."""
+        if self.dtype != "int4r":
+            raise ValueError("calibrate_nprobe requires an int4r store")
+        if self.count == 0:
+            raise ValueError("empty store")
+        metric = metric or self.metric
+        if queries is None:
+            if ground_truth is not None:
+                raise ValueError("ground_truth requires explicit queries")
+            with self._lock.read():
+                rows = np.flatnonzero(self._valid.cpu().numpy())
+                rng = np.random.default_rng(len(rows))
+                rows = rng.choice(rows, size=min(n_sample, len(rows)),
+                                  replace=False)
+                r = self._put(rows)
+                res = (ft.unpack_int4(self._vectors[r]).float()
+                       * self._scales[r][:, None])
+                queries = (self._centroids[r // self._cell_cap]
+                           + res)[:, : self._dim].cpu().numpy()
+        queries = np.asarray(queries, np.float32)
+        deep = min(int(self._centroids.shape[0]), 512)
+
+        if ground_truth is None:
+            # ceiling mode compares the layout against itself: internal
+            # cell-slot rows are a consistent space on both sides
+            def search_rows(qs, kk, nprobe):
+                t = self.search_batch_submit(qs, k=kk, metric=metric,
+                                             nprobe=nprobe)
+                return self.search_batch_complete_raw(t)[1]
+        else:
+            # exact mode compares against original-row positions, which are
+            # the implicit ids of bulk-built stores ("0".."n-1"): map the
+            # results through their ids
+            def search_rows(qs, kk, nprobe):
+                t = self.search_batch_submit(qs, k=kk, metric=metric,
+                                             nprobe=nprobe)
+                dists_p, _rows_p, ids_p = self.search_batch_complete_raw(t)
+                out = np.full((len(qs), kk), -1, np.int64)
+                if ids_p is None:
+                    return out
+                for i, row in enumerate(ids_p.tolist()):
+                    for j, vid in enumerate(row):
+                        if vid is None or not np.isfinite(dists_p[i, j]):
+                            continue
+                        try:
+                            out[i, j] = int(vid)
+                        except ValueError as e:
+                            raise ValueError(
+                                "exact-mode calibration compares ground-"
+                                "truth positions against implicit integer "
+                                "ids; this store has custom string ids — "
+                                "map your ground truth to ids and "
+                                "calibrate through the index surface "
+                                "instead") from e
+                return out
+
+        curve = measure_curve(search_rows, queries, k=k, metric=metric,
+                              deep=deep,
+                              ground_truth=ground_truth)
+        self._calib.put(curve)
+        return dict(curve.curve)
+
+    def _nprobe_for_target(self, target: float, k: int,
+                           metric: Optional[str] = None) -> int:
+        """Smallest calibrated nprobe meeting ``target`` under the curve's
+        mode; lazily self-calibrates (ceiling mode) per (k, metric)."""
+        if not (0.0 < target <= 1.0):
+            raise ValueError("recall_target must be in (0, 1]")
+        metric = metric or self.metric
+
+        def compute():
+            self.calibrate_nprobe(k=k, metric=metric)
+            return self._calib.get(k, metric)
+
+        cur = self._calib.get(k, metric)
+        if cur is None:
+            cur = self._calib.get_or_compute(k, metric, compute)
+        return cur.nprobe_for(target)
+
     def search(self, query, k: int = 10, metric: Optional[str] = None,
                where: Optional[dict] = None, nprobe: Optional[int] = None,
                recall_target: Optional[float] = None,
@@ -907,7 +1020,9 @@ class VectorStore:
         metadata matches every key/value equality predicate.  Above ~590k
         rows with k <= 16 on a CUDA device the key/pos scans keep the top-1
         of each 1024-row slice (see ops/fused_topk.py); ``EVDB_EXACT_SCAN=1``
-        forces (near-)exact masked extraction."""
+        forces (near-)exact masked extraction.  ``nprobe`` (int4r stores)
+        switches to the sub-linear multiprobe search: only the ``nprobe``
+        nearest cells are read."""
         results = self.search_batch(
             np.asarray(query, np.float32)[None, :], k, metric, where,
             nprobe=nprobe, recall_target=recall_target)
@@ -1020,18 +1135,35 @@ class VectorStore:
                             ) -> SearchTicket:
         """Enqueue a batched search WITHOUT waiting for the device: the
         serving batcher submits batch i+1 while batch i still runs."""
-        if nprobe is not None or recall_target is not None:
-            raise _not_ported("multiprobe search (nprobe / recall_target)")
         metric = metric or self.metric
         if metric not in VALID_METRICS:
             raise ValueError(f"metric must be one of {VALID_METRICS}, got {metric!r}")
+        if recall_target is not None:
+            # map a recall target to the smallest calibrated nprobe under
+            # the curve's mode (exact curves guarantee absolute recall,
+            # ceiling curves are relative to the store's own deep probe)
+            if nprobe is not None:
+                raise ValueError(
+                    "pass either nprobe or recall_target, not both")
+            if self.dtype != "int4r":
+                raise ValueError(
+                    "recall_target requires an int4r store (cell layout)")
+            nprobe = self._nprobe_for_target(recall_target, k, metric)
+        if nprobe is not None:
+            if self.dtype != "int4r":
+                raise ValueError(
+                    "nprobe requires an int4r store (cell-resident layout)")
+            if metric == "manhattan":
+                raise ValueError("nprobe does not support metric 'manhattan'")
+            if nprobe <= 0:
+                raise ValueError("nprobe must be positive")
         t0 = time.perf_counter()
         q = self._validate_batch(queries)
         fmask = self._device_filter_mask(where) if where else None
         # read side of the store lock: searches run concurrently, but never
         # against tensors an insert is updating in place
         with self._lock.read():
-            t = self._dispatch_locked(q, k, metric, fmask)
+            t = self._dispatch_locked(q, k, metric, fmask, nprobe=nprobe)
         t.t0 = t0
         return t
 
@@ -1046,7 +1178,8 @@ class VectorStore:
         metrics.inc("store.queries_total", t.nq)
         with self._lock.read():
             return self._map_results(dists_np, rows_np, t.k, t.kb,
-                                     rows_are_orig=t.rows_are_orig)
+                                     rows_are_orig=t.rows_are_orig,
+                                     dedup=self._spilled)
 
     def search_batch_complete_raw(self, t: SearchTicket):
         """Columnar completion: (distances [nq, kk] f32, rows [nq, kk] int32,
@@ -1054,10 +1187,14 @@ class VectorStore:
         if t.kb == 0:
             return (np.zeros((t.nq, 0), np.float32),
                     np.zeros((t.nq, 0), np.int32), None)
-        kk = min(t.k, t.kb)
+        kk = min(2 * t.k if self._spilled else t.k, t.kb)
         dists_np, rows_np = self._readback(t)
         dists_np = dists_np[:, :kk]
         rows_np = rows_np[:, :kk]
+        if self._spilled:
+            from erlvectordb_tpu_torch.ops.cell_probe import dedup_rows_topk
+
+            dists_np, rows_np = dedup_rows_topk(dists_np, rows_np, t.k)
         if t.rows_are_orig:
             # streaming-built store: rows already ARE the implicit ids
             return dists_np, rows_np, _implicit_ids(rows_np)
@@ -1073,10 +1210,12 @@ class VectorStore:
         kb = t.kb
         return arr[:, :kb], np.ascontiguousarray(arr[:, kb:]).view(np.int32)
 
-    def _map_results(self, dists_np, rows_np, k, kb, rows_are_orig=False):
+    def _map_results(self, dists_np, rows_np, k, kb, rows_are_orig=False,
+                     dedup=False):
         """Vectorized row->id mapping: one fancy-index into the columnar id
-        table + tolist()."""
-        kk = min(k, kb)
+        table + tolist().  ``dedup`` (spilled layouts) scans the over-fetched
+        columns, keeps each id's first (best) hit and caps output at k."""
+        kk = min(2 * k if dedup else k, kb)
         if rows_are_orig:
             ids_l = _implicit_ids(rows_np[:, :kk]).tolist()
         else:
@@ -1087,20 +1226,28 @@ class VectorStore:
         out: List[List[Tuple[str, Any, float]]] = []
         for irow, drow in zip(ids_l, d_l):
             hits = []
+            seen = set() if dedup else None
             for vid, d in zip(irow, drow):
                 if not isfinite(d):
                     break  # ran past the valid rows
                 if vid is None:
                     continue  # row deleted between device scan and host map
+                if dedup:
+                    if vid in seen or len(hits) >= k:
+                        continue
+                    seen.add(vid)
                 hits.append((vid, md.get(vid, {}), d))
             out.append(hits)
         return out
 
-    def _dispatch_locked(self, q, k, metric, fmask=None) -> SearchTicket:
+    def _dispatch_locked(self, q, k, metric, fmask=None,
+                         nprobe=None) -> SearchTicket:
         nq = q.shape[0]
         if self._vectors is None or self.count == 0 or k <= 0:
             return SearchTicket(None, nq, k, 0)
-        kb = search_mod.k_bucket(min(k, self.count), self._capacity)
+        # spilled layouts: over-fetch 2k so per-query dedup still fills k
+        k_fetch = min(2 * k, self.count) if self._spilled else k
+        kb = search_mod.k_bucket(min(k_fetch, self.count), self._capacity)
         width = _pad128(q.shape[1])
         if width != q.shape[1]:
             qp = np.zeros((nq, width), np.float32)
@@ -1121,7 +1268,7 @@ class VectorStore:
             valid = valid & fm
 
         if self.dtype == "int4r":
-            return self._dispatch_int4r(q_t, valid, nq, k, kb, metric)
+            return self._dispatch_int4r(q_t, valid, nq, k, kb, metric, nprobe)
         if ft.fused_topk_available(self.count, self._capacity, metric,
                                    self.device, kb):
             nt = ft.n_tiles_for(self._next_row, self._capacity)
@@ -1153,13 +1300,31 @@ class VectorStore:
                 self._vectors, self._norms, valid, q_t, metric=metric, k=kb)
         return self._finish_ticket(dists, rows, nq, k)
 
-    def _dispatch_int4r(self, q_t, valid, nq, k, kb, metric) -> SearchTicket:
-        """int4r search: the residual scans (B5 at >= POS_MIN_TILES tiles,
-        B6 below) on a CUDA device, the exact scan otherwise; rows of a
-        streaming-built store are mapped slot -> original row on the
-        device."""
-        if ft.residual_scan_applies(self._capacity, self._cell_cap, metric,
-                                    self.device, kb):
+    def _dispatch_int4r(self, q_t, valid, nq, k, kb, metric,
+                        nprobe=None) -> SearchTicket:
+        """int4r search: with ``nprobe`` the sub-linear multiprobe search
+        over the store's own cell layout (B7 on a CUDA device); else the
+        residual scans (B5 at >= POS_MIN_TILES tiles, B6 below) on a CUDA
+        device, the exact scan otherwise.  Rows of a streaming-built store
+        are mapped slot -> original row on the device."""
+        if nprobe is not None:
+            from erlvectordb_tpu_torch.ops.cell_probe import multiprobe_topk
+
+            if self._cents_rt_src is not self._centroids:
+                # persistent bf16 routing copy + |c|^2 buffer (recomputing
+                # either per dispatch re-reads the full f32 centroid table)
+                self._cents_rt = self._centroids.to(torch.bfloat16)
+                self._cents_cn2 = torch.sum(
+                    self._centroids * self._centroids, dim=-1)
+                self._cents_rt_src = self._centroids
+            dists, rows = multiprobe_topk(
+                self._vectors, self._scales, self._norms, valid,
+                self._centroids, q_t, metric=metric, k=kb,
+                nprobe=min(nprobe, max(1, self._centroids.shape[0])),
+                cell_cap=self._cell_cap, centroids_route=self._cents_rt,
+                cn2=self._cents_cn2)
+        elif ft.residual_scan_applies(self._capacity, self._cell_cap, metric,
+                                      self.device, kb):
             if self._code_norm_max is None:
                 self._code_norm_max = ft.max_code_norm(self._vectors)
             dists, rows = ft.fused_topk_residual(
@@ -1262,7 +1427,7 @@ class VectorStore:
 
     def get_stats(self) -> dict:
         """Stats shape parity with reference get_stats."""
-        return {
+        stats = {
             "name": self.name,
             "count": self.count,
             "dimension": self._dim,
@@ -1272,6 +1437,11 @@ class VectorStore:
             "version": self.version,
             "memory_bytes": self.device_memory_bytes(),
         }
+        if self._calib:
+            # which guarantee recall_target gives on this store: exact
+            # (absolute, ceiling enforced) vs ceiling (deep-probe-relative)
+            stats["calibration"] = self._calib.summaries()
+        return stats
 
     def device_memory_bytes(self) -> int:
         if self._vectors is None:
@@ -1291,7 +1461,8 @@ class VectorStore:
     def export_state(self) -> dict:
         """Host-side state (numpy arrays), in the JAX package's format 1."""
         with self._lock.read():
-            self._materialize()
+            if not (self._spilled and self._perm_count):
+                self._materialize()
             state = {
                 "format": 1,
                 "name": self.name,
@@ -1315,9 +1486,18 @@ class VectorStore:
             if self.dtype == "int4r" and self._centroids is not None:
                 state["centroids"] = self._centroids.cpu().numpy()
                 state["cell_cap"] = self._cell_cap
+                if self._calib:
+                    state["calibrations"] = self._calib.to_json()
+                    self._calib.mark_clean()
                 state["cell_next"] = [int(x) for x in self._cell_next]
                 state["cell_free"] = {
                     str(c): list(v) for c, v in self._cell_free.items()}
+            if self._spilled and self._perm_count:
+                # spilled streaming layout: ids stay implicit (mutations are
+                # refused anyway), so the slot -> row map travels instead
+                state["perm"] = self._perm_dev.cpu().numpy()
+                state["perm_count"] = self._perm_count
+                state["spilled"] = True
             return state
 
     @classmethod
@@ -1326,12 +1506,10 @@ class VectorStore:
         """A store from an exported state dict — this package's or the JAX
         package's ``VectorStore.export_state()`` (numpy arrays).  An intkey
         store's key plane is re-derived from the absmax plane.  States with
-        the int4r second stage (``rq_codes``) or a spilled layout are
-        refused: neither is ported yet."""
+        the int4r second stage (``rq_codes``) are refused: it is not ported
+        yet."""
         if "rq_codes" in state:
             raise _not_ported("the int4r second stage (rq_m)")
-        if state.get("spilled"):
-            raise _not_ported("spilled (multi-assigned) cell layouts")
         store = cls(
             state["name"],
             dim=state.get("dim"),
@@ -1354,6 +1532,13 @@ class VectorStore:
             store._centroids = store._put(
                 np.asarray(state["centroids"], np.float32))
             store._cell_cap = int(state.get("cell_cap", 64))
+            if "calibrations" in state:
+                store._calib = CalibrationSet.from_json(state["calibrations"])
+            elif "nprobe_curve" in state:  # older un-keyed curve
+                store._calib = CalibrationSet.from_legacy(
+                    {int(p): float(r)
+                     for p, r in state["nprobe_curve"].items()},
+                    metric=state.get("metric", "cosine"))
             store._cell_next = np.asarray(state.get("cell_next", []), np.int64)
             store._cell_free = {
                 int(c): [int(r) for r in v]
@@ -1362,6 +1547,10 @@ class VectorStore:
                 store._cell_cap - store._cell_next
                 + np.array([len(store._cell_free.get(c, []))
                             for c in range(len(store._cell_next))], np.int64))
+        if state.get("spilled") and "perm" in state:
+            store._perm_dev = store._put(np.asarray(state["perm"], np.int32))
+            store._perm_count = int(state["perm_count"])
+            store._spilled = True
         store._id_to_row = {str(k): int(v)
                             for k, v in state.get("id_to_row", {}).items()}
         store._row_to_id = {v: k for k, v in store._id_to_row.items()}
@@ -1594,6 +1783,7 @@ class VectorStore:
         store._adopt_cell_build(res)
         store._perm_dev = res.perm
         store._perm_count = n
+        store._spilled = res.stats.get("spilled_rows", 0) > 0
         store._ids_np = None   # allocated on materialization only
         store._built_rows = n
         store.version = 1

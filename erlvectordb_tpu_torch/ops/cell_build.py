@@ -1,8 +1,9 @@
 """Device-side streaming cell build — centroids, balanced assignment and
 residual encode, with no O(N)-sized host round-trip.
 
-Counterpart of ``erlvectordb_tpu/ops/cell_build.py`` for the int4r store
-(``residual_bits=4``).  Every per-row intermediate — staged codes, choice
+Counterpart of ``erlvectordb_tpu/ops/cell_build.py``: packed int4 residual
+cells for the int4r store (``residual_bits=4``) and int8 residual cells for
+the cell-probe index (``residual_bits=8``).  Every per-row intermediate — staged codes, choice
 lists, owners, ranks, slot positions — stays on the device; the host reads
 back [K]-sized cell stats and scalars.  Phases:
 
@@ -19,15 +20,17 @@ back [K]-sized cell stats and scalars.  Phases:
           rejected rows walk down their preference list.
   refit   capacity-constrained Lloyd: refit each centroid to the members it
           actually got, then re-route and re-assign.
+  spill   (``spill_mult > 0``) SOAR-style second copies: a row whose
+          closest other cell is within ``spill_mult`` of its owner's
+          distance proposes a copy there, placed after the primary rows
+          where space is left (one acceptance round, no dump).
   place   slot positions from one stable argsort of the owner vector.
-  encode  residual quantize to packed int4 (per-row clip sweep) in the
-          cell-major slot layout, block by block.
+  encode  residual quantize to packed int4 (per-row clip sweep) or int8
+          (absmax, in place) in the cell-major slot layout, block by block.
 
 The JAX package's TPU accommodations (buffer donation, the allocator
 priming, phase barriers for its allocator) have no counterpart here: PyTorch
-frees a buffer when its last reference goes.  Spill copies
-(``spill_mult > 0``) and 8-bit cells (``residual_bits=8``) serve multiprobe
-search and the cell-probe index, which are not ported yet.
+frees a buffer when its last reference goes.
 """
 
 from __future__ import annotations
@@ -39,7 +42,11 @@ import numpy as np
 import torch
 
 from erlvectordb_tpu_torch.core.store import default_device
-from erlvectordb_tpu_torch.ops.fused_topk import div_scalar, full_f32_matmul
+from erlvectordb_tpu_torch.ops.fused_topk import (
+    div_scalar,
+    full_f32_matmul,
+    mul_recip,
+)
 from erlvectordb_tpu_torch.ops.kmeans import kmeans_fit
 
 # Inputs above this row count finish the assignment in levels of a few
@@ -55,7 +62,7 @@ class CellBuildResult(NamedTuple):
     """Device-resident cell build output (perm maps slot -> original row)."""
 
     centroids: torch.Tensor     # [K, W] f32 (trailing cells may be empty)
-    codes: torch.Tensor         # [S, W//2] uint8 packed int4 residuals
+    codes: torch.Tensor         # [S, W//2] uint8 (int4 packed) or [S, W] int8
     scales: torch.Tensor        # [S] f32 per-row residual scales
     norms: torch.Tensor         # [S] f32 reconstruction norms
     valid: torch.Tensor         # [S] bool
@@ -72,7 +79,7 @@ class CellBuildResult(NamedTuple):
 def _quantize_rows_int8(x: torch.Tensor):
     """Per-row absmax int8 codes and scales."""
     am = x.abs().amax(dim=-1)
-    s = torch.where(am > 0, div_scalar(am, 127.0), torch.ones_like(am))
+    s = torch.where(am > 0, mul_recip(am, 127.0), torch.ones_like(am))
     return torch.clamp(torch.round(x / s[:, None]), -127, 127).to(torch.int8), s
 
 
@@ -201,21 +208,24 @@ def _assign_finish(owner, fill, row_valid, *, k, cap, dump):
     return owner, int(torch.sum(left))
 
 
-def _assign_capacity(ch_d, ch_i, row_valid, *, k, cap, j, dump=True,
-                     stop_frac=1 / 4096, stats_out=None):
+def _assign_capacity(ch_d, ch_i, row_valid, *, k, cap, j, fill0=None,
+                     dump=True, stop_frac=1 / 4096, stats_out=None):
     """Capacity-constrained greedy assignment, closest-first (see _Rounds).
 
     The walk stops once fewer than ``stop_frac * n`` rows remain active; the
     stragglers take the dump pass.  Inputs above _TAIL_MIN_N rows run two
     rounds, then levels of up to four, abandoning the walk when a level
     places < 5% of its active rows (every remaining preference entry points
-    at a full cell).  ``stats_out`` receives ``rounds`` (rounds run) and
-    ``rounds_cap`` (= j).  Returns (owner [N] int32 in [0, k), k for
+    at a full cell).  ``fill0`` seeds the per-cell occupancy (spill rounds
+    start from the primary fill); ``dump=False`` skips the dump pass (an
+    unplaced spill copy is simply not made).  ``stats_out`` receives
+    ``rounds`` (rounds run) and ``rounds_cap`` (= j).  Returns (owner [N] int32 in [0, k), k for
     invalid/unplaced rows; number of rows the dump pass placed)."""
     n = ch_d.shape[0]
     n_stop = 0 if j <= 1 else int(n * stop_frac)
     owner = torch.full((n,), -1, dtype=torch.int32, device=ch_d.device)
-    fill = torch.zeros((k,), dtype=torch.int64, device=ch_d.device)
+    fill = (torch.zeros((k,), dtype=torch.int64, device=ch_d.device)
+            if fill0 is None else fill0.to(torch.int64).clone())
     rounds = _Rounds(ch_d, ch_i, row_valid, k=k, cap=cap, j=j)
     if n <= _TAIL_MIN_N or j <= 1:
         rounds_done, _ = rounds.run(owner, fill, 0, j, n_stop)
@@ -255,20 +265,48 @@ def _refit_centroids(codes8, scales, owner, cents_old, *, k, sub, step=1):
 # --------------------------------------------------------------------- place
 
 
-def _positions(owner, *, k, cap):
-    """Slot position per row (pos = cell * cap + rank within the cell) from
-    one stable argsort of the owner vector; invalid rows (owner == k) get
-    positions past any layout."""
+def _positions(owner, *, k, cap, base=None):
+    """Slot position per row (pos = cell * cap + base[cell] + rank within
+    the cell) from one stable argsort of the owner vector; invalid rows
+    (owner == k) get positions past any layout.  ``base`` seeds per-cell
+    slot offsets (spill copies go after the primary rows)."""
     n = owner.shape[0]
     order = torch.sort(owner.long(), stable=True).indices
     so = owner.long()[order]
     starts = torch.searchsorted(so, torch.arange(k + 1, device=so.device))
     rank = torch.arange(n, device=so.device) - starts[torch.clamp(so, 0, k)]
+    if base is not None:
+        rank = rank + base.long()[torch.clamp(so, 0, k - 1)]
     pos_sorted = torch.where(so < k, so * cap + rank,
                              torch.full_like(so, 1 << 30))
     pos = torch.empty_like(pos_sorted)
     pos[order] = pos_sorted
     return pos
+
+
+def _spill_proposals(ch_d, ch_i, owner, *, k, spill_mult, xn2):
+    """Secondary-cell (SOAR-style multi-assignment) proposals: for each
+    placed row, the closest choice cell that is not its owner, eligible when
+    its full squared distance is within ``spill_mult**2`` of the owner
+    cell's.  ch_d holds the routing proxy |c|^2 - 2 x.c; adding |x|^2
+    recovers squared distances for the ratio test.  Returns (cell [N]
+    int32, proxy distance [N] f32 (inf where ineligible), eligible [N])."""
+    inf = float("inf")
+    chd = ch_d.float()
+    is_owner = ch_i.long() == owner.long()[:, None]
+    # the owner's own proxy distance (inf if the row was dump-placed off its
+    # list: then there is no trustworthy margin, so no spill)
+    own_d = torch.where(is_owner, chd, inf).amin(dim=1)
+    masked = torch.where(is_owner, inf, chd)
+    sec_col = torch.argmin(masked, dim=1, keepdim=True)
+    sec_d = torch.gather(masked, 1, sec_col)[:, 0]
+    sec_cell = torch.gather(ch_i, 1, sec_col)[:, 0].to(torch.int32)
+    d2_own = torch.clamp(own_d + xn2, min=0.0)
+    d2_sec = torch.clamp(sec_d + xn2, min=0.0)
+    m = torch.tensor(spill_mult, dtype=torch.float32, device=chd.device)
+    ok = ((owner < k) & torch.isfinite(own_d) & torch.isfinite(sec_d)
+          & (d2_sec <= m * m * d2_own))
+    return sec_cell, torch.where(ok, sec_d, inf), ok
 
 
 # -------------------------------------------------------------------- encode
@@ -324,28 +362,40 @@ def _slot_scatter(slot8, slot_sc, slot_pm, codes8, scales_in, owner, pos, *, k):
                              torch.full_like(orig[keep], -1))
 
 
-def _encode_slots(slot8, slot_sc, slot_pm, cents_pad, *, cap, blk,
+def _encode_slots(slot8, slot_sc, slot_pm, cents_pad, *, bits, cap, blk,
                   aniso_eta=1.0):
     """Residual-quantize the slot-ordered staged rows block by block: in slot
     order a block of ``blk`` cells sees its centroids as one contiguous
-    slice broadcast across ``cap`` slots.  Returns (packed codes, scales,
-    reconstruction norms, valid)."""
+    slice broadcast across ``cap`` slots.  ``bits`` 4: packed int4 codes
+    (per-row clip sweep); 8: int8 absmax codes written over ``slot8`` in
+    place, with the scale absmax * f32(1/127) as the JAX package computes
+    it.  Returns (codes, scales, reconstruction norms, valid)."""
     s_total, w = slot8.shape
     rows_blk = blk * cap
     live = slot_pm >= 0
-    out_codes = torch.zeros((s_total, w // 2), dtype=torch.uint8,
-                            device=slot8.device)
+    out_codes = (torch.zeros((s_total, w // 2), dtype=torch.uint8,
+                             device=slot8.device) if bits == 4 else slot8)
     out_scales = slot_sc.clone()
     out_norms = torch.zeros((s_total,), dtype=torch.float32, device=slot8.device)
     for b in range(s_total // rows_blk):
         sl = slice(b * rows_blk, (b + 1) * rows_blk)
         lv = live[sl]
         cent = cents_pad[b * blk:(b + 1) * blk].repeat_interleave(cap, dim=0)
-        x = slot8[sl].float() * out_scales[sl, None]
-        res = torch.where(lv[:, None], x - cent, torch.zeros_like(x))
-        q, s = _quantize_residual_int4(res, x, aniso_eta)
-        out_codes[sl] = _pack_int4(torch.where(lv[:, None], q,
-                                               torch.zeros_like(q)))
+        if bits == 4:
+            x = slot8[sl].float() * out_scales[sl, None]
+            res = torch.where(lv[:, None], x - cent, torch.zeros_like(x))
+            q, s = _quantize_residual_int4(res, x, aniso_eta)
+            out_codes[sl] = _pack_int4(torch.where(lv[:, None], q,
+                                                   torch.zeros_like(q)))
+        else:
+            # code * scale - centroid with one rounding: XLA contracts the
+            # JAX encode's multiply and subtract into a fused multiply-add
+            # (the float64 product of an int8 code and an f32 scale is exact)
+            res = (slot8[sl].double() * out_scales[sl, None].double()
+                   - cent.double()).float()
+            res = torch.where(lv[:, None], res, torch.zeros_like(res))
+            q, s = _quantize_rows_int8(res)
+            out_codes[sl] = torch.where(lv[:, None], q, torch.zeros_like(q))
         recon = cent + q.float() * s[:, None]
         out_norms[sl] = torch.where(lv, torch.sqrt(torch.sum(recon * recon,
                                                              dim=-1)),
@@ -364,7 +414,7 @@ def build_cells_streaming(
     dim: int,
     cell_rows: int = 96,        # target rows per cell
     cell_cap: int = 128,        # physical slots per cell
-    residual_bits: int = 4,     # 4 (packed, int4r store); 8 is not ported
+    residual_bits: int = 4,     # 4 (packed, int4r store) | 8 (CellProbe)
     j: int = 16,                # preference-list depth
     refits: int = 1,            # capacity-constrained Lloyd rounds
     refit_sample: Optional[float] = None,  # pre-refit rounds run on this
@@ -374,7 +424,11 @@ def build_cells_streaming(
     final_refit: bool = True,   # refit centroids to their ACTUAL members
     #                             after the last assignment, encode against
     #                             those
-    spill_mult: float = 0.0,    # multi-assignment: not ported (must be 0)
+    spill_mult: float = 0.0,    # SOAR-style multi-assignment: rows whose
+    #                             second-closest cell is within this factor
+    #                             of the owner distance get a second copy
+    #                             there (0 = off); copies share the perm row,
+    #                             so consumers dedup by row
     aniso_eta: float = 1.0,     # >1: anisotropic loss for the clip sweep
     seed: int = 0,
     train_rows: int = 262_144,
@@ -388,18 +442,11 @@ def build_cells_streaming(
     """Streaming device build of a balanced cell-residual layout.
 
     ``n`` must be exact; every chunk except the last must have the same row
-    count.  Returns device tensors ready to serve as an int4r VectorStore,
-    on ``device`` (default: the CUDA card)."""
-    if residual_bits == 8:
-        raise NotImplementedError(
-            "residual_bits=8 (cell-probe cells) is not yet ported to "
-            "erlvectordb_tpu_torch")
-    if residual_bits != 4:
+    count.  Returns device tensors ready to serve as an int4r VectorStore
+    (bits 4) or a CellProbeIndex (bits 8), on ``device`` (default: the CUDA
+    card)."""
+    if residual_bits not in (4, 8):
         raise ValueError("residual_bits must be 4 or 8")
-    if spill_mult:
-        raise NotImplementedError(
-            "spill_mult (multi-assigned cells) is not yet ported to "
-            "erlvectordb_tpu_torch")
     if refit_sample is None:
         refit_sample = 0.25 if cell_rows >= 256 else 0.5
     if cell_cap < cell_rows:
@@ -488,8 +535,8 @@ def build_cells_streaming(
         owner, n_dumped = _assign_capacity(ch_d, ch_i, row_valid, k=k_real,
                                            cap=cell_cap, j=jj,
                                            stats_out=asn_stats)
-        del ch_d, ch_i
         if r < refits:
+            del ch_d, ch_i
             cents = _refit_centroids(codes8, scales, owner, cents,
                                      k=k_real, sub=sub)
     if final_refit:
@@ -501,13 +548,37 @@ def build_cells_streaming(
     pos = _positions(owner, k=k_real, cap=cell_cap)
     counts_dev = torch.bincount(owner[row_valid].long(),
                                 minlength=k_real + 1)[:k_real]
+    n_spilled = 0
+    sp_owner = sp_pos = None
+    if spill_mult:
+        # spill routing reads the last full pass's choice lists, before the
+        # slot arrays exist
+        sc_cell, sc_d, sc_ok = _spill_proposals(
+            ch_d, ch_i, owner, k=k_real, spill_mult=spill_mult,
+            xn2=norms * norms)
+        sp_owner, _ = _assign_capacity(
+            sc_d[:, None], sc_cell[:, None], sc_ok, k=k_real, cap=cell_cap,
+            j=1, fill0=counts_dev, dump=False)
+        sp_pos = _positions(sp_owner, k=k_real, cap=cell_cap, base=counts_dev)
+        del sc_cell, sc_d, sc_ok
+    del ch_d, ch_i, norms
     t_spill = time.perf_counter()
     s_total = k_total * cell_cap
     slot8 = torch.zeros((s_total, w), dtype=torch.int8, device=dev)
     slot_sc = torch.ones((s_total,), dtype=torch.float32, device=dev)
     slot_pm = torch.full((s_total,), -1, dtype=torch.int32, device=dev)
     _slot_scatter(slot8, slot_sc, slot_pm, codes8, scales, owner, pos, k=k_real)
-    del codes8, scales, norms, pos
+    if sp_owner is not None:
+        # spill copies ride the same scatter and encode: the slot's cell
+        # decides the residual target, so a copy quantizes against its cell
+        _slot_scatter(slot8, slot_sc, slot_pm, codes8, scales, sp_owner,
+                      sp_pos, k=k_real)
+        sp_counts = torch.bincount(sp_owner.long(),
+                                   minlength=k_real + 1)[:k_real]
+        counts_dev = counts_dev + sp_counts
+        n_spilled = int(torch.sum(sp_counts))
+        del sp_owner, sp_pos, sp_counts
+    del codes8, scales, pos
     t_scatter = time.perf_counter()
 
     # ---- encode in slot order -------------------------------------------
@@ -516,8 +587,8 @@ def build_cells_streaming(
     while k_total % blk:
         blk //= 2
     out_codes, out_scales, out_norms, out_valid = _encode_slots(
-        slot8, slot_sc, slot_pm, cents_pad, cap=cell_cap, blk=blk,
-        aniso_eta=aniso_eta)
+        slot8, slot_sc, slot_pm, cents_pad, bits=residual_bits, cap=cell_cap,
+        blk=blk, aniso_eta=aniso_eta)
     del slot8, slot_sc
     counts = np.zeros((k_total,), np.int64)
     counts[:k_real] = counts_dev.cpu().numpy()
@@ -534,7 +605,7 @@ def build_cells_streaming(
         "cell_cap": cell_cap,
         "dumped_rows": n_dumped - early,
         "earlystop_rows": early,
-        "spilled_rows": 0,
+        "spilled_rows": n_spilled,
         "residual_bits": residual_bits,
         "stage_s": round(t_stage - t_start, 3),
         "kmeans_s": round(t_seed - t_stage, 3),

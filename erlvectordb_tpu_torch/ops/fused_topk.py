@@ -81,6 +81,13 @@ def full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def mul_recip(a: torch.Tensor, s: float) -> torch.Tensor:
+    """a * f32(1/s): what XLA compiles the JAX package's ``a / s`` by a
+    constant to inside ``jit`` (a true division differs in the last bit on
+    ~4% of f32 values)."""
+    return a * torch.tensor(1.0 / s, dtype=a.dtype, device=a.device)
+
+
 def div_scalar(a: torch.Tensor, s: float) -> torch.Tensor:
     """a / s as a true f32 division on every device (CUDA divides by a Python
     scalar as a * (1/s), which can differ in the last bit)."""
@@ -534,7 +541,7 @@ def _affine_factors(metric, scales, norms, valid, queries):
     b = queries.shape[0]
     if scales is not None:  # int8 store: quantize queries symmetrically
         q_absmax = queries.abs().amax(dim=-1, keepdim=True)
-        q_scale = torch.where(q_absmax > 0, div_scalar(q_absmax, 127.0),
+        q_scale = torch.where(q_absmax > 0, mul_recip(q_absmax, 127.0),
                               torch.ones_like(q_absmax))
         q_in = torch.clamp(torch.round(queries / q_scale), -127, 127).to(torch.int8)
         row_scale = scales
@@ -600,11 +607,16 @@ def _pool_rows(keys, k, pool_floor):
     return kk, sel * POS_SLICE + (topkeys & POS_LANE_MASK)
 
 
+def l2key_batch_scale(queries):
+    """The batch-shared query scale s_b of the euclidean key scan."""
+    return mul_recip(torch.clamp(queries.abs().amax(), min=1e-30), 127.0)
+
+
 def l2key_inputs(queries, norms, plane_scale):
     """The euclidean key scan's inputs: the batch quantized with ONE shared
     scale s_b, and the per-row bias round-down(127 |x|^2 / (2 S s_b)) in the
     same scaled-int dot domain, clamped below 2^20."""
-    s_b = div_scalar(torch.clamp(queries.abs().amax(), min=1e-30), 127.0)
+    s_b = l2key_batch_scale(queries)
     q8b = torch.clamp(torch.round(queries / s_b), -127, 127).to(torch.int8)
     bias_f = norms * norms * (127.0 / 2.0) / (plane_scale * s_b)
     return q8b, torch.clamp(bias_f, max=L2KEY_BIAS_MAX).to(torch.int32)

@@ -287,6 +287,8 @@ class MCPServer:
             if (
                 send is not None
                 and name in ("search_vectors", "search_vectors_batch")
+                and args.get("nprobe") is None  # sub-linear path: direct
+                and args.get("recall_target") is None
                 and self.db.batcher.is_alive()
                 and self._search_async(req_id, name, args, send)
             ):
@@ -320,7 +322,6 @@ class MCPServer:
             send(_error(req_id, code, str(e)))
 
         try:
-            tools_mod.reject_probe(args)
             store = args["store"]
             k = int(args.get("k", 10))
             metric = args.get("metric")

@@ -7,13 +7,13 @@ dispatcher is broken: the ``create_store`` clause actually performs an
 tool" (:398-399; independently documented in INTEGRATION_TEST_RESULTS.md
 "Parameter Schema Mismatch").  Here each tool does what its schema says.
 
-The table lists only the tools this package serves (persistence, backup,
-indexes and multiprobe search are not ported yet); the JSON shapes of the
-answers are the JAX package's.
+The table lists only the tools this package serves (persistence, backup and
+indexes are not ported yet); the JSON shapes of the answers are the JAX
+package's.
 
 Scope matrix (reference check_tool_permission :414-427):
   read  — search_vectors, search_vectors_batch, get_store_stats, list_stores
-  write — create_store, insert_vector, delete_vector
+  write — create_store, insert_vector, delete_vector, calibrate_store
 """
 
 from __future__ import annotations
@@ -188,6 +188,24 @@ TOOLS: Dict[str, dict] = {
                 "metric": {"type": "string"},
                 "filter": {"type": "object",
                            "description": "metadata equality predicates (AND)"},
+                "nprobe": {"type": "integer", "minimum": 1,
+                           "description": "int4r stores: probe only the N "
+                           "nearest cells (sub-linear low-latency path, "
+                           "approximate)"},
+                "recall_target": {"type": "number",
+                                  "description": "int4r stores: pick the "
+                                  "smallest calibrated nprobe meeting this "
+                                  "recall@k (alternative to nprobe). "
+                                  "Guarantee depends on the store's "
+                                  "calibration mode (get_store_stats "
+                                  "'calibration'): 'exact' curves measure "
+                                  "ABSOLUTE recall vs exact f32 ground "
+                                  "truth and reject targets above the "
+                                  "quantization ceiling; uncalibrated "
+                                  "stores lazily self-calibrate in "
+                                  "'ceiling' mode, where recall is "
+                                  "relative to the store's own deep probe "
+                                  "and quantization loss is NOT counted"},
             },
             ["store"],
         ),
@@ -209,6 +227,16 @@ TOOLS: Dict[str, dict] = {
                 "k": {"type": "integer", "default": 10},
                 "metric": {"type": "string"},
                 "filter": {"type": "object"},
+                "nprobe": {"type": "integer", "minimum": 1,
+                           "description": "int4r stores: sub-linear "
+                           "multiprobe (approximate)"},
+                "recall_target": {"type": "number",
+                                  "description": "int4r stores: smallest "
+                                  "calibrated nprobe meeting this recall@k "
+                                  "(see search_vectors: absolute under "
+                                  "'exact' calibration, deep-probe-"
+                                  "relative under lazy 'ceiling' "
+                                  "calibration)"},
                 "compact": {"type": "boolean",
                             "description": "return parallel ids/distances "
                             "arrays without metadata (cheap to encode)"},
@@ -241,6 +269,25 @@ TOOLS: Dict[str, dict] = {
             {},
             [],
         ),
+        _schema(
+            "calibrate_store",
+            "Measure an int4r store's recall-vs-nprobe curve so "
+            "recall_target searches answer without a lazy first-use "
+            "calibration; returns the {nprobe: recall} curve.  NOTE: this "
+            "self-calibration is CEILING mode — recall relative to the "
+            "store's own deep probe, quantization loss not counted; "
+            "absolute (exact-mode) calibration needs the original f32 data "
+            "and is available through the Python API "
+            "(Database.calibrate_store with ground_truth)",
+            "write",
+            {
+                "store": {"type": "string"},
+                "n_sample": {"type": "integer", "default": 256},
+                "k": {"type": "integer", "default": 10},
+                "metric": {"type": "string"},
+            },
+            ["store"],
+        ),
     ]
 }
 
@@ -264,13 +311,24 @@ def check_permission(name: str, scopes: Set[str]) -> bool:
     return t is not None and t["x-scope"] in scopes
 
 
-def reject_probe(args: Dict[str, Any]) -> None:
-    """Multiprobe search (``nprobe``/``recall_target``, int4r stores) is not
-    ported: refuse it rather than silently answer with a full scan."""
-    for key in ("nprobe", "recall_target"):
-        if args.get(key) is not None:
-            raise ToolError(f"{key!r} is not supported: multiprobe search is "
-                            "not yet ported to erlvectordb_tpu_torch")
+def probe_kwargs(args: Dict[str, Any]) -> Dict[str, Any]:
+    """Validated nprobe/recall_target kwargs from request args: degenerate
+    values (nprobe=0, recall_target=1.5) get a clean domain error, never a
+    0-probe dispatch."""
+    kw: Dict[str, Any] = {}
+    if args.get("nprobe") is not None:
+        nprobe = int(args["nprobe"])
+        if nprobe < 1:
+            raise ToolError("nprobe must be >= 1")
+        kw["nprobe"] = nprobe
+    if args.get("recall_target") is not None:
+        rt = float(args["recall_target"])
+        if not (0.0 < rt <= 1.0):
+            raise ToolError("recall_target must be in (0, 1]")
+        kw["recall_target"] = rt
+    if len(kw) == 2:
+        raise ToolError("pass either nprobe or recall_target, not both")
+    return kw
 
 
 def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
@@ -295,7 +353,17 @@ def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
         )
         return {"status": "ok", "store": args["store"], "id": args["id"]}
     if name == "search_vectors":
-        reject_probe(args)
+        if (args.get("nprobe") is not None
+                or args.get("recall_target") is not None):
+            # the sub-linear latency path: a direct dispatch (no batching
+            # window) that reads only the probed cells
+            store = db.any_store(args["store"])
+            db._check_nprobe(store)
+            kw = probe_kwargs(args)
+            hits = store.search(
+                decode_query(args), k=int(args.get("k", 10)),
+                metric=args.get("metric"), where=args.get("filter"), **kw)
+            return format_hits(hits)
         # concurrent protocol requests coalesce into one device batch
         hits = db.batcher.search(
             args["store"], decode_query(args), k=int(args.get("k", 10)),
@@ -305,11 +373,14 @@ def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
     if name == "search_vectors_batch":
         # synchronous fallback (the MCP server normally routes this through
         # the batcher's async submit_group pipeline)
-        reject_probe(args)
         store = db.any_store(args["store"])
         qs = decode_queries(args)
         kw = dict(k=int(args.get("k", 10)), metric=args.get("metric"),
                   where=args.get("filter"))
+        pk = probe_kwargs(args)
+        if pk:
+            db._check_nprobe(store)
+            kw.update(pk)
         if args.get("encoding") == "b64":
             cols = store.search_batch_complete_raw(
                 store.search_batch_submit(qs, **kw))
@@ -328,4 +399,10 @@ def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
         return db.any_store(args["store"]).get_stats()
     if name == "list_stores":
         return {"stores": db.list_stores()}
+    if name == "calibrate_store":
+        curve = db.calibrate_store(
+            args["store"], n_sample=int(args.get("n_sample", 256)),
+            k=int(args.get("k", 10)), metric=args.get("metric"))
+        return {"store": args["store"], "mode": "ceiling",
+                "curve": {str(p): r for p, r in sorted(curve.items())}}
     raise ToolError(f"Unknown tool: {name}")  # unreachable

@@ -6,7 +6,8 @@ machine with a card (and no JAX), run them with
 
 (``--noconftest``: tests/conftest.py configures JAX for the rest of the
 suite).  Besides the kernels, the int4 and int4r stores run insert, delete
-and search through the store's kernel dispatch on the card.  Shapes are small but ragged — a query count that is not a multiple
+and search through the store's kernel dispatch on the card, and an int4r
+store and a cell-probe index run multiprobe searches through B7.  Shapes are small but ragged — a query count that is not a multiple
 of the kernels' query groups, rows two staged pieces wide — so the edges of
 the kernels' tiling are exercised; chip_smoke.py checks the same bars at the
 full config-3 shapes.
@@ -328,3 +329,114 @@ def test_int4_store_through_kernels(dev, monkeypatch):
         np.testing.assert_allclose([h[0][2] for h in got],
                                    [h[0][2] for h in want], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ------------------------------------------------ B7, multiprobe gather+dot
+
+
+def _gather_case(dev, packed, k_cells, cap, w, b, nprobe, seed=0):
+    """Random codes [K, cap, Wc], probe ids and bf16-exact queries."""
+    rng = np.random.default_rng(seed)
+    if packed:
+        q4 = rng.integers(-7, 8, (k_cells * cap, w)).astype(np.int8)
+        codes3 = _pack_int4(torch.from_numpy(q4)).reshape(k_cells, cap, w // 2)
+    else:
+        codes3 = torch.from_numpy(
+            rng.integers(-127, 128, (k_cells, cap, w)).astype(np.int8))
+    probe = torch.from_numpy(
+        rng.integers(0, k_cells, (b, nprobe)).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((b, w)).astype(np.float32))
+    q = q.to(torch.bfloat16).float()
+    return codes3.to(dev), probe.to(dev), q.to(dev)
+
+
+@pytest.mark.parametrize("packed,k_cells,cap,w,b,nprobe", [
+    (False, 37, 13, 48, 45, 7),        # ragged: rows of 3 pieces, odd cap
+    (True, 37, 13, 64, 45, 1),         # ragged packed, nprobe 1
+    (False, 9, 40, 16, 3, 9),          # one 16-byte piece a row
+    (True, 300, 128, 128, 64, 16),     # the int4r store's cells
+    (False, 64, 512, 768, 16, 8),      # the cell-probe index's cells
+], ids=["int8-ragged", "int4-ragged", "int8-narrow", "int4-cap128",
+        "int8-cap512"])
+def test_gather_dots_kernel_matches_plain(dev, packed, k_cells, cap, w, b,
+                                          nprobe):
+    """B7 against its plain version: within 1e-5 of sum |q| |c| (the f32
+    sums are taken in another order than the plain version's float64)."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    codes3, probe, q = _gather_case(dev, packed, k_cells, cap, w, b, nprobe)
+    cp.reset_launches()
+    kern = cp.gather_dots(codes3, probe, q)
+    torch.cuda.synchronize()
+    assert cp.gather_dots.launches_by == {"int4" if packed else "int8": 1}
+    ref = cp.gather_dots_ref(codes3, probe, q)
+    full = ft.unpack_int4(codes3) if packed else codes3
+    mag = cp.gather_dots_ref(full.abs(), probe, q.abs())
+    assert kern.shape == (b, nprobe, cap)
+    assert torch.all((kern - ref).abs() <= 1e-5 * mag + 1e-30)
+
+
+def test_gather_dots_wrapper_validates(dev):
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    codes3, probe, q = _gather_case(dev, False, 8, 16, 32, 4, 2)
+    with pytest.raises(ValueError):       # int64 probe ids
+        cp.gather_dots(codes3, probe.long(), q)
+    with pytest.raises(ValueError):       # query width off the rows
+        cp.gather_dots(codes3, probe, q[:, :16].contiguous())
+    with pytest.raises(ValueError):       # rows not a 16-byte multiple
+        cp.gather_dots(codes3[:, :, :24].contiguous(), probe,
+                       q[:, :24].contiguous())
+    with pytest.raises(ValueError):       # f32 codes
+        cp.gather_dots(codes3.float(), probe, q)
+
+
+def test_int4r_store_multiprobe_through_kernel(dev):
+    """nprobe searches of an int4r store on the card launch B7 (packed) and
+    agree with the same state searched on the CPU by the plain version."""
+    from erlvectordb_tpu_torch.core.store import VectorStore
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    data = _clustered(np.random.default_rng(7), 20_000)
+    st = VectorStore.from_matrix("mp", data, dtype="int4r", device=dev)
+    cpu = VectorStore.from_state(st.export_state(), device=torch.device("cpu"))
+    qs = np.concatenate([data[:32], _clustered(np.random.default_rng(8), 32)])
+    for nprobe in (1, 8, 64):
+        cp.reset_launches()
+        got = st.search_batch(qs, k=10, nprobe=nprobe)
+        assert cp.gather_dots.launches_by.get("int4", 0) >= 1
+        want = cpu.search_batch(qs, k=10, nprobe=nprobe)
+        # one probed cell may hold fewer than k rows: compare hit counts,
+        # then ids entry by entry
+        assert [len(x) for x in got] == [len(y) for y in want]
+        same = np.mean([a[0] == b[0] for x, y in zip(got, want)
+                        for a, b in zip(x, y)])
+        assert same >= 0.99
+        np.testing.assert_allclose([h[0][2] for h in got],
+                                   [h[0][2] for h in want], rtol=1e-5,
+                                   atol=1e-5)
+    top1 = [h[0][0] for h in st.search_batch(data[:32], k=1, nprobe=8)]
+    assert top1 == [str(i) for i in range(32)]
+
+
+def test_cellprobe_index_through_kernel(dev):
+    """A CellProbeIndex built on the card searches through B7 (int8) and
+    agrees with its arrays searched on the CPU."""
+    from erlvectordb_tpu_torch.core.cell_probe import CellProbeIndex
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    data = _clustered(np.random.default_rng(9), 20_000, d=96)
+    chunks = [data[i:i + 4096] for i in range(0, len(data), 4096)]
+    idx = CellProbeIndex.build_streaming(
+        iter(chunks), n=len(data), dim=96, cell_rows=48, cell_cap=64,
+        spill_mult=1.3, device=dev)
+    assert idx.spilled
+    cpu = CellProbeIndex.from_arrays(idx.to_arrays(), device="cpu")
+    qs = data[::500]
+    cp.reset_launches()
+    d_k, r_k = idx.search(qs, k=10, nprobe=16)
+    assert cp.gather_dots.launches_by.get("int8", 0) >= 1
+    d_c, r_c = cpu.search(qs, k=10, nprobe=16)
+    assert np.mean(r_k == r_c) >= 0.99
+    np.testing.assert_allclose(d_k[:, 0], d_c[:, 0], rtol=1e-5, atol=1e-5)
+    assert (r_k[:, 0] == np.arange(0, len(data), 500)).all()

@@ -528,9 +528,13 @@ class TestStreamingBuild:
         np.testing.assert_array_equal(rows[:, 0], np.arange(4))
 
     def test_multiprobe_refused(self, built):
+        """Multiprobe search is served on the streaming-built store (rows
+        map slot -> original row on the device); what it refuses is a
+        request naming both nprobe and recall_target."""
         store, data = built
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            store.search(data[77], k=3, nprobe=8)
+        assert store.search(data[77], k=3, nprobe=8)[0][0] == "77"
+        with pytest.raises(ValueError, match="not both"):
+            store.search(data[77], k=3, nprobe=8, recall_target=0.9)
 
     def test_get_materializes_and_roundtrips(self, built):
         store, data = built
@@ -621,3 +625,210 @@ def test_database_streaming_build(rng):
     assert db.search("big", data[42], k=1)[0][0] == "42"
     with pytest.raises(ValueError, match="already exists"):
         db.create_store_streaming("big", iter([data]), n=500, dim=40)
+
+
+# ------------------------------------------------ multiprobe (nprobe, B7)
+
+
+@pytest.fixture(scope="module")
+def mp_pair():
+    """A JAX int4r store (host build) and the port's copy of its state."""
+    rng = np.random.default_rng(21)
+    centers = rng.standard_normal((40, 24)).astype(np.float32)
+    data = (centers[rng.integers(0, 40, 6000)]
+            + 0.25 * rng.standard_normal((6000, 24)).astype(np.float32))
+    js = jstore.VectorStore.from_matrix("mp", data, dtype="int4r")
+    ts = VectorStore.from_state(js.export_state(), device=CPU)
+    held = (centers[rng.integers(0, 40, 48)]
+            + 0.25 * rng.standard_normal((48, 24)).astype(np.float32))
+    return js, ts, data, held
+
+
+def _raw(store, qs, **kw):
+    d, r, ids = store.search_batch_complete_raw(
+        store.search_batch_submit(qs, **kw))
+    return d, ids
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+@pytest.mark.parametrize("nprobe", [1, 4, 512])
+def test_multiprobe_matches_jax_on_carried_state(mp_pair, metric, nprobe):
+    """nprobe 1, 4 and deep (512 > cells: every cell) on JAX state carried
+    across: ids identical, distances within rtol 1e-5 (euclidean as squares
+    to 1e-5 |q|^2: the distance formula cancels near a match)."""
+    js, ts, _, held = mp_pair
+    jd, jids = _raw(js, held, k=10, metric=metric, nprobe=nprobe)
+    td, tids = _raw(ts, held, k=10, metric=metric, nprobe=nprobe)
+    assert tids.tolist() == jids.tolist()
+    if metric == "euclidean":
+        q2 = (held * held).sum(1, keepdims=True)
+        assert np.all(np.abs(td ** 2 - jd ** 2) <= 1e-5 * q2)
+    else:
+        np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-6)
+
+
+def test_recall_target_matches_jax_on_carried_state(mp_pair):
+    """The JAX store's calibration curve travels in its state: the port
+    picks the same nprobe for a recall_target and answers alike."""
+    js, _, _, held = mp_pair
+    js.calibrate_nprobe(n_sample=64, k=10)
+    ts = VectorStore.from_state(js.export_state(), device=CPU)
+    assert ts._calib.get(10, "cosine").curve == js._calib.get(10, "cosine").curve
+    assert ts._nprobe_for_target(0.9, 10) == js._nprobe_for_target(0.9, 10)
+    jd, jids = _raw(js, held, k=10, recall_target=0.9)
+    td, tids = _raw(ts, held, k=10, recall_target=0.9)
+    assert tids.tolist() == jids.tolist()
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-6)
+    assert ts.get_stats()["calibration"] == js.get_stats()["calibration"]
+
+
+def test_multiprobe_routing_buffers_follow_the_centroids(mp_pair):
+    """The persistent bf16 routing copy is renewed when the centroids
+    change (an insert that spawns cells replaces the centroid tensor)."""
+    _, _, data, _ = mp_pair
+    st = R("rt", data[:500])          # 6 real cells, 268 free slots
+    st.search(data[0], k=3, nprobe=4)
+    first = st._cents_rt
+    assert first is not None and st._cents_rt_src is st._centroids
+    st.insert_batch([f"far{i}" for i in range(400)],
+                    data[:400] * 40.0 + 100.0)       # overflow spawns cells
+    assert st._centroids is not st._cents_rt_src
+    assert st.search(data[0] * 40.0 + 100.0, k=1, nprobe=4)[0][0] == "far0"
+    assert st._cents_rt is not first and st._cents_rt_src is st._centroids
+    assert st._cents_rt.shape[0] == st._centroids.shape[0]
+
+
+# ------------------------------------- tests/test_int4r.py, re-pointed
+
+
+class TestNprobeCalibration:
+    """recall_target -> nprobe (calibrate_nprobe): the curve is
+    ceiling-relative (deep probe == 1.0), monotone non-decreasing, persists
+    through state export/import, and recall_target searches match the
+    curve's chosen nprobe exactly."""
+
+    @pytest.fixture(scope="class")
+    def cal_store(self):
+        rng = np.random.default_rng(11)
+        n, d = 6000, 24
+        centers = rng.standard_normal((40, d)).astype(np.float32)
+        data = (centers[rng.integers(0, 40, n)]
+                + 0.25 * rng.standard_normal((n, d)).astype(np.float32))
+        return R("cal", data)
+
+    def test_curve_shape_and_persistence(self, cal_store):
+        curve = cal_store.calibrate_nprobe(n_sample=64, k=5)
+        assert curve[max(curve)] == 1.0
+        vals = [curve[p] for p in sorted(curve)]
+        for a, b in zip(vals, vals[1:]):
+            assert b >= a - 0.05, curve
+        state = cal_store.export_state()
+        assert state["calibrations"]
+        st2 = VectorStore.from_state(state, device=CPU)
+        cal2 = st2._calib.get(5, "cosine")
+        assert cal2 is not None and cal2.curve == curve
+        assert cal2.mode == "ceiling" and cal2.ceiling == 1.0
+        # and the JAX package reads the port's curves
+        jst = jstore.VectorStore.from_state(state)
+        assert jst._calib.get(5, "cosine").curve == curve
+
+    def test_recall_target_search(self, cal_store):
+        if cal_store._calib.get(5, "cosine") is None:
+            cal_store.calibrate_nprobe(n_sample=64, k=5)
+        q = np.asarray(cal_store.get("7")[0], np.float32)
+        want = cal_store._nprobe_for_target(0.9, k=5)
+        r_target = cal_store.search(q, k=5, recall_target=0.9)
+        r_nprobe = cal_store.search(q, k=5, nprobe=want)
+        assert [h[0] for h in r_target] == [h[0] for h in r_nprobe]
+        with pytest.raises(ValueError):
+            cal_store.search(q, k=5, nprobe=4, recall_target=0.9)
+        with pytest.raises(ValueError):
+            cal_store.search(q, k=5, recall_target=1.5)
+
+    def test_recall_target_rejected_on_non_cell_store(self):
+        rng = np.random.default_rng(3)
+        st = VectorStore.from_matrix(
+            "cal8", rng.standard_normal((64, 8)).astype(np.float32),
+            dtype="int8", device=CPU)
+        with pytest.raises(ValueError):
+            st.search(np.zeros(8, np.float32), k=2, recall_target=0.9)
+
+
+# ---------------------------------------- spilled streaming layouts
+
+
+def _spill_corpus(seed=31, n=4096, d=32):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((24, d)).astype(np.float32)
+    return (centers[rng.integers(0, 24, n)]
+            + 0.3 * rng.standard_normal((n, d)).astype(np.float32))
+
+
+def _spill_chunks(data):
+    return (data[i:i + 1024] for i in range(0, len(data), 1024))
+
+
+@pytest.fixture(scope="module")
+def spilled():
+    data = _spill_corpus()
+    st = VectorStore.from_chunks("sp", _spill_chunks(data), n=len(data),
+                                 dim=data.shape[1], cell_rows=48, cell_cap=64,
+                                 spill_mult=1.3, train_rows=2048, device=CPU)
+    return st, data
+
+
+class TestSpilledStore:
+    def test_built_with_copies(self, spilled):
+        st, data = spilled
+        assert st._spilled and st.build_stats["spilled_rows"] > 0
+        assert st.count == len(data)
+
+    @pytest.mark.parametrize("nprobe", [None, 8])
+    def test_answers_dedup(self, spilled, nprobe):
+        """Over-fetch 2k and keep each row's best hit: no id twice, k hits,
+        the query's own row first."""
+        st, data = spilled
+        res = st.search_batch(data[:16], k=10, nprobe=nprobe)
+        for i, hits in enumerate(res):
+            ids = [h[0] for h in hits]
+            assert ids[0] == str(i) and len(ids) == 10 == len(set(ids))
+        d, _r, ids = st.search_batch_complete_raw(
+            st.search_batch_submit(data[:16], k=10, nprobe=nprobe))
+        assert ids.shape == (16, 10)
+        for row in ids.tolist():
+            assert len(set(row)) == len(row)
+
+    def test_targeted_mutations_refused(self, spilled):
+        st, data = spilled
+        for call in (lambda: st.delete("3"), lambda: st.get("3"),
+                     lambda: st.insert("new", data[0])):
+            with pytest.raises(ValueError, match="spill"):
+                call()
+
+    def test_state_roundtrip_keeps_the_layout(self, spilled):
+        st, data = spilled
+        state = st.export_state()
+        assert state["spilled"] and "perm" in state
+        back = VectorStore.from_state(state, device=CPU)
+        assert back._spilled and back.count == st.count
+        for nprobe in (None, 8):
+            assert (_ids(back.search_batch(data[:8], k=10, nprobe=nprobe))
+                    == _ids(st.search_batch(data[:8], k=10, nprobe=nprobe)))
+
+
+def test_spilled_jax_state_searches_alike():
+    """A JAX spilled streaming build carried across: ids identical through
+    the exact scan and the multiprobe path."""
+    data = _spill_corpus(seed=33)
+    js = jstore.VectorStore.from_chunks(
+        "sp", _spill_chunks(data), n=len(data), dim=data.shape[1],
+        cell_rows=48, cell_cap=64, spill_mult=1.3, train_rows=2048)
+    assert js._spilled
+    ts = VectorStore.from_state(js.export_state(), device=CPU)
+    assert ts._spilled
+    qs = data[::97][:24]
+    for kw in ({}, {"nprobe": 6}):
+        jd, jids = _raw(js, qs, k=10, **kw)
+        td, tids = _raw(ts, qs, k=10, **kw)
+        assert tids.tolist() == jids.tolist()
+        np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-6)

@@ -240,14 +240,24 @@ def test_garbage_line_keeps_connection(pair, filled):
 
 
 def test_tools_list_is_the_ported_subset(pair):
+    """The port lists the tools it serves, each with the JAX package's
+    schema; multiprobe on a store without cells is the JAX package's
+    error."""
     tools = pair[0].call("tools/list")["result"]["tools"]
     assert sorted(t["name"] for t in tools) == sorted([
         "create_store", "insert_vector", "search_vectors",
         "search_vectors_batch", "delete_vector", "get_store_stats",
-        "list_stores"])
-    refused = pair[0].tool("search_vectors", store="s", vector=[0.0] * DIM,
-                           nprobe=4)
-    assert "not yet ported" in refused["message"]
+        "list_stores", "calibrate_store"])
+    jax_tools = {t["name"]: t for t in pair[1].call("tools/list")["result"]["tools"]}
+    for t in tools:
+        if t["name"] in ("search_vectors", "search_vectors_batch",
+                         "calibrate_store"):
+            assert t["inputSchema"] == jax_tools[t["name"]]["inputSchema"]
+    got, want = _both(pair, lambda c: c.tool(
+        "search_vectors", store="s", vector=[0.0] * DIM, nprobe=4))
+    # the JAX message goes on to name its index types, not ported yet
+    assert got["code"] == want["code"] and "int4r" in got["message"]
+    assert got["message"] == want["message"].split(";")[0]
 
 
 def test_persistence_is_refused():
@@ -274,3 +284,86 @@ def test_int4_store_over_mcp(pair, data):
     schema = {t["name"]: t for t in port.call("tools/list")["result"]["tools"]}
     assert "int4" in schema["create_store"]["inputSchema"]["properties"][
         "dtype"]["enum"]
+
+
+# ------------------------------------------------- multiprobe over MCP
+
+
+@pytest.fixture(scope="module")
+def mp_pair():
+    """Both servers holding the same int4r store: JAX-built, carried into
+    the port by export_state -> from_state."""
+    from erlvectordb_tpu.core.store import VectorStore as JaxStore
+    from erlvectordb_tpu_torch.core.store import VectorStore
+
+    rng = np.random.default_rng(41)
+    centers = rng.standard_normal((40, DIM)).astype(np.float32)
+    x = (centers[rng.integers(0, 40, 5000)]
+         + 0.25 * rng.standard_normal((5000, DIM)).astype(np.float32))
+    q = (centers[rng.integers(0, 40, 16)]
+         + 0.25 * rng.standard_normal((16, DIM)).astype(np.float32))
+    overrides = {"persistence_enabled": False}
+    jax_side = _serve(JaxDatabase, JaxMCPServer,
+                      jax_load_config(overrides=overrides, env={}))
+    port_side = _serve(Database, MCPServer,
+                       load_config(overrides=overrides, env={}),
+                       device=torch.device("cpu"))
+    js = JaxStore.from_matrix("r", x, dtype="int4r")
+    port_side[0].registry.adopt(
+        VectorStore.from_state(js.export_state(), device=torch.device("cpu")))
+    jax_side[0].registry.adopt(js)
+    yield (port_side[2], jax_side[2]), x, q
+    for db, server, client in (jax_side, port_side):
+        client.close()
+        server.stop()
+        db.stop()
+
+
+@pytest.mark.parametrize("probe", [{"nprobe": 1}, {"nprobe": 6},
+                                   {"recall_target": 0.9}])
+def test_multiprobe_search_over_mcp(mp_pair, probe):
+    """search_vectors and search_vectors_batch (json, compact, b64) with
+    nprobe or recall_target: the same answers from both servers."""
+    pair, x, q = mp_pair
+    got, want = _both(pair, lambda c: c.tool(
+        "search_vectors", store="r", vector=q[0].tolist(), k=5, **probe))
+    _same_results(got, want)
+    got, want = _both(pair, lambda c: c.tool(
+        "search_vectors_batch", store="r", vectors=q.tolist(), k=5, **probe))
+    for g, w in zip(got["results"], want["results"]):
+        _same_results({"results": g}, {"results": w})
+    got, want = _both(pair, lambda c: c.tool(
+        "search_vectors_batch", store="r", vectors_b64=_b64(q), dim=DIM, k=5,
+        compact=True, **probe))
+    assert got["ids"] == want["ids"]
+    np.testing.assert_allclose(got["distances"], want["distances"],
+                               rtol=1e-5, atol=1e-5)
+    got, want = _both(pair, lambda c: c.tool(
+        "search_vectors_batch", store="r", vectors_b64=_b64(q), dim=DIM, k=5,
+        encoding="b64", **probe))
+    assert got["rows_b64"] == want["rows_b64"]
+
+
+@pytest.mark.parametrize("bad", [{"nprobe": 4, "recall_target": 0.9},
+                                 {"nprobe": 0}, {"recall_target": 1.5}])
+def test_multiprobe_bad_arguments_are_clean_errors(mp_pair, bad):
+    pair, _, q = mp_pair
+    for tool, args in (("search_vectors", {"vector": q[0].tolist()}),
+                       ("search_vectors_batch", {"vectors": q[:2].tolist()})):
+        got, want = _both(pair, lambda c: c.tool(tool, store="r", k=5,
+                                                 **args, **bad))
+        assert got == want and "code" in got, (got, want)
+
+
+def test_calibrate_store_and_stats_over_mcp(mp_pair):
+    """calibrate_store (ceiling mode) answers the same curve on both
+    servers; get_store_stats then carries the calibration summary."""
+    pair, _, _ = mp_pair
+    got, want = _both(pair, lambda c: c.tool("calibrate_store", store="r",
+                                             n_sample=64, k=7))
+    assert got == want and got["mode"] == "ceiling"
+    assert got["curve"][max(got["curve"], key=int)] == 1.0
+    got, want = _both(pair, lambda c: c.tool("get_store_stats", store="r"))
+    assert got["calibration"] == want["calibration"]
+    assert {"mode": "ceiling", "ceiling": 1.0, "k": 7, "metric": "cosine",
+            "n_queries": 64} in got["calibration"]

@@ -144,24 +144,33 @@ def test_from_state_of_jax_store(rng, metric, dtype, intkey):
 
 @pytest.mark.parametrize("kind", ["int4", "int4r"])
 def test_unported_dtypes_refused(rng, kind):
-    """int4 and int4r stores are ported; what they still refuse as not
-    ported: multiprobe search, and the int4r second stage (rq_m)."""
+    """int4 and int4r stores are ported.  Multiprobe search answers on int4r
+    (its cell layout) and is refused on int4 as the JAX package refuses it;
+    the int4r second stage (rq_m) is not ported yet."""
     data = rng.standard_normal((300, 8)).astype(np.float32)
     st = VectorStore.from_matrix("x", data, dtype=kind, device=CPU)
     assert st.count == 300 and st.dtype == kind
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        st.search(data[0], k=3, nprobe=4)
-    if kind == "int4r":
+    if kind == "int4":
+        with pytest.raises(ValueError, match="int4r"):
+            st.search(data[0], k=3, nprobe=4)
+    else:
+        assert st.search(data[0], k=3, nprobe=4)[0][0] == "0"
         with pytest.raises(NotImplementedError, match="not yet ported"):
             VectorStore.from_matrix("y", data, dtype=kind, device=CPU, rq_m=4)
 
 
 def test_multiprobe_refused(rng):
-    st = VectorStore.from_matrix("m", rng.standard_normal((50, 8)), device=CPU)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        st.search(np.ones(8), k=3, nprobe=4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        st.search(np.ones(8), k=3, recall_target=0.9)
+    """Multiprobe search needs a cell layout: f32 stores refuse nprobe and
+    recall_target with the JAX package's error."""
+    data = rng.standard_normal((50, 8))
+    st = VectorStore.from_matrix("m", data, device=CPU)
+    js = jstore.VectorStore.from_matrix("m", data)
+    for kw in ({"nprobe": 4}, {"recall_target": 0.9}):
+        with pytest.raises(ValueError, match="int4r") as got:
+            st.search(np.ones(8), k=3, **kw)
+        with pytest.raises(ValueError, match="int4r") as want:
+            js.search(np.ones(8), k=3, **kw)
+        assert str(got.value) == str(want.value).split(";")[0]
 
 
 # ------------------------------------- tests/test_store.py, re-pointed
