@@ -32,12 +32,29 @@ Phases, each printing one JSON line of its own numbers:
               recall@10 against exact f32 ground truth on the card, and
               overlap@10 of the int4/int4r stores with the plain exact scan
               of the same codes;
+              (f-rq) an int4r store of the same corpus with the rq_m = 9
+                    second stage (bench.py:1008): device bytes beside the
+                    int8 stores', multiprobe recall@10 at nprobe 512 by
+                    rescore pool, one 64-query dispatch at nprobe 64 beside
+                    (f)'s -> B7 gather_dots int4 and the pooled rescore;
   5. index    (i) config 10 phase B: a CellProbeIndex of 8,388,608 x 768
               rows (int8 residual cells, SOAR spill) built by streaming from
               a manifold corpus drawn on the card, with the exact f32 top-10
               gathered while it is drawn; B7 int8 against its plain version
               at the index's shapes, the recall@10 curve over nprobe and the
               per-dispatch ms at 8 queries -> B7 gather_dots int8;
+  6. adc      (j) config 4 (bench.py:351-475): 1M x 128 rows of a 20-d
+              manifold, OPQ 8 x 8-bit codes trained on the card, int8 rerank
+              rows; B8, B9, B10 (int8 and bf16 LUT) against their plain
+              versions on one 512-query batch's LUT, then the three searches
+              on 512-query batches -> B8 adc_pos_scan, B9 adc_exact_scan,
+              B10 adc_pallas_scan int8, with recall@10 against exact f32
+              ground truth;
+  7. indexes  (k) the index manager over MCP: a 1M x 128 float32 euclidean
+              store of (j)'s corpus, pq / opq / int8 / ivf / cellprobe
+              indexes created, built, listed and searched through the MCP
+              tools (256 search_index calls each, every answer the same as a
+              direct IndexManager.search) -> B7 gather_dots int8 (cellprobe);
 
 then the kernels summary line, the nvidia-smi line and, last, the contract
 line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -80,6 +97,14 @@ I_NPROBE = (8, 16, 32, 64, 128, 256)
 I_DISPATCH_NPROBE, I_BQ = (8, 32, 64), 8
 B7_BATCH = {"int4": 1024, "int8": 256}   # B7's kernel-phase shapes
 B7_NPROBE = 64
+RQ_M, RQ_POOLS, RQ_NPROBE = 9, (64, 128, 256), 512   # (f-rq), bench.py:1008
+# (j): bench.py config 4 (bench.py:351-475): make_corpus with intrinsic_dim
+# 20, OPQ m 8 x k 256 (iters 15, opq_iters 4, 200k training rows), 512-query
+# batches, recall@10 on the first 256 of the 512 held-out points
+J_ROWS, J_DIM, J_LATENT, J_BATCH, J_RECALL = 1_000_000, 128, 20, 512, 256
+J_OPQ = dict(m=8, k=256, iters=15, opq_iters=4, max_train=200_000)
+J_C, J_BATCHES = 2048, 4   # adc_search_fused's pool; timed batches
+K_TYPES = ("pq", "opq", "int8", "ivf", "cellprobe")   # (k)'s index types
 DEVICE = "cuda"
 CSRC = "erlvectordb_tpu_torch/csrc/"
 JAX_FT = "erlvectordb_tpu/ops/fused_topk.py:"
@@ -92,6 +117,9 @@ KERNEL_INFO = {
     "pos_residual_scan": ("residual_scan.cu", JAX_FT + "889"),
     "cell_scan": ("residual_scan.cu", JAX_FT + "989"),
     "gather_dots": ("cell_probe.cu", "erlvectordb_tpu/ops/cell_probe.py:150"),
+    "adc_pos_scan": ("adc_scan.cu", "erlvectordb_tpu/ops/adc_pallas.py:419"),
+    "adc_exact_scan": ("adc_scan.cu", "erlvectordb_tpu/ops/adc_pallas.py:253"),
+    "adc_pallas_scan": ("adc_scan.cu", "erlvectordb_tpu/ops/adc_pallas.py:114"),
 }
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops/s (the
 # int4 codes are counted at the int8 rate they run at after unpacking), bf16
@@ -101,6 +129,12 @@ PEAK = {"int8": 1979e12, "int4": 1979e12, "bf16": 989e12, "f32": 67e12}
 HBM = 3.35e12
 NO_LIBRARY = "none: no single PyTorch call computes the scan and its selection"
 NO_LIBRARY_B7 = "none: a gather plus a product is not one PyTorch call"
+NO_LIBRARY_ADC = "none: no single PyTorch call computes a LUT scan and its selection"
+# LUT lookups have no tensor-core rate: one 32-bit shared-memory word per
+# lane per clock, 32 lanes on each of the H100's 132 SMs, at the SM clock
+# nvidia-smi reports as clocks.max.sm (set by main)
+SM_COUNT = 132
+SM_CLOCK_HZ = 1.98e9
 
 
 def emit(phase: str, **numbers) -> None:
@@ -116,9 +150,9 @@ def make_corpus(seed: int, n: int) -> np.ndarray:
     return z
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -222,21 +256,23 @@ def bound(variant, ops, nbytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def reset_launches() -> None:
+def kernel_modules():
+    import erlvectordb_tpu_torch.ops.adc_pallas as ap
     import erlvectordb_tpu_torch.ops.cell_probe as cp
     import erlvectordb_tpu_torch.ops.fused_topk as ft
 
-    ft.reset_launches()
-    cp.reset_launches()
+    return ft, cp, ap
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules():
+        mod.reset_launches()
 
 
 def read_launches() -> dict:
     """kernel -> {variant: launches} of every wrapper that launched."""
-    import erlvectordb_tpu_torch.ops.cell_probe as cp
-    import erlvectordb_tpu_torch.ops.fused_topk as ft
-
-    return {k.__name__: dict(k.launches_by) for k in (*ft.KERNELS, *cp.KERNELS)
-            if k.launches}
+    return {k.__name__: dict(k.launches_by)
+            for mod in kernel_modules() for k in mod.KERNELS if k.launches}
 
 
 def gather_check(out, variant, codes3, probe, q):
@@ -814,7 +850,65 @@ def slice_phase(db, corpus, queries, f32_rows):
          h_capacity_after_inserts=db.get_store("h").capacity,
          torch_memory_allocated=int(torch.cuda.memory_allocated()),
          torch_max_memory_allocated=int(torch.cuda.max_memory_allocated()))
-    return launches
+    return launches, mp_curve
+
+
+def rq_phase(corpus, queries, stores, stage1, launches):
+    """(f-rq): the int4r store of the config-3 corpus with the rq_m second
+    stage (bench.py:1008), driven with the launch counts zeroed: the
+    multiprobe recall@10 at nprobe 512 for each rescore pool, and one
+    64-query dispatch at nprobe 64 beside store (f)'s (bench.py:1020-1031).
+    ``stage1``: (f)'s recall@10 at nprobe 512, stage 1 alone."""
+    import torch
+
+    from erlvectordb_tpu_torch.core.store import VectorStore
+
+    nq = queries[:N_RECALL]
+    store, build_s = timed(lambda: VectorStore.from_matrix(
+        "f-rq", corpus, dtype="int4r", rq_m=RQ_M, device=DEVICE))
+    gt = exact_rows(torch.from_numpy(corpus).to(DEVICE), nq, "cosine")
+
+    def ids(st, qs, nprobe):
+        return st.search_batch_complete_raw(
+            st.search_batch_submit(qs, k=K, nprobe=nprobe))[2]
+
+    def probe_ms(st):
+        qs = queries[:64]
+        ids(st, qs, 64)
+        lat = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            ids(st, qs, 64)
+            lat.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(lat))
+
+    def run():
+        curve = {}
+        for pool in RQ_POOLS:
+            store.rq_pool = pool
+            curve[pool] = overlap(ids(store, nq, RQ_NPROBE), gt)
+        store.rq_pool = 64
+        return curve, {"rq": probe_ms(store), "plain_f": probe_ms(stores["f"])}
+
+    reset_launches()
+    curve, dispatch = run()
+    torch.cuda.synchronize()
+    launches["f-rq"] = read_launches()
+    nbytes = store.device_memory_bytes()
+    ratio = {s: nbytes / stores[s].device_memory_bytes() for s in ("a", "c")}
+    best = max(curve.values())
+    emit("rq", store="f-rq", rq_m=RQ_M, build_s=build_s, device_bytes=nbytes,
+         bytes_over_int8_a=ratio["a"], bytes_over_int8_c=ratio["c"],
+         recall_at_10_nprobe512_by_pool=curve,
+         stage1_recall_at_10_nprobe512=stage1,
+         dispatch_ms_bq64_nprobe64=dispatch, launches=launches["f-rq"])
+    if not launches["f-rq"].get("gather_dots", {}).get("int4"):
+        raise AssertionError(f"path f-rq never launched gather_dots[int4]: "
+                             f"{launches['f-rq']}")
+    # the int8 store without a key plane (c) is the stricter of the two
+    if best < 0.88 or ratio["c"] > 0.5 or best - stage1 < 0.02:
+        raise AssertionError(f"(f-rq): recall {curve} (stage 1 {stage1}), "
+                             f"bytes over int8 {ratio}")
 
 
 # -------------------------------------------------------------------- index
@@ -942,6 +1036,281 @@ def index_phase(kernels, launches):
          profile_bq8_nprobe64=profile, launches=launches["i"])
 
 
+# ---------------------------------------------------------------------- adc
+
+
+def adc_corpus(seed: int):
+    """bench.py make_corpus's recipe with intrinsic_dim 20, with numpy's
+    generator: 1024 centres in a 20-d latent space, noise 0.35, projected to
+    128-d by N(0, 1) / sqrt(20) entries, plus 0.05 isotropic noise.  Returns
+    (the 1M corpus rows, the 512 held-out points)."""
+    rng = np.random.default_rng(seed)
+    n = J_ROWS + J_BATCH
+    centres = rng.standard_normal((N_CENTRES, J_LATENT), dtype=np.float32)
+    z = centres[rng.integers(0, N_CENTRES, n)]
+    z += NOISE * rng.standard_normal((n, J_LATENT), dtype=np.float32)
+    proj = (rng.standard_normal((J_LATENT, J_DIM), dtype=np.float32)
+            / np.float32(math.sqrt(J_LATENT)))
+    x = z @ proj
+    x += np.float32(0.05) * rng.standard_normal((n, J_DIM), dtype=np.float32)
+    return x[:J_ROWS], x[J_ROWS:]
+
+
+def adc_bound(lut, rows_scanned, rows, q=None, d=0):
+    """(bound_ms, bound_by, extra): the LUT lookups (B x rows x M) at the
+    lookup rate against the bytes each input needs once — the codes, the
+    LUT, the outputs, and for the rerank scans the queries and the int8
+    rows, scales and norms of the distinct winners."""
+    import torch
+
+    b, m = lut.shape[0], J_OPQ["m"]
+    lookups = b * rows_scanned * m
+    nbytes = (rows_scanned * m + lut.numel() * lut.element_size()
+              + rows.numel() * 8)
+    winners = 0
+    if q is not None:
+        winners = int(torch.unique(rows).numel())
+        nbytes += q.numel() * 4 + winners * (d + 8)
+    rate = SM_COUNT * 32 * SM_CLOCK_HZ
+    t_ops, t_bytes = lookups / rate, nbytes / HBM
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            dict(lookups=lookups, bound_bytes=nbytes, distinct_winners=winners,
+                 lookup_rate_per_s=rate,
+                 lookup_rate_basis=f"{SM_COUNT} SMs x 32 lanes x "
+                 f"{SM_CLOCK_HZ / 1e6:.0f} MHz (clocks.max.sm), one 32-bit "
+                 "shared-memory word per lane per clock"))
+
+
+def adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p, q, books, nt):
+    """B8, B9, B10 (int8 and bf16 LUT) against their plain versions on one
+    512-query batch of path (j): the LUTs the searches make of it, rows
+    bit-identical, B10's values bit-identical (integer sums; bf16 values
+    added in the same order), B8/B9's reranked values within 1e-5 of
+    (|q| + |x|)^2 (the kernel sums q.x in another order)."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.adc_pallas as ap
+    from erlvectordb_tpu_torch.quant.pq import _adc_l2_tables
+
+    lut3 = _adc_l2_tables(q, books)
+    lut_s = ap.quantize_lut(lut3, shift=True)
+    lut_i = ap.quantize_lut(lut3, shift=False)
+    lut_f = lut3.reshape(q.shape[0], -1).contiguous()
+    n_slices = 8 * min(-(-nt // 8), codes_p.shape[0] // (8 * ap.ADC_TILE_N))
+    t9, t10 = ap.exact_t(nt), ap.exact_t(nt, 4, min(J_C, 512))
+    rr = (q, i8_p, sc_p, n2_p)
+    cases = (
+        ("adc_pos_scan", "int8", lut_s, n_slices, True,
+         lambda: ap.adc_pos_scan(codes_p, lut_s, *rr, n_slices),
+         lambda: ap.adc_pos_scan_ref(codes_p, lut_s, *rr, n_slices)),
+        ("adc_exact_scan", "int8", lut_s, nt, True,
+         lambda: ap.adc_exact_scan(codes_p, lut_s, *rr, nt, t9),
+         lambda: ap.adc_exact_scan_ref(codes_p, lut_s, *rr, nt, t9)),
+        ("adc_pallas_scan", "int8", lut_i, nt, False,
+         lambda: ap.adc_pallas_scan(codes_p, lut_i, n_tiles=nt, t_per_tile=t10),
+         lambda: ap.adc_pallas_scan_ref(codes_p, lut_i, nt, t10)),
+        ("adc_pallas_scan", "bf16", lut_f, nt, False,
+         lambda: ap.adc_pallas_scan(codes_p, lut_f, n_tiles=nt, t_per_tile=t10),
+         lambda: ap.adc_pallas_scan_ref(codes_p, lut_f, nt, t10)),
+    )
+    qn = torch.sqrt(torch.sum(q * q, dim=1, keepdim=True))
+    for name, variant, lut, tiles, rerank, kern_fn, ref_fn in cases:
+        (vk, rk), (vr, rr_) = kern_fn(), ref_fn()
+        torch.cuda.synchronize()
+        bad = rk != rr_
+        mismatch = int(bad.sum())
+        err = (vk - vr).abs()
+        if rerank:
+            tol = 1e-5 * (qn + torch.sqrt(n2_p[rr_.long()])) ** 2
+            mismatch += int((err > tol).sum())
+        else:
+            mismatch += int((err != 0).sum())
+        if mismatch:
+            raise AssertionError(f"{name}[{variant}]: {mismatch} entries "
+                                 "differ from the plain version")
+        ms, plain_ms = cuda_ms(kern_fn), cuda_ms(ref_fn, reps=2)
+        b_ms, b_by, extra = adc_bound(lut, tiles * ap.ADC_TILE_N, rk,
+                                      q if rerank else None, q.shape[1])
+        rec = dict(max_abs_err=float(err.max()), mismatch=mismatch, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   rows=tiles * ap.ADC_TILE_N,
+                   extra=dict(batch=q.shape[0], m=J_OPQ["m"], k=books.shape[1],
+                              picks_per_query=rk.shape[1], **extra))
+        kernels[(name, variant)] = rec
+        emit("kernel", name=name, variant=variant,
+             **{k: v for k, v in rec.items() if k != "extra"}, **rec["extra"])
+
+
+def adc_phase(kernels, launches):
+    """(j): config 4 on the card.  Build (OPQ fit, encode, rotation, int8
+    rerank rows, as bench.py:381-404), the kernel checks of B8-B10 on one
+    batch, then the path with the launch counts zeroed: B8
+    (adc_search_exact_pos), B9 (adc_search_exact_fused) and B10
+    (adc_search_fused, c = 2048) on 512-query batches of rotated standard
+    normals (bench.py:421-425), and recall@10 of each on the 256 held-out
+    corpus points against exact f32 ground truth.  Returns (corpus, held-out
+    points, ground truth) for path (k)."""
+    import torch
+    import torch.nn.functional as F
+
+    import erlvectordb_tpu_torch.ops.adc_pallas as ap
+    from erlvectordb_tpu_torch.ops.fused_topk import mul_recip
+    from erlvectordb_tpu_torch.quant import OPQCodebook
+
+    data, held = adc_corpus(SEED + 4)
+    data_dev = torch.from_numpy(data).to(DEVICE)
+
+    def build():
+        cb = OPQCodebook.fit(data_dev, **J_OPQ)
+        codes = cb.encode(data_dev)
+        data_r = cb.rotate(data_dev)
+        absmax = data_r.abs().amax(dim=1)
+        # absmax / 127.0 under jit: a multiply by f32(1/127)
+        scales = torch.where(absmax > 0, mul_recip(absmax, 127.0),
+                             torch.ones_like(absmax))
+        i8 = torch.clamp(torch.round(data_r / scales[:, None]), -127,
+                         127).to(torch.int8)
+        norms2 = scales ** 2 * torch.sum(i8.float() ** 2, dim=1)
+        return cb, codes, i8, scales, norms2
+
+    (cb, codes, i8, scales, norms2), build_s = timed(build)
+    pad = (-J_ROWS) % (8 * ap.ADC_TILE_N)
+    codes_p = F.pad(codes, (0, 0, 0, pad)).contiguous()
+    i8_p = F.pad(i8, (0, 0, 0, pad)).contiguous()
+    sc_p = F.pad(scales, (0, pad), value=1.0)
+    n2_p = F.pad(norms2, (0, pad))
+    del codes, i8, scales, norms2
+    nt = ap.adc_n_tiles(J_ROWS)
+    books = cb.codebooks
+    gen = np.random.default_rng(5)
+    tq = cb.rotate(torch.from_numpy(gen.standard_normal(
+        (J_BATCHES * J_BATCH, J_DIM)).astype(np.float32)).to(DEVICE))
+    rq = cb.rotate(torch.from_numpy(held[:J_RECALL]).to(DEVICE))
+    gt = exact_rows(data_dev, held[:J_RECALL], "euclidean")
+    del data_dev
+    adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p,
+                      tq[:J_BATCH].contiguous(), books, nt)
+
+    searches = {
+        "pos": lambda q: ap.adc_search_exact_pos(
+            codes_p, books, i8_p, sc_p, n2_p, q, J_ROWS, k=K, n_tiles=nt),
+        "tfused": lambda q: ap.adc_search_exact_fused(
+            codes_p, books, i8_p, sc_p, n2_p, q, J_ROWS, k=K, n_tiles=nt),
+        "fused": lambda q: ap.adc_search_fused(
+            codes_p, books, i8_p, sc_p, q, J_ROWS, k=K, c=J_C, n_tiles=nt),
+    }
+
+    def run():
+        out = {}
+        for name, fn in searches.items():
+            timed(lambda: fn(tq[:J_BATCH]))   # warm
+            secs = [timed(lambda: fn(tq[i * J_BATCH:(i + 1) * J_BATCH]))[1]
+                    for i in range(J_BATCHES)]
+            dists, rows = fn(rq)
+            if not bool(torch.isfinite(dists).all()):
+                raise AssertionError(f"(j) {name}: non-finite distances")
+            med = float(np.median(secs))
+            out[name] = dict(batch_ms_median=1e3 * med,
+                             batch_ms_all=[1e3 * x for x in secs],
+                             qps=J_BATCH / med,
+                             recall_at_10=overlap(rows.cpu().numpy(), gt))
+        return out
+
+    reset_launches()
+    res = run()
+    torch.cuda.synchronize()
+    launches["j"] = read_launches()
+    profile = profile_calls(lambda: searches["pos"](tq[:J_BATCH]), reps=10)
+    emit("adc", rows=J_ROWS, dim=J_DIM, build_s=build_s,
+         n_tiles=nt, padded_rows=codes_p.shape[0], searches=res,
+         profile_pos_batch512=profile, launches=launches["j"])
+    for kname, variant in (("adc_pos_scan", "int8"), ("adc_exact_scan", "int8"),
+                           ("adc_pallas_scan", "int8")):
+        if not launches["j"].get(kname, {}).get(variant):
+            raise AssertionError(f"path j never launched {kname}[{variant}]: "
+                                 f"{launches['j']}")
+    if min(res["pos"]["recall_at_10"], res["tfused"]["recall_at_10"]) < 0.95:
+        raise AssertionError(f"(j) recall@10 below 0.95: {res}")
+    return data, held, gt
+
+
+def index_manager_phase(data, held, gt, launches):
+    """(k): the index manager over MCP on a 1M x 128 float32 euclidean store
+    of (j)'s corpus.  With the launch counts zeroed: each index type created,
+    built and searched through the MCP tools (256 search_index calls of the
+    held-out points), each answer checked against a direct
+    IndexManager.search of the same query; recall@10 against (j)'s exact
+    ground truth, the median search_index latency, build seconds."""
+    import torch
+
+    from erlvectordb_tpu_torch.api import Database
+    from erlvectordb_tpu_torch.core.store import VectorStore
+    from erlvectordb_tpu_torch.infra.config import load_config
+    from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
+
+    db = Database(load_config(overrides={"persistence_enabled": False}, env={}),
+                  device=torch.device(DEVICE)).start()
+    server = None
+    try:
+        store, store_s = timed(lambda: VectorStore.from_matrix(
+            "k", data, metric="euclidean", dtype="float32", device=DEVICE))
+        db.registry.adopt(store)
+        server = MCPServer(db, host="127.0.0.1", port=0).start()
+        port = server._sock.getsockname()[1]
+        token = db.oauth.grant_client_credentials(
+            "erlvectordb_client", "erlvectordb_secret")["access_token"]
+        cl = Client(port, token)
+        qs = held[:J_RECALL]
+
+        def run():
+            res = {}
+            for itype in K_TYPES:
+                name = f"k_{itype}"
+                cl.tool("create_index", name=name, store="k", type=itype)
+                info = cl.tool("build_index", name=name)
+                if not info["built"]:
+                    raise AssertionError(f"(k) {itype} build failed: {info}")
+                lat, got, same = [], [], 0
+                for q in qs:
+                    t0 = time.perf_counter()
+                    r = cl.tool("search_index", name=name, vector=q.tolist(),
+                                k=K)
+                    lat.append(time.perf_counter() - t0)
+                    ids = [h["id"] for h in r["results"]]
+                    direct = [h[0] for h in db.indexes.search(name, q, k=K)]
+                    same += ids == direct
+                    got.append(ids)
+                res[itype] = dict(build_s=info["build_seconds"],
+                                  stats=info["stats"],
+                                  recall_at_10=overlap(got, gt),
+                                  search_index_ms_median=1e3 * float(
+                                      np.median(lat)),
+                                  same_as_direct=same / len(qs))
+            return res, cl.tool("list_indexes")
+
+        reset_launches()
+        res, listed = run()
+        torch.cuda.synchronize()
+        launches["k"] = read_launches()
+        cl.sock.close()
+    finally:
+        if server is not None:
+            server.stop()
+        db.stop()
+    emit("indexes", rows=J_ROWS, store_build_s=store_s, by_type=res,
+         listed=[i["name"] for i in listed["indexes"]], launches=launches["k"])
+    if any(r["same_as_direct"] < 1.0 for r in res.values()):
+        raise AssertionError(f"(k) search_index differs from a direct "
+                             f"IndexManager.search: {res}")
+    if sorted(i["name"] for i in listed["indexes"]) != sorted(
+            f"k_{t}" for t in K_TYPES):
+        raise AssertionError(f"(k) list_indexes: {listed}")
+    if not launches["k"].get("gather_dots", {}).get("int8"):
+        raise AssertionError(f"path k (cellprobe) never launched "
+                             f"gather_dots[int8]: {launches['k']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -965,9 +1334,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    global SM_CLOCK_HZ
     smi = nvidia_smi()
     print(smi, flush=True)
-    emit("device", nvidia_smi=smi, **device_stats(),
+    SM_CLOCK_HZ = 1e6 * float(nvidia_smi("clocks.max.sm").split()[0])
+    emit("device", nvidia_smi=smi, sm_clock_max_hz=SM_CLOCK_HZ, **device_stats(),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
@@ -1016,13 +1387,18 @@ def main() -> int:
         for s in stores.values():
             db.registry.adopt(s)
         f32_rows = make_corpus(SEED + 2, F32_ROWS)
-        launches = slice_phase(db, corpus, queries, f32_rows)
+        launches, mp_curve = slice_phase(db, corpus, queries, f32_rows)
     finally:
         db.stop()
+    rq_phase(corpus, queries, stores, mp_curve[RQ_NPROBE], launches)
     stores.clear()
     del db, corpus
     torch.cuda.empty_cache()
     index_phase(kernels, launches)
+    torch.cuda.empty_cache()
+    data, held, gt = adc_phase(kernels, launches)
+    torch.cuda.empty_cache()
+    index_manager_phase(data, held, gt, launches)
 
     served = {}   # (kernel, variant) -> launches on the path that serves it
     for counts in launches.values():
@@ -1034,14 +1410,17 @@ def main() -> int:
         src, replaces = KERNEL_INFO[name]
         summary.append({
             "name": (f"{name}_{variant}"
-                     if name in ("pos_scan", "fused_scan", "gather_dots")
+                     if name in ("pos_scan", "fused_scan", "gather_dots",
+                                 "adc_pallas_scan")
                      else name),
             "route": "cuda", "source": CSRC + src, "replaces": replaces,
             "launches": served.get((name, variant), 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "library": NO_LIBRARY_B7 if name == "gather_dots" else NO_LIBRARY,
+            "library": (NO_LIBRARY_B7 if name == "gather_dots" else
+                        NO_LIBRARY_ADC if name.startswith("adc_") else
+                        NO_LIBRARY),
             "variant": variant, "rows": r["rows"], "mismatch": r["mismatch"],
             **r.get("extra", {})})
     print(json.dumps({"kernels": summary}), flush=True)

@@ -1,11 +1,11 @@
 """Public API facade — the store verbs of the JAX package's ``Database``.
 
 One :class:`Database` wires the store registry, the OAuth server and the
-query batcher together on one ``torch.device``; the MCP server calls
-through it.  Persistence, backup, indexes, the cluster layer and
-compression are not ported yet: a configuration that enables persistence
-is refused with ``ConfigError`` rather than silently run without
-durability.
+query batcher and the index manager together on one ``torch.device``; the
+MCP server calls through it.  Persistence (of stores and of indexes),
+backup, the cluster layer and compression are not ported yet: a
+configuration that enables persistence is refused with ``ConfigError``
+rather than silently run without durability.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from erlvectordb_tpu_torch.core.index_manager import IndexManager
 from erlvectordb_tpu_torch.core.registry import (
     StoreExists,
     StoreNotFound,
@@ -51,6 +52,7 @@ class Database:
                 ["read", "write", "admin"],
             ),
         )
+        self.indexes = IndexManager(self.registry)
         self.batcher = QueryBatcher(self.any_store)
         self._lock = threading.RLock()
         self._started = False
@@ -98,6 +100,7 @@ class Database:
         return store.get_stats()
 
     def delete_store(self, name: str) -> bool:
+        self.indexes.drop_for_store(name)
         return self.registry.drop(name)
 
     def list_stores(self) -> List[str]:
@@ -189,6 +192,46 @@ class Database:
         if local is None:
             raise StoreNotFound(f"store {name!r} not found")
         return local
+
+    # --------------------------------------------------------------- indexes
+
+    def create_index(self, name: str, store: str, index_type: str,
+                     parameters: Optional[dict] = None) -> dict:
+        return self.indexes.create_index(name, store, index_type, parameters)
+
+    def build_index(self, name: str, wait: bool = True) -> dict:
+        return self.indexes.build_index(name, wait=wait)
+
+    def list_indexes(self) -> List[dict]:
+        return self.indexes.list_indexes()
+
+    def get_index_info(self, name: str):
+        return self.indexes.get_index_info(name)
+
+    def drop_index(self, name: str) -> bool:
+        return self.indexes.drop_index(name)
+
+    def search_index(self, name: str, query, k: int = 10,
+                     nprobe: Optional[int] = None,
+                     recall_target: Optional[float] = None):
+        """``nprobe`` overrides the build-time probe width per request
+        (ivf/cellprobe families); ``recall_target`` picks the smallest
+        calibrated nprobe (cellprobe family; absolute after
+        calibrate_index(mode='exact'), deep-probe-relative otherwise)."""
+        return self.indexes.search(name, query, k=k, nprobe=nprobe,
+                                   recall_target=recall_target)
+
+    def calibrate_index(self, name: str, queries=None, n_sample: int = 256,
+                        k: int = 10, mode: str = "exact",
+                        metric: Optional[str] = None) -> dict:
+        """Calibrate a cellprobe-family index's recall_target curve:
+        ``mode="exact"`` (default) measures absolute recall@k against exact
+        f32 ground truth from the backing store and enforces the
+        quantization ceiling; ``mode="ceiling"`` is the cheap self-relative
+        curve (IndexManager.calibrate_index)."""
+        return self.indexes.calibrate_index(
+            name, queries=queries, n_sample=n_sample, k=k, mode=mode,
+            metric=metric)
 
     # ---------------------------------------------------------------- oauth
 

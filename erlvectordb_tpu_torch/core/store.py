@@ -32,8 +32,9 @@ id overwrites it.  int4r stores also answer the sub-linear multiprobe search
 (``nprobe``, or ``recall_target`` through a calibration curve) over their own
 cell layout (ops/cell_probe.py, kernel B7).  Streaming builds with spill
 copies (``spill_mult``) over-fetch and dedup per query and refuse targeted
-mutations.  The int4r second stage (``rq_m``) is not ported yet and raises
-``NotImplementedError``.
+mutations.  ``rq_m`` adds the int4r second stage: OPQ codes (rq_m bytes a
+row) of each row's int4 reconstruction error, rescored over a pool of
+stage-1 winners in multiprobe searches.
 """
 
 from __future__ import annotations
@@ -79,10 +80,6 @@ def _pad128(d: int) -> int:
     """Rows are stored zero-padded to a multiple of 128 columns, so every
     kernel can assume aligned rows (dots, norms and L1 are unaffected)."""
     return ((d + 127) // 128) * 128
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to erlvectordb_tpu_torch")
 
 
 # --------------------------------------------------------------------------
@@ -301,6 +298,26 @@ def _bulk_build_int4r(xp, cents_rows, pos, n_rows):
     return packed, scales, norms, valid
 
 
+def _rq_encode_chunk(packed, scales, cents_rows, x_rows, rot, books, *, d,
+                     dp2):
+    """Second-stage encode of a slot chunk: the stage-1 reconstruction from
+    the packed codes, its error against the original rows (zero-padded to
+    the rq dim dp2), the OPQ encode, and the FULL-reconstruction norm (the
+    numerator and denominator of a rescored cosine must describe the same
+    vector).  Returns (codes [n, M2] uint8, norms [n])."""
+    from erlvectordb_tpu_torch.quant.pq import _decode, _encode
+
+    recon = cents_rows + ft.unpack_int4(packed).float() * scales[:, None]
+    e = x_rows[:, :d] - recon[:, :d]
+    if dp2 > d:
+        e = torch.nn.functional.pad(e, (0, dp2 - d))
+    with ft.full_f32_matmul():
+        c2 = _encode(e @ rot, books)
+        dec = _decode(c2, books) @ rot.T
+    full = recon[:, :d] + dec[:, :d]
+    return c2, torch.sqrt(torch.sum(full * full, dim=-1))
+
+
 def _pad_rows(t: torch.Tensor, new_cap: int, fill=0) -> torch.Tensor:
     out = torch.full((new_cap, *t.shape[1:]), fill, dtype=t.dtype,
                      device=t.device)
@@ -429,6 +446,14 @@ class VectorStore:
         self._churn_deletes = 0
         self._cells_at_build = 0
         self.build_stats: dict = {}
+        # optional second stage (``rq_m`` on from_matrix): OPQ codes of the
+        # int4 reconstruction error, rq_m bytes a row, rescored over a pool
+        # of stage-1 winners in multiprobe searches
+        self._rq_m = 0
+        self._rq_codes: Optional[torch.Tensor] = None  # [capacity, M2] uint8
+        self._rq_books: Optional[torch.Tensor] = None  # [M2, 256, ds] f32
+        self._rq_rot: Optional[torch.Tensor] = None    # [dp2, dp2] f32
+        self.rq_pool = 64  # stage-2 rescore pool floor (max(4k_bucket, this))
 
         # Host state.
         self._id_to_row: Dict[str, int] = {}
@@ -601,6 +626,8 @@ class VectorStore:
             self._scales = _pad_rows(self._scales, new_cap, 1.0)
         self._norms = _pad_rows(self._norms, new_cap)
         self._valid = _pad_rows(self._valid, new_cap, False)
+        if self._rq_codes is not None:
+            self._rq_codes = _pad_rows(self._rq_codes, new_cap)
         if self._ids_np is not None:
             grown = np.full((new_cap,), None, object)
             grown[: self._capacity] = self._ids_np
@@ -797,11 +824,19 @@ class VectorStore:
             rows_t = self._put(rows)
             vecs_t = self._put(arr_dev)
             if self.dtype == "int4r":
-                cells_t = self._put(rows // self._cell_cap)
+                cents_rows = self._centroids[self._put(rows // self._cell_cap)]
                 _scatter_insert_int4r(self._vectors, self._scales, self._norms,
-                                      self._valid, rows_t, vecs_t,
-                                      self._centroids[cells_t])
+                                      self._valid, rows_t, vecs_t, cents_rows)
                 self._code_norm_max = None  # realized bound may have grown
+                if self._rq_codes is not None:
+                    # stage-2 encode of the freshly written rows; their
+                    # stored norms become full-reconstruction norms
+                    c2, nrm = _rq_encode_chunk(
+                        self._vectors[rows_t], self._scales[rows_t],
+                        cents_rows, vecs_t, self._rq_rot, self._rq_books,
+                        d=self._dim, dp2=self._rq_rot.shape[0])
+                    self._rq_codes.index_copy_(0, rows_t, c2)
+                    self._norms.index_copy_(0, rows_t, nrm)
             elif self.dtype == "int4":
                 _scatter_insert_int4(self._vectors, self._scales, self._norms,
                                      self._valid, rows_t, vecs_t)
@@ -1317,12 +1352,27 @@ class VectorStore:
                 self._cents_cn2 = torch.sum(
                     self._centroids * self._centroids, dim=-1)
                 self._cents_rt_src = self._centroids
+            rq_kw = {}
+            if self._rq_codes is not None:
+                # stage-2 pooled rescore: inner-product tables of the
+                # rotated (zero-padded to the rq dim) queries
+                from erlvectordb_tpu_torch.quant.pq import _adc_ip_tables
+
+                dp2 = self._rq_rot.shape[0]
+                qe = q_t[:, : self._dim]
+                if dp2 > self._dim:
+                    qe = torch.nn.functional.pad(qe, (0, dp2 - self._dim))
+                with ft.full_f32_matmul():
+                    qr = qe @ self._rq_rot
+                rq_kw = dict(rq_codes=self._rq_codes,
+                             rq_lut=_adc_ip_tables(qr, self._rq_books),
+                             rq_pool=max(4 * kb, self.rq_pool))
             dists, rows = multiprobe_topk(
                 self._vectors, self._scales, self._norms, valid,
                 self._centroids, q_t, metric=metric, k=kb,
                 nprobe=min(nprobe, max(1, self._centroids.shape[0])),
                 cell_cap=self._cell_cap, centroids_route=self._cents_rt,
-                cn2=self._cents_cn2)
+                cn2=self._cents_cn2, **rq_kw)
         elif ft.residual_scan_applies(self._capacity, self._cell_cap, metric,
                                       self.device, kb):
             if self._code_norm_max is None:
@@ -1425,6 +1475,36 @@ class VectorStore:
                 out.append((vid, vec, self._metadata.get(vid, {})))
             return out
 
+    def live_matrix(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows [n] ascending, vectors [n, dim] f32) of every live row: the
+        order and values of get_all_vectors, gathered on the device (the
+        index builds' input)."""
+        with self._lock.read():
+            if self._contig:
+                rows = np.arange(self._contig, dtype=np.int64)
+            else:
+                self._materialize()
+                rows = np.fromiter(sorted(self._row_to_id), np.int64,
+                                   len(self._row_to_id))
+            if rows.size == 0:
+                return rows, np.zeros((0, self._dim or 0), np.float32)
+            r = self._put(rows)
+            vec = self._vectors[r]
+            if self.dtype in ("int4", "int4r"):
+                vec = ft.unpack_int4(vec)
+            vec = vec[:, : self._dim]
+            if self.dtype != "float32":
+                vec = vec.float() * self._scales[r][:, None]
+            if self.dtype == "int4r":
+                vec = vec + self._centroids[r // self._cell_cap][:, : self._dim]
+            return rows, vec.cpu().numpy()
+
+    def _rid(self, row: int) -> Optional[str]:
+        """Row -> id, without materializing implicit contiguous ids."""
+        if self._contig:
+            return str(row) if 0 <= row < self._contig else None
+        return self._row_to_id.get(row)
+
     def get_stats(self) -> dict:
         """Stats shape parity with reference get_stats."""
         stats = {
@@ -1454,6 +1534,9 @@ class VectorStore:
             total += self._scales.numel() * 4
         if self._centroids is not None:
             total += self._centroids.numel() * 4
+        if self._rq_codes is not None:
+            total += self._rq_codes.numel()
+            total += self._rq_books.numel() * 4 + self._rq_rot.numel() * 4
         return int(total)
 
     # ----------------------------------------------------- state export/import
@@ -1492,6 +1575,11 @@ class VectorStore:
                 state["cell_next"] = [int(x) for x in self._cell_next]
                 state["cell_free"] = {
                     str(c): list(v) for c, v in self._cell_free.items()}
+                if self._rq_codes is not None:
+                    state["rq_m"] = self._rq_m
+                    state["rq_codes"] = self._rq_codes.cpu().numpy()
+                    state["rq_books"] = self._rq_books.cpu().numpy()
+                    state["rq_rot"] = self._rq_rot.cpu().numpy()
             if self._spilled and self._perm_count:
                 # spilled streaming layout: ids stay implicit (mutations are
                 # refused anyway), so the slot -> row map travels instead
@@ -1505,11 +1593,7 @@ class VectorStore:
                    ) -> "VectorStore":
         """A store from an exported state dict — this package's or the JAX
         package's ``VectorStore.export_state()`` (numpy arrays).  An intkey
-        store's key plane is re-derived from the absmax plane.  States with
-        the int4r second stage (``rq_codes``) are refused: it is not ported
-        yet."""
-        if "rq_codes" in state:
-            raise _not_ported("the int4r second stage (rq_m)")
+        store's key plane is re-derived from the absmax plane."""
         store = cls(
             state["name"],
             dim=state.get("dim"),
@@ -1543,6 +1627,14 @@ class VectorStore:
             store._cell_free = {
                 int(c): [int(r) for r in v]
                 for c, v in (state.get("cell_free") or {}).items()}
+            if "rq_codes" in state:
+                store._rq_m = int(state.get("rq_m", 0))
+                store._rq_codes = store._put(
+                    np.asarray(state["rq_codes"], np.uint8))
+                store._rq_books = store._put(
+                    np.asarray(state["rq_books"], np.float32))
+                store._rq_rot = store._put(
+                    np.asarray(state["rq_rot"], np.float32))
             store._cell_avail = (
                 store._cell_cap - store._cell_next
                 + np.array([len(store._cell_free.get(c, []))
@@ -1624,7 +1716,17 @@ class VectorStore:
             q = ft.unpack_int4(self._vectors[rows_t]).float()
             vecs = (self._centroids[rows_t // self._cell_cap]
                     + q * self._scales[rows_t][:, None])
-            self._build_int4r(vecs[:, : self._dim].cpu().numpy(), list(ids))
+            vecs = vecs[:, : self._dim]
+            if self._rq_codes is not None:
+                # rebuild from the FULL reconstruction: the stage-2 error
+                # term carries about half the row's precision
+                from erlvectordb_tpu_torch.quant.pq import _decode
+
+                with ft.full_f32_matmul():
+                    dec = (_decode(self._rq_codes[rows_t], self._rq_books)
+                           @ self._rq_rot.T)
+                vecs = vecs + dec[:, : self._dim]
+            self._build_int4r(vecs.cpu().numpy(), list(ids), rq_m=self._rq_m)
             self._tag_cols = {}
             self._dmask_cache = {}
             self.version += 1
@@ -1632,7 +1734,57 @@ class VectorStore:
 
     # ------------------------------------------------------------ bulk build
 
-    def _build_int4r(self, matrix, ids: Optional[Sequence[str]]) -> None:
+    def _fit_rq(self, x: np.ndarray, perm: np.ndarray, rq_m: int) -> None:
+        """Fit and encode the second-stage residual quantizer (``rq_m``):
+        OPQ (rotation + product codebooks, 256 centroids a subspace) over
+        the int4 reconstruction error of up to 131,072 sampled slots, then
+        every live slot encoded; stored norms become full-reconstruction
+        norms.  ``perm`` [capacity] maps slot -> row of ``x`` (-1: empty).
+        Needs the original rows, so it runs on the from_matrix path."""
+        from erlvectordb_tpu_torch.quant.opq import OPQCodebook
+
+        d = self._dim
+        dp2 = -(-d // rq_m) * rq_m
+        perm = np.asarray(perm)
+        cap = self._cell_cap
+
+        # ---- sample the error field and fit the codebooks ---------------
+        valid_slots = np.where(perm >= 0)[0]
+        step = max(1, len(valid_slots) // 131072)
+        samp = valid_slots[::step][:131072]
+        sl = self._put(samp)
+        q1 = ft.unpack_int4(self._vectors[sl]).float()
+        recon_s = self._centroids[sl // cap] + q1 * self._scales[sl][:, None]
+        err_s = self._put(x[perm[samp]])[:, :d] - recon_s[:, :d]
+        if dp2 > d:
+            err_s = torch.nn.functional.pad(err_s, (0, dp2 - d))
+        cb = OPQCodebook.fit(err_s, m=rq_m, k=256, iters=10, opq_iters=3,
+                             seed=0, max_train=131072)
+        rot, books = cb.rotation, cb.pq.codebooks
+
+        # ---- encode every live slot; norms -> full-reconstruction norms --
+        codes2 = torch.zeros((self._capacity, rq_m), dtype=torch.uint8,
+                             device=self.device)
+        ch = 262_144
+        for lo in range(0, self._capacity, ch):
+            hi = min(lo + ch, self._capacity)
+            live = np.where(perm[lo:hi] >= 0)[0] + lo
+            if live.size == 0:
+                continue
+            lt = self._put(live)
+            c2, nrm = _rq_encode_chunk(
+                self._vectors[lt], self._scales[lt],
+                self._centroids[lt // cap], self._put(x[perm[live]]), rot,
+                books, d=d, dp2=dp2)
+            codes2[lt] = c2
+            self._norms[lt] = nrm
+        self._rq_m = rq_m
+        self._rq_codes = codes2
+        self._rq_books = books
+        self._rq_rot = rot
+
+    def _build_int4r(self, matrix, ids: Optional[Sequence[str]],
+                     rq_m: int = 0) -> None:
         """Bulk cell-residual build: k-means cells (~96 rows each), balanced
         capacity-128 assignment with two capacity-constrained Lloyd
         refinements, residual int4 quantization.  From 200k rows the
@@ -1642,8 +1794,10 @@ class VectorStore:
 
         x = np.asarray(matrix, np.float32)
         n, d = x.shape
+        self._rq_m, self._rq_codes = 0, None
+        self._rq_books = self._rq_rot = None
         if n >= 200_000:
-            self._build_int4r_device(x, ids)
+            self._build_int4r_device(x, ids, rq_m=rq_m)
             return
         width = _pad128(d)
         xp = x if width == d else np.pad(x, ((0, 0), (0, width - d)))
@@ -1699,6 +1853,10 @@ class VectorStore:
         self._ids_np = np.full((n_rows,), None, object)
         self._ids_np[pos] = sids
         self._built_rows = n
+        if rq_m:
+            perm = np.full((n_rows,), -1, np.int64)
+            perm[pos] = np.arange(n)
+            self._fit_rq(x, perm, rq_m)
 
     def _set_cells(self, centroids, cell_cap, cell_next, k_real) -> None:
         """Adopt a freshly built cell layout (cells past ``k_real`` are
@@ -1735,7 +1893,8 @@ class VectorStore:
         self.build_stats = res.stats
 
     def _build_int4r_device(self, x: np.ndarray,
-                            ids: Optional[Sequence[str]]) -> None:
+                            ids: Optional[Sequence[str]],
+                            rq_m: int = 0) -> None:
         """Bulk int4r build through the device streaming engine, with the
         from_matrix contract (explicit ids, materialized host tables).  The
         one O(N) readback is the slot permutation."""
@@ -1758,6 +1917,8 @@ class VectorStore:
         self._ids_np = np.full((self._capacity,), None, object)
         self._ids_np[slots] = sarr
         self._built_rows = n
+        if rq_m:
+            self._fit_rq(x, perm, rq_m)
 
     @classmethod
     def from_chunks(cls, name: str, chunks, *, n: int, dim: int,
@@ -1806,16 +1967,20 @@ class VectorStore:
         no per-row host bookkeeping.  With ``ids=None`` row i gets the
         implicit id ``str(i)`` and the id tables stay virtual until the first
         targeted mutation.  ``matrix`` may be a numpy array or a tensor
-        (already on the device, for corpora generated there)."""
+        (already on the device, for corpora generated there).
+
+        ``rq_m`` (int4r only): the second stage, OPQ error codes at rq_m
+        bytes a row rescored in multiprobe searches (see _fit_rq); rq_m=9
+        at 100-d keeps the store under half of int8's memory."""
         store = cls(name, metric=metric, dtype=dtype, device=device,
                     intkey=intkey)
-        if rq_m:
-            raise _not_ported("the int4r second stage (rq_m)")
+        if rq_m and store.dtype != "int4r":
+            raise ValueError("rq_m applies to int4r stores only")
         if store.dtype == "int4r":
             x = (matrix.detach().cpu().numpy() if isinstance(matrix, torch.Tensor)
                  else np.asarray(matrix, np.float32))
             store._dim = x.shape[1]
-            store._build_int4r(x, ids)
+            store._build_int4r(x, ids, rq_m=rq_m)
             if metadatas is not None:
                 if len(metadatas) != x.shape[0]:
                     raise ValueError("metadatas and matrix length mismatch")

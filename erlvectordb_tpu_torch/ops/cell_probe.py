@@ -27,8 +27,10 @@ plain version ``gather_dots_ref`` answers.
 
 The TPU accommodations of the JAX module do not carry over: the TPU gate and
 the VMEM/SMEM batch chunking, the [evens | odds] query reorder and the
-scalar-prefetch grid.  The int4r second stage (``rq_codes``/``rq_lut``) is
-not ported yet and raises ``NotImplementedError``.
+scalar-prefetch grid.  With the int4r second stage (``rq_codes``/``rq_lut``)
+the top ``rq_pool`` of stage 1 are rescored with the error dot looked up in
+the stage-2 LUT: a gather plus a top-k, plain tensor code as in the JAX
+package (no kernel there either).
 """
 
 from __future__ import annotations
@@ -261,13 +263,11 @@ def multiprobe_topk(
     ``child_cap``: the HIERARCHICAL route over a supercell-major layout (K ==
     S * child_cap): L1 over the [S, W] supercentroids, top-``sprobe``
     supercells, L2 over only their children (auto ``sprobe`` covers ~8x
-    nprobe children, at least 8 supercells)."""
+    nprobe children, at least 8 supercells).  ``rq_codes`` [N, M2] uint8 /
+    ``rq_lut`` [B, M2, 256] (inner-product tables of the rotated queries):
+    the stage-2 pooled rescore of the top ``rq_pool`` rows."""
     if metric not in ("cosine", "euclidean", "dot"):
         raise ValueError(f"multiprobe does not support metric {metric!r}")
-    if rq_codes is not None or rq_lut is not None:
-        raise NotImplementedError(
-            "the int4r second stage (rq_m) is not yet ported to "
-            "erlvectordb_tpu_torch")
     b = queries.shape[0]
     n_cells = centroids.shape[0]
     active = valid.reshape(n_cells, cell_cap).any(dim=1)            # [K]
@@ -292,23 +292,51 @@ def multiprobe_topk(
     rnorm = norms.reshape(n_cells, cell_cap)[probe].reshape(b, -1)
     if metric == "cosine":
         qn = torch.sqrt(torch.sum(queries * queries, dim=-1, keepdim=True))
-        denom = qn * rnorm
-        sim = torch.where(denom > 0,
-                          qx / torch.where(denom > 0, denom, torch.ones_like(denom)),
-                          torch.zeros_like(qx))
-        score = torch.where(vmask, sim, _NEG)
+
+        def final(qx_, rn_, vm_):
+            denom = qn * rn_
+            sim = torch.where(
+                denom > 0,
+                qx_ / torch.where(denom > 0, denom, torch.ones_like(denom)),
+                torch.zeros_like(qx_))
+            return torch.where(vm_, sim, _NEG)
         dist_of = lambda s: 1.0 - s
     elif metric == "euclidean":
         qsq = torch.sum(queries * queries, dim=-1, keepdim=True)
-        score = torch.where(vmask, 2.0 * qx - rnorm * rnorm, _NEG)
+
+        def final(qx_, rn_, vm_):
+            return torch.where(vm_, 2.0 * qx_ - rn_ * rn_, _NEG)
         dist_of = lambda s: torch.sqrt(torch.clamp(qsq - s, min=0.0))
     else:  # dot
-        score = torch.where(vmask, qx, _NEG)
+        def final(qx_, rn_, vm_):
+            return torch.where(vm_, qx_, _NEG)
         dist_of = lambda s: -s
-    kk = min(k, score.shape[1])
-    best, sel = torch.topk(score, kk, dim=1)
-    # slot sel of the probe list is row probe[sel // cap] * cap + sel % cap
-    out_rows = (torch.gather(probe, 1, sel // cell_cap) * cell_cap
-                + sel % cell_cap)
+    score = final(qx, rnorm, vmask)
+    # slot j of the probe list is row probe[j // cap] * cap + j % cap
+    slot_row = lambda j: (torch.gather(probe, 1, j // cell_cap) * cell_cap
+                          + j % cell_cap)
+    if rq_codes is not None and rq_lut is not None:
+        # stage-2 pooled rescore: the top rq_pool by stage-1 score get q.x
+        # corrected by the LUT'd error dot and are re-ranked alone.  The
+        # stored norms are full-reconstruction norms (set by the rq encode),
+        # so the corrected numerator and the denominator describe the same
+        # vector
+        m2 = rq_codes.shape[1]
+        r0 = min(rq_pool, score.shape[1])
+        _, psel = torch.topk(score, r0, dim=1)                 # [B, r0]
+        prow = slot_row(psel)                                  # store rows
+        pcodes = rq_codes[prow].long()                         # [B, r0, M2]
+        sub = torch.arange(m2, device=pcodes.device) * rq_lut.shape[2]
+        qe = torch.gather(rq_lut.reshape(b, -1), 1,
+                          (sub + pcodes).reshape(b, -1)
+                          ).reshape(b, r0, m2).sum(dim=-1)      # [B, r0] q.e
+        score_p = final(torch.gather(qx, 1, psel) + qe,
+                        torch.gather(rnorm, 1, psel),
+                        torch.gather(vmask, 1, psel))
+        best, sel2 = torch.topk(score_p, min(k, r0), dim=1)
+        out_rows = torch.gather(prow, 1, sel2)
+    else:
+        best, sel = torch.topk(score, min(k, score.shape[1]), dim=1)
+        out_rows = slot_row(sel)
     dists = torch.where(best <= _NEG / 2, float("inf"), dist_of(best))
     return dists, out_rows.to(torch.int32)

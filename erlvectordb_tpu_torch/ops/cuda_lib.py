@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_topk.cu", "residual_scan.cu", "cell_probe.cu")
+SOURCES = ("fused_topk.cu", "residual_scan.cu", "cell_probe.cu", "adc_scan.cu")
 HEADERS = ("scan_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "erlvectordb_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +46,9 @@ _SIGNATURES = {
     "evdb_cell_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P, _P],
     "evdb_gather_dots": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "evdb_adc_scan": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_adc_rerank_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,11 @@
 """Lloyd k-means — the cell trainer of the int4r store and the streaming
-cell build.
+cell build, and the codebook trainer of product quantization.
 
 Counterpart of ``erlvectordb_tpu/ops/kmeans.py`` (``kmeans_fit`` with random
-and k-means++ seeding and the ``balance=`` price controller; the subspace
-variants for product quantization are not ported yet).  The assignment step
+and k-means++ seeding and the ``balance=`` price controller, and the
+subspace variants ``kmeans_fit_subspaces``/``kmeans_refine_subspaces``,
+where the JAX package vmaps over the M subspaces and this module loops).
+The assignment step
 is one ``X @ C^T`` product per row chunk and the update a segment sum
 (``index_add_``).  Random draws come from a ``torch.Generator`` seeded with
 ``seed``: the same seed does not give the JAX package's draws, so its tests
@@ -125,3 +127,30 @@ def kmeans_fit(x: torch.Tensor, seed: int, *, k: int, iters: int = 25,
         raise ValueError(f"init must be 'random' or 'kpp', got {init!r}")
     cents = _lloyd(x, cents0, k, iters, balance=balance)
     return cents, _assign(x, cents)
+
+
+def _subspaces(x: torch.Tensor, m: int) -> torch.Tensor:
+    """[N, D] -> [m, N, D/m] (subspace j holds columns j*D/m .. (j+1)*D/m)."""
+    n, d = x.shape
+    if d % m:
+        raise ValueError(f"dimension {d} not divisible by m={m}")
+    return x.reshape(n, m, d // m).transpose(0, 1).contiguous()
+
+
+def kmeans_fit_subspaces(x: torch.Tensor, seed: int, *, m: int, k: int,
+                         iters: int = 25) -> torch.Tensor:
+    """All M product-quantization codebooks: k-means on each D/m-column
+    subspace, subspace j seeded with ``seed + j``.  Returns [m, k, D/m]."""
+    xs = _subspaces(x, m)
+    return torch.stack([kmeans_fit(xs[j], seed + j, k=k, iters=iters)[0]
+                        for j in range(m)])
+
+
+def kmeans_refine_subspaces(x: torch.Tensor, init_codebooks: torch.Tensor, *,
+                            m: int, k: int, iters: int = 5) -> torch.Tensor:
+    """``iters`` Lloyd steps on each subspace from the given codebooks
+    [m, k, D/m] (the OPQ alternation's warm-started retrain); deterministic
+    given its inputs."""
+    xs = _subspaces(x, m)
+    return torch.stack([_lloyd(xs[j], init_codebooks[j], k, iters)
+                        for j in range(m)])

@@ -7,13 +7,16 @@ dispatcher is broken: the ``create_store`` clause actually performs an
 tool" (:398-399; independently documented in INTEGRATION_TEST_RESULTS.md
 "Parameter Schema Mismatch").  Here each tool does what its schema says.
 
-The table lists only the tools this package serves (persistence, backup and
-indexes are not ported yet); the JSON shapes of the answers are the JAX
-package's.
+The table lists only the tools this package serves (persistence and backup
+are not ported yet); the schemas and the JSON shapes of the answers are the
+JAX package's.
 
 Scope matrix (reference check_tool_permission :414-427):
-  read  — search_vectors, search_vectors_batch, get_store_stats, list_stores
-  write — create_store, insert_vector, delete_vector, calibrate_store
+  read  — search_vectors, search_vectors_batch, get_store_stats, list_stores,
+          list_indexes, search_index
+  write — create_store, insert_vector, delete_vector, calibrate_store,
+          create_index, build_index, calibrate_index
+  admin — drop_index
 """
 
 from __future__ import annotations
@@ -278,7 +281,8 @@ TOOLS: Dict[str, dict] = {
             "store's own deep probe, quantization loss not counted; "
             "absolute (exact-mode) calibration needs the original f32 data "
             "and is available through the Python API "
-            "(Database.calibrate_store with ground_truth)",
+            "(Database.calibrate_store with ground_truth) or "
+            "calibrate_index for cellprobe indexes",
             "write",
             {
                 "store": {"type": "string"},
@@ -287,6 +291,87 @@ TOOLS: Dict[str, dict] = {
                 "metric": {"type": "string"},
             },
             ["store"],
+        ),
+        _schema(
+            "create_index",
+            "Create an index descriptor over a store "
+            "(flat | int8 | pq | opq | ivf)",
+            "write",
+            {
+                "name": {"type": "string"},
+                "store": {"type": "string"},
+                "type": {"type": "string",
+                         "enum": ["flat", "int8", "pq", "opq", "ivf",
+                                  "ep_ivf", "hnsw", "cellprobe",
+                                  "ep_cellprobe"]},
+                "parameters": {"type": "object"},
+            },
+            ["name", "store", "type"],
+        ),
+        _schema(
+            "build_index",
+            "Build (or rebuild) an index; real k-means/quantization on device",
+            "write",
+            {"name": {"type": "string"},
+             "wait": {"type": "boolean", "default": True}},
+            ["name"],
+        ),
+        _schema(
+            "list_indexes",
+            "List index descriptors and build stats",
+            "read",
+            {},
+            [],
+        ),
+        _schema(
+            "search_index",
+            "Top-k search through a built index",
+            "read",
+            {
+                "name": {"type": "string"},
+                "vector": {"type": "array", "items": {"type": "number"}},
+                "k": {"type": "integer", "default": 10},
+                "nprobe": {"type": "integer", "minimum": 1,
+                           "description": "override the build-time probe "
+                           "width (ivf/cellprobe-family indexes)"},
+                "recall_target": {"type": "number",
+                                  "description": "cellprobe-family indexes: "
+                                  "smallest calibrated nprobe meeting this "
+                                  "recall@k — ABSOLUTE vs exact f32 ground "
+                                  "truth after calibrate_index "
+                                  "(mode='exact', targets above the "
+                                  "quantization ceiling are rejected); "
+                                  "deep-probe-relative under lazy "
+                                  "'ceiling' calibration (see "
+                                  "list_indexes 'calibration')"},
+            },
+            ["name", "vector"],
+        ),
+        _schema(
+            "calibrate_index",
+            "Calibrate a cellprobe-family index's recall_target curve. "
+            "mode='exact' (default) measures ABSOLUTE recall@k against "
+            "exact float32 ground truth from the backing store (one brute "
+            "device scan) and records the quantization ceiling, which "
+            "recall_target searches then refuse to exceed; "
+            "mode='ceiling' is the cheap self-relative curve",
+            "write",
+            {
+                "name": {"type": "string"},
+                "n_sample": {"type": "integer", "default": 256},
+                "k": {"type": "integer", "default": 10},
+                "mode": {"type": "string", "enum": ["exact", "ceiling"],
+                         "default": "exact"},
+                "metric": {"type": "string"},
+            },
+            ["name"],
+        ),
+        _schema(
+            "drop_index",
+            "Drop an index descriptor and its artifact",
+            "admin",
+            {"name": {"type": "string"}},
+            ["name"],
         ),
     ]
 }
@@ -405,4 +490,25 @@ def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
             k=int(args.get("k", 10)), metric=args.get("metric"))
         return {"store": args["store"], "mode": "ceiling",
                 "curve": {str(p): r for p, r in sorted(curve.items())}}
+    if name == "calibrate_index":
+        return db.calibrate_index(
+            args["name"], n_sample=int(args.get("n_sample", 256)),
+            k=int(args.get("k", 10)), mode=args.get("mode", "exact"),
+            metric=args.get("metric"))
+    if name == "create_index":
+        return db.create_index(args["name"], args["store"], args["type"],
+                               args.get("parameters"))
+    if name == "build_index":
+        return db.build_index(args["name"], wait=bool(args.get("wait", True)))
+    if name == "list_indexes":
+        return {"indexes": db.list_indexes()}
+    if name == "search_index":
+        kw = probe_kwargs(args)
+        hits = db.search_index(args["name"], args["vector"],
+                               k=int(args.get("k", 10)), **kw)
+        return format_hits(hits)
+    if name == "drop_index":
+        if not db.drop_index(args["name"]):
+            raise ToolError(f"index {args['name']!r} not found")
+        return {"status": "ok"}
     raise ToolError(f"Unknown tool: {name}")  # unreachable

@@ -193,10 +193,16 @@ def test_multiprobe_refuses_rq_stage_and_manhattan():
     cents, codes, scales, norms, valid, _ = _layout(12)
     args = [torch.from_numpy(a) for a in (codes, scales, norms, valid, cents)]
     q = torch.from_numpy(_queries(12, cents))
-    with pytest.raises(NotImplementedError, match="rq_m"):
-        tcp.multiprobe_topk(*args, q, metric="cosine", k=5, nprobe=2,
-                            cell_cap=16, rq_codes=torch.zeros(1),
-                            rq_lut=torch.zeros(1))
+    # the rq stage is ported: with zero error codes and tables the pooled
+    # rescore re-ranks the stage-1 pool by its own scores
+    plain = tcp.multiprobe_topk(*args, q, metric="cosine", k=5, nprobe=2,
+                                cell_cap=16)
+    rq = tcp.multiprobe_topk(
+        *args, q, metric="cosine", k=5, nprobe=2, cell_cap=16,
+        rq_codes=torch.zeros((codes.shape[0], 3), dtype=torch.uint8),
+        rq_lut=torch.zeros((q.shape[0], 3, 256)), rq_pool=16)
+    for a, b in zip(plain, rq):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     with pytest.raises(ValueError, match="manhattan"):
         tcp.multiprobe_topk(*args, q, metric="manhattan", k=5, nprobe=2,
                             cell_cap=16)

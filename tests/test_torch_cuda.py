@@ -440,3 +440,147 @@ def test_cellprobe_index_through_kernel(dev):
     assert np.mean(r_k == r_c) >= 0.99
     np.testing.assert_allclose(d_k[:, 0], d_c[:, 0], rtol=1e-5, atol=1e-5)
     assert (r_k[:, 0] == np.arange(0, len(data), 500)).all()
+
+
+# ----------------------------------------------------------- B8, B9, B10
+
+
+def _adc_case(dev, k=256, n_tiles=3, b=45, d=64, seed=11):
+    """Random PQ codes over n_tiles 1024-row tiles (plus a ragged tail of
+    rows the scans never reach), int8 rerank rows and an int8 LUT."""
+    rng = np.random.default_rng(seed)
+    n = n_tiles * 1024 + 100
+    codes = rng.integers(0, k, (n, 8)).astype(np.uint8)
+    codes[5:40] = codes[4]           # ties inside the first tile
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    absmax = np.abs(x).max(axis=1)
+    scales = (absmax / 127.0).astype(np.float32)
+    i8 = np.clip(np.round(x / scales[:, None]), -127, 127).astype(np.int8)
+    n2 = (scales.astype(np.float64) ** 2
+          * (i8.astype(np.float64) ** 2).sum(1)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    lut_f = rng.standard_normal((b, 8 * k)).astype(np.float32) ** 2
+    lut_q = rng.integers(0, 128, (b, 8 * k)).astype(np.int8)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return dict(codes=t(codes), i8=t(i8), scales=t(scales), n2=t(n2), q=t(q),
+                lut_f=t(lut_f), lut_q=t(lut_q), n_tiles=n_tiles)
+
+
+def _on_cpu(*ts):
+    return [x.cpu() for x in ts]
+
+
+@pytest.mark.parametrize("k", [64, 256])
+@pytest.mark.parametrize("t", [2, 4, 8])
+def test_adc_pallas_scan_matches_plain(dev, k, t):
+    """B10: the int8 and the bf16 LUT give the plain version's picks and
+    values bit for bit (integer sums; bf16 values added in the same
+    subspace order)."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    c = _adc_case(dev, k=k)
+    for lut, variant in ((c["lut_q"], "int8"), (c["lut_f"], "bf16")):
+        ap.reset_launches()
+        vk, rk = ap.adc_pallas_scan(c["codes"], lut, n_tiles=c["n_tiles"],
+                                    t_per_tile=t)
+        torch.cuda.synchronize()
+        assert ap.adc_pallas_scan.launches_by == {variant: 1}
+        vr, rr = ap.adc_pallas_scan(*_on_cpu(c["codes"], lut),
+                                    n_tiles=c["n_tiles"], t_per_tile=t)
+        np.testing.assert_array_equal(rk.cpu().numpy(), rr.numpy())
+        np.testing.assert_array_equal(vk.cpu().numpy(), vr.numpy())
+
+
+@pytest.mark.parametrize("scan", ["exact", "pos"])
+def test_adc_rerank_scans_match_plain(dev, scan):
+    """B9 and B8: the same picks as the plain version (B8 ties to the
+    higher row), reranked values within 1e-5 of the magnitude of their
+    terms (|q|^2 + 2|q.x| + |x|^2; the kernel sums q.x in another order)."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    c = _adc_case(dev)
+    args = (c["codes"], c["lut_q"], c["q"], c["i8"], c["scales"], c["n2"])
+    ap.reset_launches()
+    if scan == "exact":
+        vk, rk = ap.adc_exact_scan(*args, c["n_tiles"], 4)
+        vr, rr = ap.adc_exact_scan(*_on_cpu(*args), c["n_tiles"], 4)
+        assert ap.adc_exact_scan.launches == 1
+    else:
+        vk, rk = ap.adc_pos_scan(*args, c["n_tiles"])
+        vr, rr = ap.adc_pos_scan(*_on_cpu(*args), c["n_tiles"])
+        assert ap.adc_pos_scan.launches == 1
+        assert (rr.numpy()[:, 0] >= 0).all()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(rk.cpu().numpy(), rr.numpy())
+    q = c["q"].cpu()
+    rows = rr.long()
+    x = c["i8"].cpu()[rows].float() * c["scales"].cpu()[rows][:, :, None]
+    mag = ((q * q).sum(1, keepdim=True) + 2 * (q[:, None, :] * x).sum(-1).abs()
+           + c["n2"].cpu()[rows])
+    assert ((vk.cpu() - vr).abs() <= 1e-5 * mag).all()
+
+
+def test_adc_searches_on_the_card_match_the_cpu(dev):
+    """The three searches end to end on the card (B8, B9, B10-int8) against
+    the same inputs on the CPU: the same rows on >= 99% of entries (equal
+    LUTs give equal picks; a rerank near-tie may swap neighbours)."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+    from erlvectordb_tpu_torch.quant.pq import PQCodebook
+
+    rng = np.random.default_rng(4)
+    n, d = 8192 + 3000, 64
+    data = (rng.standard_normal((n, 8)) @ rng.standard_normal((8, d))
+            ).astype(np.float32)
+    cb = PQCodebook.fit(data, m=8, k=256, iters=6, device=dev)
+    codes = cb.encode(data)
+    pad = (-n) % 8192
+    absmax = np.abs(data).max(axis=1)
+    scales = (absmax / 127.0).astype(np.float32)
+    i8 = np.clip(np.round(data / scales[:, None]), -127, 127).astype(np.int8)
+    n2 = (scales.astype(np.float64) ** 2
+          * (i8.astype(np.float64) ** 2).sum(1)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    codes_p = torch.nn.functional.pad(codes, (0, 0, 0, pad))
+    i8_p = t(np.pad(i8, ((0, pad), (0, 0))))
+    sc_p = t(np.pad(scales, (0, pad), constant_values=1.0))
+    n2_p = t(np.pad(n2, (0, pad)))
+    q = t(data[:37] + 0.1)
+    nt = ap.adc_n_tiles(n)
+    books = cb.codebooks
+    runs = {
+        "pos": lambda *a: ap.adc_search_exact_pos(*a[:6], n, k=10, n_tiles=nt),
+        "exact": lambda *a: ap.adc_search_exact_fused(*a[:6], n, k=10,
+                                                      n_tiles=nt),
+        "fused": lambda *a: ap.adc_search_fused(a[0], a[1], a[2], a[3], a[5],
+                                                n, k=10, c=256, n_tiles=nt),
+    }
+    for name, fn in runs.items():
+        ap.reset_launches()
+        dk, rk = fn(codes_p, books, i8_p, sc_p, n2_p, q)
+        torch.cuda.synchronize()
+        assert sum(k.launches for k in ap.KERNELS) == 1
+        dc, rc = fn(*_on_cpu(codes_p, books, i8_p, sc_p, n2_p, q))
+        assert (rk.cpu().numpy() == rc.numpy()).mean() >= 0.99, name
+        assert (rk.cpu().numpy() < n).all()
+        assert (rk.cpu().numpy()[:, 0] == np.arange(37)).mean() >= 0.9
+        # squared distances within 1e-5 of (|q| + |x|)^2 ~ 4|q|^2: the card
+        # and the CPU sum |q|^2 - 2 q.x + |x|^2 in other orders
+        qsq = (q.cpu() ** 2).sum(1).numpy()
+        err = np.abs(dk.cpu().numpy()[:, 0] ** 2 - dc.numpy()[:, 0] ** 2)
+        assert (err <= 4e-5 * qsq).all(), (name, err.max())
+
+
+def test_adc_scan_wrappers_refuse_bad_input(dev):
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    c = _adc_case(dev)
+    with pytest.raises(ValueError):       # codes short of the tiles
+        ap.adc_pallas_scan(c["codes"], c["lut_q"], n_tiles=9)
+    with pytest.raises(ValueError):       # M not a multiple of 4
+        ap.adc_pallas_scan(c["codes"][:, :6].contiguous(),
+                           c["lut_q"][:, :6 * 256].contiguous(), n_tiles=3)
+    with pytest.raises(ValueError):       # f32 LUT to a rerank scan
+        ap.adc_exact_scan(c["codes"], c["lut_f"], c["q"], c["i8"],
+                          c["scales"], c["n2"], 3, 4)
+    with pytest.raises(ValueError):       # a CPU LUT beside CUDA codes
+        ap.adc_pallas_scan(c["codes"], c["lut_q"].cpu(), n_tiles=3)

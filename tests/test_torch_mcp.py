@@ -29,6 +29,8 @@ from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
 torch.set_num_threads(2)
 
 DIM = 48
+INDEX_TOOLS = ["create_index", "build_index", "list_indexes", "search_index",
+               "calibrate_index", "drop_index"]
 
 
 class Client:
@@ -247,12 +249,15 @@ def test_tools_list_is_the_ported_subset(pair):
     assert sorted(t["name"] for t in tools) == sorted([
         "create_store", "insert_vector", "search_vectors",
         "search_vectors_batch", "delete_vector", "get_store_stats",
-        "list_stores", "calibrate_store"])
+        "list_stores", "calibrate_store"] + INDEX_TOOLS)
     jax_tools = {t["name"]: t for t in pair[1].call("tools/list")["result"]["tools"]}
     for t in tools:
         if t["name"] in ("search_vectors", "search_vectors_batch",
-                         "calibrate_store"):
+                         "calibrate_store", "calibrate_index"):
+            # descriptions differ where they speak of persistence
             assert t["inputSchema"] == jax_tools[t["name"]]["inputSchema"]
+        elif t["name"] in INDEX_TOOLS:
+            assert t == jax_tools[t["name"]]
     got, want = _both(pair, lambda c: c.tool(
         "search_vectors", store="s", vector=[0.0] * DIM, nprobe=4))
     # the JAX message goes on to name its index types, not ported yet
@@ -367,3 +372,125 @@ def test_calibrate_store_and_stats_over_mcp(mp_pair):
     assert got["calibration"] == want["calibration"]
     assert {"mode": "ceiling", "ceiling": 1.0, "k": 7, "metric": "cosine",
             "n_queries": 64} in got["calibration"]
+
+
+# ------------------------------------------------------ indexes over MCP
+
+# build-time fields that differ between any two builds
+_TIMES = ("built_at", "build_seconds")
+
+
+def _info(d):
+    return {k: v for k, v in d.items() if k not in _TIMES}
+
+
+@pytest.fixture(scope="module")
+def indexed(pair):
+    """A float32 euclidean store filled over MCP on both servers, with a
+    flat and an int8 index created and built through the index tools."""
+    rng = np.random.default_rng(33)
+    centers = rng.standard_normal((16, DIM)).astype(np.float32)
+    x = (centers[rng.integers(0, 16, 600)]
+         + 0.3 * rng.standard_normal((600, DIM))).astype(np.float32)
+    q = (centers[rng.integers(0, 16, 12)]
+         + 0.3 * rng.standard_normal((12, DIM))).astype(np.float32)
+    for c in pair:
+        c.tool("create_store", name="fx", dimension=DIM, metric="euclidean",
+               dtype="float32")
+        c.pipeline([("tools/call", {"name": "insert_vector", "arguments": {
+            "store": "fx", "id": f"x{i}", "vector": x[i].tolist()}})
+            for i in range(len(x))])
+    made = _both(pair, lambda c: [
+        c.tool("create_index", name=n, store="fx", type=t)
+        for n, t in (("fx_flat", "flat"), ("fx_i8", "int8"))])
+    built = _both(pair, lambda c: c.tool("build_index", name="fx_i8"))
+    return x, q, made, built
+
+
+def test_create_build_list_indexes_over_mcp(pair, indexed):
+    _, _, made, built = indexed
+    assert [_info(d) for d in made[0]] == [_info(d) for d in made[1]]
+    assert _info(built[0]) == _info(built[1])
+    assert built[0]["built"] and built[0]["stats"]["kind"] == "int8"
+    got, want = _both(pair, lambda c: c.tool("list_indexes"))
+    assert ([_info(d) for d in got["indexes"]]
+            == [_info(d) for d in want["indexes"]])
+
+
+def test_search_index_deterministic_types_over_mcp(pair, indexed):
+    """flat and int8 indexes build the same thing on both servers: the same
+    answers."""
+    _, q, _, _ = indexed
+    for name in ("fx_flat", "fx_i8"):
+        for i in range(4):
+            got, want = _both(pair, lambda c: c.tool(
+                "search_index", name=name, vector=q[i].tolist(), k=7))
+            _same_results(got, want)
+
+
+@pytest.mark.parametrize("itype,params", [
+    ("pq", {"m": 8, "iters": 6}),
+    ("opq", {"m": 8, "iters": 6, "opq_iters": 2}),
+    ("ivf", {"n_cells": 8, "nprobe": 4}),
+    ("cellprobe", {"cell_rows": 32, "cell_cap": 48, "nprobe": 8}),
+])
+def test_build_and_search_trained_types_over_mcp(pair, indexed, itype, params):
+    """Types whose build draws random numbers: built on both servers with
+    the same stats kind, and each finds a stored row first."""
+    x, _, _, _ = indexed
+    name = f"fx_{itype}"
+    built = _both(pair, lambda c: (
+        c.tool("create_index", name=name, store="fx", type=itype,
+               parameters=params),
+        c.tool("build_index", name=name))[1])
+    assert built[0]["built"] and built[1]["built"], built
+    assert built[0]["stats"]["kind"] == built[1]["stats"]["kind"]
+    hits = pair[0].tool("search_index", name=name, vector=x[21].tolist(), k=5)
+    assert hits["results"][0]["id"] == "x21"
+
+
+def test_calibrate_and_probe_knobs_over_mcp(pair, indexed):
+    x, q, _, _ = indexed
+    for c in pair:
+        c.tool("create_index", name="fx_cal", store="fx", type="cellprobe",
+               parameters={"cell_rows": 32, "cell_cap": 48})
+        c.tool("build_index", name="fx_cal")
+    got, want = _both(pair, lambda c: c.tool("calibrate_index", name="fx_cal",
+                                             n_sample=32, k=5))
+    assert got["mode"] == want["mode"] == "exact"
+    assert set(got) == set(want) and got["curve"]
+    hit = pair[0].tool("search_index", name="fx_cal", vector=x[3].tolist(),
+                       k=3, recall_target=0.9)
+    assert hit["results"][0]["id"] == "x3"
+    hit = pair[0].tool("search_index", name="fx_cal", vector=x[3].tolist(),
+                       k=3, nprobe=16)
+    assert hit["results"][0]["id"] == "x3"
+
+
+@pytest.mark.parametrize("probe", [
+    "unknown_index", "unbuilt", "bad_type", "calibrate_flat", "knob_on_int8",
+    "both_knobs", "drop_twice"])
+def test_index_error_probes(pair, indexed, probe):
+    _, q, _, _ = indexed
+    v = q[0].tolist()
+    if probe == "unbuilt":
+        _both(pair, lambda c: c.tool("create_index", name="fx_unbuilt",
+                                     store="fx", type="int8"))
+    if probe == "drop_twice":
+        _both(pair, lambda c: c.tool("create_index", name="fx_drop",
+                                     store="fx", type="flat"))
+        first = _both(pair, lambda c: c.tool("drop_index", name="fx_drop"))
+        assert first[0] == first[1] == {"status": "ok"}
+    name, args = {
+        "unknown_index": ("search_index", dict(name="nope", vector=v)),
+        "unbuilt": ("search_index", dict(name="fx_unbuilt", vector=v)),
+        "bad_type": ("create_index", dict(name="b", store="fx", type="btree")),
+        "calibrate_flat": ("calibrate_index", dict(name="fx_flat")),
+        "knob_on_int8": ("search_index", dict(name="fx_i8", vector=v,
+                                              nprobe=4)),
+        "both_knobs": ("search_index", dict(name="fx_i8", vector=v, nprobe=4,
+                                            recall_target=0.9)),
+        "drop_twice": ("drop_index", dict(name="fx_drop")),
+    }[probe]
+    got, want = _both(pair, lambda c: c.tool(name, **args))
+    assert got == want and "code" in got, (got, want)

@@ -146,17 +146,21 @@ def test_from_state_of_jax_store(rng, metric, dtype, intkey):
 def test_unported_dtypes_refused(rng, kind):
     """int4 and int4r stores are ported.  Multiprobe search answers on int4r
     (its cell layout) and is refused on int4 as the JAX package refuses it;
-    the int4r second stage (rq_m) is not ported yet."""
+    the int4r second stage (rq_m) builds and searches on int4r and is
+    refused on other dtypes."""
     data = rng.standard_normal((300, 8)).astype(np.float32)
     st = VectorStore.from_matrix("x", data, dtype=kind, device=CPU)
     assert st.count == 300 and st.dtype == kind
     if kind == "int4":
         with pytest.raises(ValueError, match="int4r"):
             st.search(data[0], k=3, nprobe=4)
+        with pytest.raises(ValueError, match="int4r"):
+            VectorStore.from_matrix("y", data, dtype=kind, device=CPU, rq_m=4)
     else:
         assert st.search(data[0], k=3, nprobe=4)[0][0] == "0"
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            VectorStore.from_matrix("y", data, dtype=kind, device=CPU, rq_m=4)
+        rq = VectorStore.from_matrix("y", data, dtype=kind, device=CPU, rq_m=4)
+        assert rq._rq_codes.shape == (rq.capacity, 4)
+        assert rq.search(data[0], k=3, nprobe=4)[0][0] == "0"
 
 
 def test_multiprobe_refused(rng):
