@@ -7,7 +7,9 @@ Phases, each printing one JSON line of its own numbers:
 
   1. device   the card's name and power limit (nvidia-smi) and versions;
   2. build    the CUDA kernels compiled from csrc/ with nvcc (seconds,
-              spills), and the stores built on the card (ms, device bytes);
+              spills; registers of the tensor-core B5 and the register-tiled
+              B3-f32, which must not spill), and the stores built on the
+              card (ms, device bytes);
   3. kernels  each kernel variant against its plain PyTorch version at the
               shapes its served path gives it (1024 queries, W=128), with
               the stated bars, median CUDA-event times and the bound;
@@ -31,7 +33,8 @@ Phases, each printing one JSON line of its own numbers:
                     calibration through the Python API -> B7 gather_dots int4
               recall@10 against exact f32 ground truth on the card, and
               overlap@10 of the int4/int4r stores with the plain exact scan
-              of the same codes;
+              of the same codes; 1024-query store batches of (a), (c32) and
+              (f) timed, and (f)'s and (c32)'s profiled;
               (f-rq) an int4r store of the same corpus with the rq_m = 9
                     second stage (bench.py:1008): device bytes beside the
                     int8 stores', multiprobe recall@10 at nprobe 512 by
@@ -131,8 +134,8 @@ NO_LIBRARY = "none: no single PyTorch call computes the scan and its selection"
 NO_LIBRARY_B7 = "none: a gather plus a product is not one PyTorch call"
 NO_LIBRARY_ADC = "none: no single PyTorch call computes a LUT scan and its selection"
 # LUT lookups have no tensor-core rate: one 32-bit shared-memory word per
-# lane per clock, 32 lanes on each of the H100's 132 SMs, at the SM clock
-# nvidia-smi reports as clocks.max.sm (set by main)
+# lane per clock, 32 lanes on each SM (132 on an H100 SXM), at the SM clock
+# nvidia-smi reports as clocks.max.sm (both set by main from the device)
 SM_COUNT = 132
 SM_CLOCK_HZ = 1.98e9
 
@@ -800,7 +803,7 @@ def slice_phase(db, corpus, queries, f32_rows):
     # end to end on the store API: 1024-query batches, host clock around
     # submit -> complete (the readback waits for the device)
     store_lat = {}
-    for s in ("a", "f"):
+    for s in ("a", "c32", "f"):
         store = db.get_store(s)
         lat = []
         for _ in range(6):
@@ -809,6 +812,13 @@ def slice_phase(db, corpus, queries, f32_rows):
                 queries[:BATCH], k=K))
             lat.append(time.perf_counter() - t0)
         store_lat[s] = sorted(lat[1:])[len(lat[1:]) // 2]
+    # where a store batch of (f) (B5) and (c32) (B3-f32) spends its time
+    batch_profile = {}
+    for s in ("f", "c32"):
+        store = db.get_store(s)
+        batch_profile[s] = profile_calls(
+            lambda: store.search_batch_complete_raw(store.search_batch_submit(
+                queries[:BATCH], k=K)), reps=10)
     # (f-mp) at the store API: small batches through B7 at nprobe 64 beside
     # the full B5 scan of the same store (config 9's comparison)
     f_store = db.get_store("f")
@@ -838,6 +848,7 @@ def slice_phase(db, corpus, queries, f32_rows):
          h_insert_readback_top1=readback, launches=launches,
          store_batch_ms_median={s: 1e3 * v for s, v in store_lat.items()},
          store_qps={s: BATCH / v for s, v in store_lat.items()},
+         profile_store_batch=batch_profile,
          mcp_b64_batch_ms_median=float(np.median(timing["mcp_b64_batch_ms_all"])),
          mcp_b64_batch_ms_all=timing["mcp_b64_batch_ms_all"],
          mean_ms_by_span={k: v["mean_ms"] for k, v in
@@ -1334,10 +1345,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    global SM_CLOCK_HZ
+    global SM_CLOCK_HZ, SM_COUNT
     smi = nvidia_smi()
     print(smi, flush=True)
     SM_CLOCK_HZ = 1e6 * float(nvidia_smi("clocks.max.sm").split()[0])
+    SM_COUNT = torch.cuda.get_device_properties(0).multi_processor_count
     emit("device", nvidia_smi=smi, sm_clock_max_hz=SM_CLOCK_HZ, **device_stats(),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
@@ -1350,8 +1362,25 @@ def main() -> int:
               for i, ln in enumerate(log)
               if "spill stores" in ln and not ln.strip().startswith("0 bytes")
               and i >= 2]
+    # the tensor-core B5 and the register-tiled B3-f32: registers and spills
+    # of each instantiation (ptxas: entry, properties, frame/spills, usage)
+    redesigned = {}
+    for i, ln in enumerate(log[:-3]):
+        for kname in ("residual_mma_kernel", "pos_f32_kernel"):
+            if "Compiling entry" in ln and kname in ln:
+                tmpl = ln.split(kname)[1].split("EE")[0]
+                redesigned[f"{kname}{tmpl}"] = (
+                    f"{log[i + 2].strip()}; {log[i + 3].split(':')[-1].strip()}")
+    spilled = {k: v for k, v in redesigned.items()
+               if not v.split("bytes spill stores")[0].rstrip().endswith(" 0")}
     emit("build", kernel_build_s=build_s, spills=spills,
-         entries=sum("Compiling entry" in ln for ln in log))
+         entries=sum("Compiling entry" in ln for ln in log),
+         redesigned_kernels=redesigned or None,
+         **({} if log else {"redesigned_kernels_missing":
+                            f"no ptxas report beside {cuda_lib.build_info['path']}"}))
+    # B5: t_top 2 / 8, each with and without the wide-row conversion
+    if len(redesigned) != 6 or spilled:
+        raise AssertionError(f"B5 / B3-f32 kernels: {redesigned}")
 
     corpus = make_corpus(SEED, N_ROWS)
     queries = make_corpus(SEED + 1, BATCH)

@@ -15,9 +15,11 @@
 //        two query words.  Sums are exact int32 in any order.
 //
 // The top-T kernels (B4, B5, B6) keep a sorted per-thread list of T packed
-// keys per query and finish with T rounds of a block max per query: keys
+// keys per query and finish with T rounds of a max per query over the
+// threads that share it (the block for B4 and B6, a quad for B5): keys
 // carry their lane, so they are unique within a segment and exactly one
-// thread pops each winner.
+// thread pops each winner.  The cp.async helpers at the end stage tiles
+// for the redesigned scans (B5, B3 on f32 codes).
 
 #pragma once
 
@@ -143,6 +145,36 @@ __device__ __forceinline__ void push_top(int (&top)[T], int v) {
     v = min(top[i], v);
     top[i] = hi;
   }
+}
+
+// compare-exchange: the larger of a, b to a
+__device__ __forceinline__ void cas_desc(int& a, int& b) {
+  const int hi = max(a, b);
+  b = min(a, b);
+  a = hi;
+}
+
+// sort 8 keys descending: the 19-comparator network of depth 6
+__device__ __forceinline__ void sort8_desc(int* v) {
+  cas_desc(v[0], v[2]); cas_desc(v[1], v[3]); cas_desc(v[4], v[6]); cas_desc(v[5], v[7]);
+  cas_desc(v[0], v[4]); cas_desc(v[1], v[5]); cas_desc(v[2], v[6]); cas_desc(v[3], v[7]);
+  cas_desc(v[0], v[1]); cas_desc(v[2], v[3]); cas_desc(v[4], v[5]); cas_desc(v[6], v[7]);
+  cas_desc(v[2], v[4]); cas_desc(v[3], v[5]);
+  cas_desc(v[1], v[4]); cas_desc(v[3], v[6]);
+  cas_desc(v[1], v[2]); cas_desc(v[3], v[4]); cas_desc(v[5], v[6]);
+}
+
+// top <- the 8 largest of (top, a), both sorted descending: the pairwise
+// max of top and reversed a is a bitonic sequence holding them, which three
+// half-cleaner stages sort: 32 min/max, where push_top takes 16 a key
+__device__ __forceinline__ void merge_top8(int (&top)[8], const int* a) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) top[i] = max(top[i], a[7 - i]);
+#pragma unroll
+  for (int d = 4; d > 0; d >>= 1)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if ((i & d) == 0) cas_desc(top[i], top[i + d]);
 }
 
 // one round of a block max over the heads of every thread's list; the one
@@ -273,6 +305,28 @@ int launch_tile(const void* q, const void* codes, int B, int ww, int n_tiles, in
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// asynchronous copies global -> shared of 4 or 16 bytes (16: both ends
+// 16-byte aligned), zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's newest commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 }  // namespace evdb

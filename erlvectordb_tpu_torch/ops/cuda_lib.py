@@ -2,8 +2,11 @@
 
 The sources are compiled at first use into a plain-C shared library for
 ``sm_90a`` (Hopper) under ``build/erlvectordb_tpu_torch/<hash>/`` beside the
-package, keyed by a hash of the sources, the shared header and the flags so
-an edited kernel is never served from a stale build.  Each source compiles
+package, keyed by a hash of the sources, the shared headers and the flags so
+an edited kernel is never served from a stale build.  The compiler's
+``-Xptxas -v`` report (registers and spills of every kernel) is kept beside
+the library as ``ptxas.log``, so a build served from that directory reports
+it too.  Each source compiles
 in its own nvcc process, all started together, and one link joins the
 objects.  Nothing here runs at import: the CPU test suite imports every
 module and has no nvcc.
@@ -24,7 +27,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_topk.cu", "residual_scan.cu", "cell_probe.cu", "adc_scan.cu")
-HEADERS = ("scan_common.cuh",)
+HEADERS = ("scan_common.cuh", "mma_scan.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "erlvectordb_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,7 +45,7 @@ _SIGNATURES = {
     "evdb_pos_scan_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "evdb_fused_scan_i4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "evdb_pos_residual_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _P, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "evdb_cell_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P, _P],
     "evdb_gather_dots": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -54,6 +57,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}  # seconds, path and the compiler's -Xptxas -v report
+LOG_NAME = "ptxas.log"
 
 
 def _nvcc() -> str:
@@ -76,10 +80,11 @@ def library() -> ctypes.CDLL:
         out_dir = BUILD_ROOT / digest.hexdigest()[:16]
         so = out_dir / "libevdb_kernels.so"
         t0 = time.perf_counter()
-        log = ""
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            log = _build(out_dir, so)
+            _build(out_dir, so)
+        report = out_dir / LOG_NAME
+        log = report.read_text() if report.exists() else ""
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in _SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
@@ -90,9 +95,10 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def _build(out_dir: Path, so: Path) -> str:
+def _build(out_dir: Path, so: Path) -> None:
     """One nvcc per source, all running at once, then one link; the
-    library lands under its final name by an atomic rename."""
+    compiler's report and then the library land under their final names by
+    atomic renames."""
     work = Path(tempfile.mkdtemp(dir=out_dir))
     try:
         nvcc = _nvcc()
@@ -114,8 +120,9 @@ def _build(out_dir: Path, so: Path) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
+        (work / LOG_NAME).write_text(log)
+        os.replace(work / LOG_NAME, out_dir / LOG_NAME)
         os.replace(tmp, so)
-        return log
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

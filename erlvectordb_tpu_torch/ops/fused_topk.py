@@ -464,6 +464,42 @@ def cell_scan(codes, q, qmult, rowmult, rowbias, qmult2, rowmult2, table,
     return vals, rows
 
 
+RES_Q_TILE = 128     # B5: queries per block (8 warps x 16)
+RES_ROWS = 64        # B5: code rows per stage
+RES_K = 128          # B5: int8 elements (k) per stage
+RES_PITCH = RES_K + 16   # B5: shared-memory row pitch of a k stage, bytes
+RES_STAGES = 4       # B5: depth of its ring of staged copies
+
+
+def residual_scan_layout(bq: int, n_slices: int, w: int, cell_cap: int,
+                         sm_count: int) -> dict:
+    """B5's launch, the one place that sizes it (csrc/residual_scan.cu
+    carves its shared memory in this order).  A 1-D grid of ``blocks`` =
+    ``q_tiles`` x slice runs, the query tile fastest; a block covers
+    RES_Q_TILE queries x ``run`` consecutive 1024-row slices, the last of
+    each ragged.  ``cells`` = the most cells a RES_ROWS-row stage spans.
+    ``smem`` = the block's dynamic shared memory: two stages of unpacked
+    codes, a ring of RES_STAGES packed stages, the query tile's k stages
+    (all of them up to RES_STAGES, else a ring of RES_STAGES), and a ring of
+    row factors and table blocks holding the pieces in flight.
+    The run grows with the work so that a block's query tile is staged once
+    for up to 8 slices while about 4 blocks per SM remain."""
+    if cell_cap < 1:
+        raise ValueError(f"cell_cap must be positive, got {cell_cap}")
+    if w < RES_K or w % RES_K:
+        raise ValueError(f"row width must be a multiple of {RES_K}, got {w}")
+    q_tiles = -(-bq // RES_Q_TILE)
+    run = max(1, min(8, n_slices * q_tiles // (4 * sm_count)))
+    cells = min(RES_ROWS, (RES_ROWS - 1) // cell_cap + 2)
+    kw = w // RES_K
+    pieces = 4 if kw <= 2 else 2     # the factor slots: the pieces in flight
+    smem = (2 * RES_ROWS * RES_PITCH + RES_STAGES * RES_ROWS * RES_K // 2
+            + min(kw, RES_STAGES) * RES_Q_TILE * RES_PITCH
+            + pieces * (RES_ROWS * 16 + RES_Q_TILE * cells * 4))
+    return dict(q_tiles=q_tiles, run=run, blocks=q_tiles * -(-n_slices // run),
+                cells=cells, smem=smem)
+
+
 def pos_residual_scan(codes, q, qa, f, g, ma, mb, bb, table, n_tiles,
                       cell_cap, slice_w=1024, t_top=2):
     """B5: the int4r store's scaled-int key scan; returns [B, t_top *
@@ -488,6 +524,9 @@ def pos_residual_scan(codes, q, qa, f, g, ma, mb, bb, table, n_tiles,
     tb = _table_arg(table, bq, n, cell_cap)
     args = [_f32_vec(qa, bq, "qa"), _f32_vec(f, bq, "f"), _f32_vec(g, bq, "g"),
             _f32_vec(ma, n, "ma"), _f32_vec(mb, n, "mb"), _f32_vec(bb, n, "bb")]
+    lay = residual_scan_layout(
+        bq, n_slices, 8 * ww, cell_cap,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty((bq, t_top * n_slices), dtype=torch.int32,
                       device=q.device)
     lib = cuda_lib.library()
@@ -495,7 +534,8 @@ def pos_residual_scan(codes, q, qa, f, g, ma, mb, bb, table, n_tiles,
     cuda_lib.check(lib.evdb_pos_residual_scan(
         qk.data_ptr(), codes.data_ptr(), *[a.data_ptr() for a in args],
         tb.data_ptr(), tb.shape[1], cell_cap, bq, ww, n_slices, t_top,
-        out.data_ptr(), _stream()), "pos_residual_scan")
+        lay["run"], lay["cells"], lay["smem"], out.data_ptr(), _stream()),
+        "pos_residual_scan")
     _count(pos_residual_scan, variant)
     return out
 

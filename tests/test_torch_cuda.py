@@ -188,18 +188,18 @@ def test_fused_kernel_int4(int4_inputs, metric, t_per_tile):
     torch.testing.assert_close(vk, vr, rtol=0, atol=0)
 
 
-def _residual_args(inputs, metric, cell_cap):
+def _residual_args(inputs, metric, cell_cap, n_tiles=N_TILES):
     """A cell layout over the fixture rows: centroid of each cell's rows,
     packed residuals, reconstruction norms, and both scans' factors."""
     x, q, valid, *_ = inputs
-    n = ROWS
+    n = n_tiles * ft.TILE_N
     cents = x[:n].reshape(n // cell_cap, cell_cap, -1).mean(dim=1)
     packed, s4 = _pack4(x[:n] - cents.repeat_interleave(cell_cap, dim=0))
     recon = (cents.repeat_interleave(cell_cap, dim=0)
              + ft.unpack_int4(packed).float() * s4[:, None])
     norms, vld = recon.norm(dim=1), valid[:n]
     (q_in, qmult, rowmult, rowbias, _, qmult2, rowmult2, table,
-     qa) = ft.residual_factors(metric, s4, norms, vld, cents, q, N_TILES,
+     qa) = ft.residual_factors(metric, s4, norms, vld, cents, q, n_tiles,
                                cell_cap)
     ma, mb, bb, f, g = ft._residual_window(
         metric, norms, vld, q_in, qa, rowmult, rowmult2, table, cell_cap,
@@ -257,6 +257,118 @@ def test_residual_wrappers_validate(inputs):
         ft.cell_scan(inputs[3], a["q_in"], a["qmult"], a["rowmult"],
                      a["rowbias"], a["qmult2"], a["rowmult2"], a["table"],
                      N_TILES, 2, 128)
+
+
+# ------------------------------- the tile edges of B5 and B3-f32's blocks
+
+
+def _edge_inputs(dev, nq, w, n_tiles, seed, dup=False):
+    """Rows and queries for the edge cases: ``nq`` queries (ragged against
+    the 128-query blocks), invalid rows, and with ``dup`` runs of identical
+    rows whose keys differ only in their lane."""
+    rng = np.random.default_rng(seed)
+    n = n_tiles * ft.TILE_N
+    x = rng.standard_normal((n + 64, w)).astype(np.float32)
+    x[:, w - 28:] = 0.0
+    if dup:
+        x[1:n:3] = x[0:n - 1:3]
+        x[2:n:3] = x[0:n - 2:3]
+    valid = np.ones(len(x), bool)
+    valid[rng.integers(0, n, 40)] = False
+    q = rng.standard_normal((nq, w)).astype(np.float32)
+    q[:, w - 28:] = 0.0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    x, q, valid = t(x), t(q), t(valid)
+    return x, q, valid, None, None, x.norm(dim=1)
+
+
+@pytest.mark.parametrize("case", ["plain", "dup", "clamp"])
+@pytest.mark.parametrize("t_top", [2, 8])
+@pytest.mark.parametrize("cell_cap", [64, 128, 512])
+@pytest.mark.parametrize("nq", [1, 7, 65, 1024])
+def test_pos_residual_kernel_edges(dev, nq, cell_cap, t_top, case):
+    """B5 at query counts ragged against its 128-query blocks (and one
+    exact multiple), cell_cap 64 / 128 / 512, duplicated rows (ties broken
+    by the lane), invalid rows, and a g that drives scores into the +-2e9
+    clamp: bit-identical with the plain version."""
+    inp = _edge_inputs(dev, nq, 128, 3, nq + cell_cap, dup=case == "dup")
+    packed, a = _residual_args(inp, "cosine", cell_cap)
+    g = a["g"] * 1e4 if case == "clamp" else a["g"]
+    args = (packed, a["q_in"], a["qa"], a["f"], g, a["ma"], a["mb"],
+            a["bb"], a["table"], N_TILES, cell_cap, 1024, t_top)
+    ft.reset_launches()
+    kern = ft.pos_residual_scan(*args)
+    assert ft.pos_residual_scan.launches == 1
+    ref = ft.pos_residual_scan_ref(*args)
+    if case == "clamp":
+        assert int((ref >> 10 == (2_000_000_000 >> 10)).sum()) > 0
+    torch.testing.assert_close(kern, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("run", [3, 5])
+@pytest.mark.parametrize("w", [128, 256, 640])
+def test_pos_residual_kernel_ragged_run(dev, monkeypatch, w, run):
+    """Blocks of ``run`` slices where the slice count (20) is no multiple of
+    the run, and rows of one, two and five 128-element k stages (at five the
+    query streams through the copy ring)."""
+    real = ft.residual_scan_layout
+    monkeypatch.setattr(ft, "residual_scan_layout",
+                        lambda *a: {**real(*a), "run": run})
+    inp = _edge_inputs(dev, 200, w, 5, 11)
+    packed, a = _residual_args(inp, "euclidean", 128, n_tiles=5)
+    args = (packed, a["q_in"], a["qa"], a["f"], a["g"], a["ma"], a["mb"],
+            a["bb"], a["table"], 5, 128, 1024, 8)
+    torch.testing.assert_close(ft.pos_residual_scan(*args),
+                               ft.pos_residual_scan_ref(*args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nq", [7, 130])
+@pytest.mark.parametrize("w, cell_cap", [(512, 1), (640, 128), (1536, 128),
+                                         (2048, 64), (4224, 512)])
+def test_pos_residual_kernel_wide_rows(dev, w, cell_cap, nq):
+    """B5 on rows of 4 to 33 k stages: the query tile resident (W 512, with
+    cell_cap 1's 64 cells a stage, the largest table blocks) or streamed
+    through the copy ring (W >= 640, 1536-dim embeddings among them), the
+    factor ring at its shallowest, and W 4224, whose dots take the int ->
+    f32 conversion: bit-identical with the plain version, so shared memory
+    no longer bounds the row width."""
+    inp = _edge_inputs(dev, nq, w, 2, w + cell_cap)
+    packed, a = _residual_args(inp, "cosine", cell_cap, n_tiles=2)
+    args = (packed, a["q_in"], a["qa"], a["f"], a["g"], a["ma"], a["mb"],
+            a["bb"], a["table"], 2, cell_cap, 1024, 8)
+    torch.testing.assert_close(ft.pos_residual_scan(*args),
+                               ft.pos_residual_scan_ref(*args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_tiles", [1, 3])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+@pytest.mark.parametrize("w", [128, 256])
+def test_pos_kernel_keys_f32_edges(dev, w, metric, n_tiles):
+    """B3-f32 at W 128 and 256 (8 and 16 k chunks), with and without the
+    per-query multiplier (euclidean, cosine).  1024 queries (eight whole
+    128-query blocks) against the plain version: one key step (1024) on <=
+    0.1% of entries, where the kernel's f32 dots sum in another order than
+    cuBLAS's.  Then the first 1 and 33 queries alone (one ragged block, 127
+    and 95 of its queries masked): bit-identical with the same queries' rows
+    of the full batch, since each dot is one fmaf chain over k whatever
+    block it lands in."""
+    x, q, valid, _, _, norms = _edge_inputs(dev, 1024, w, n_tiles, w + n_tiles)
+    q_in, qmult, rowmult, rowbias, _ = ft._affine_factors(metric, None, norms,
+                                                          valid, q)
+    f, g, m, b = ft._pos_window(x, None, norms, valid, q_in, qmult, rowmult,
+                                rowbias, metric)
+    use_qm = metric == "euclidean"
+    ft.reset_launches()
+    kern = ft.pos_scan(x, q_in, qmult, f, g, m, b, n_tiles, use_qm)
+    assert ft.pos_scan.launches_by == {"f32": 1}
+    ref = ft.pos_scan_ref(x, q_in, qmult, f, g, m, b, n_tiles, use_qm)
+    diff = (kern.long() - ref.long())[kern != ref]
+    assert diff.numel() <= 1e-3 * kern.numel()
+    assert torch.all(diff.abs() == 1024)
+    for nq in (1, 33):
+        part = ft.pos_scan(x, q_in[:nq].contiguous(), qmult[:nq], f[:nq],
+                           g[:nq], m, b, n_tiles, use_qm)
+        torch.testing.assert_close(part, kern[:nq], rtol=0, atol=0)
 
 
 # ------------------------------------------- stores through the kernels

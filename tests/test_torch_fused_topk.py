@@ -566,3 +566,66 @@ def test_residual_gate_matches():
     assert not tft.residual_scan_applies(8192, 128, "manhattan",
                                          torch.device("cuda"))
     assert (tft.POS_RES_W, tft.POS_RES_T) == (jft.POS_RES_W, jft.POS_RES_T)
+
+
+# ------------------------------------------------ B5's launch layout
+
+
+@pytest.mark.parametrize("bq", [1, 7, 65, 128, 1024, 1025])
+@pytest.mark.parametrize("n_slices", [4, 20, 548, 1568])
+def test_residual_layout_covers_each_pair_once(bq, n_slices):
+    """The blocks of residual_scan_layout's 1-D grid (block b: query tile b
+    % q_tiles of RES_Q_TILE queries, slices ``run`` x (b // q_tiles) on,
+    the last of each ragged, as the kernel masks them) cover every (query,
+    slice) pair exactly once."""
+    lay = tft.residual_scan_layout(bq, n_slices, 128, 128, 132)
+    seen = np.zeros((bq, n_slices), np.int64)
+    for b in range(lay["blocks"]):
+        q0 = (b % lay["q_tiles"]) * tft.RES_Q_TILE
+        s0 = (b // lay["q_tiles"]) * lay["run"]
+        assert q0 < bq and s0 < n_slices      # no block is empty
+        seen[q0:q0 + tft.RES_Q_TILE, s0:s0 + lay["run"]] += 1
+    assert np.all(seen == 1)
+    assert 1 <= lay["run"] <= 8
+
+
+@pytest.mark.parametrize("w", [128, 256, 384, 512, 640, 1536, 2048, 4224])
+@pytest.mark.parametrize("cell_cap", [1, 2, 3, 5, 8, 63, 64, 100, 128, 512, 4096])
+def test_residual_layout_cells_bound_every_stage(cell_cap, w):
+    """``cells`` bounds the cells each 64-row stage of a slice spans, and the
+    shared memory stays within the 227 KB a block may use at every row
+    width and cell_cap."""
+    lay = tft.residual_scan_layout(1024, 1568, w, cell_cap, 132)
+    starts = np.arange(0, 64 * 4096, tft.RES_ROWS)
+    span = (starts + tft.RES_ROWS - 1) // cell_cap - starts // cell_cap + 1
+    assert span.max() <= lay["cells"] <= tft.RES_ROWS
+    assert lay["smem"] <= 232_448
+
+
+def test_residual_layout_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):          # rows of a partial k stage
+        tft.residual_scan_layout(1024, 1568, 200, 128, 132)
+    with pytest.raises(ValueError):
+        tft.residual_scan_layout(1024, 1568, 128, 0, 132)
+    # the store's shape at config 3: 8 query tiles, runs of 8 slices, the
+    # query tile resident (one k stage) beside a ring of 4 pieces' factors
+    lay = tft.residual_scan_layout(1024, 1568, 128, 128, 132)
+    assert (lay["q_tiles"], lay["run"], lay["blocks"]) == (8, 8, 8 * 196)
+    assert lay["cells"] == 2
+    assert lay["smem"] == (2 * 64 * 144 + 4 * 64 * 64 + 128 * 144
+                           + 4 * (64 * 16 + 128 * 2 * 4))
+    # 1536-dim rows: 12 k stages, the query streamed through a ring of 4
+    wide = tft.residual_scan_layout(1024, 1568, 1536, 128, 132)
+    assert wide["smem"] == (2 * 64 * 144 + 4 * 64 * 64 + 4 * 128 * 144
+                            + 2 * (64 * 16 + 128 * 2 * 4))
+
+
+@pytest.mark.parametrize("sm_count", [78, 132])
+def test_residual_layout_grid_has_no_y_limit(sm_count):
+    """A store of 2^30 rows (1M slices): the grid is 1-D, so its block
+    count only has to stay below 2^31 (grid.y would stop at 65,535); the
+    run scales with the device's SM count."""
+    lay = tft.residual_scan_layout(1, 1 << 20, 128, 128, sm_count)
+    assert lay["run"] == 8 and lay["blocks"] == (1 << 20) // 8 < 2 ** 31 - 1
+    small = tft.residual_scan_layout(1024, 548, 128, 128, sm_count)
+    assert small["run"] == max(1, min(8, 548 * 8 // (4 * sm_count)))
