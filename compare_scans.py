@@ -1,21 +1,30 @@
 """Compare the full-scan searches of checkouts of the PyTorch port on one card.
 
 For each checkout, in a process of its own, this builds chip_smoke.py's
-stores (f) (int4r, cosine) and (c32) (float32, cosine) from its corpus of
-1,200,000 rows x 100 dims and times, through the store API:
+stores from its corpus (1,200,000 rows x 100 dims, numpy, seed 0) one at a
+time and times batches through the store API, each path reaching the scan
+chip_smoke.py names for it:
 
-  * (f)   batches of 1, 16 and 1024 queries, which run the B5 scan
-          (pos_residual_scan) over every row;
-  * (c32) batches of 1024 queries, which run B3 on f32 codes (pos_scan).
+  * (a)   int8 cosine, intkey plane: 1024 queries        -> B1 intkey_scan
+          and the same batch over MCP (search_vectors_batch, b64)
+  * (b)   int8 euclidean, intkey plane: 1024             -> B2 l2key_scan
+  * (c)   int8 cosine: 1024 at k=10 (B3 pos_scan int8) and at k=32 (B4
+          fused_scan int8, past the pos path's k)
+  * (c32) float32 cosine: 1024                           -> B3 pos_scan f32
+  * (e)   int4 cosine: 1024                              -> B3 pos_scan int4
+  * (f)   int4r cosine: 1, 16 and 1024                   -> B5 pos_residual_scan
+  * (g)   int4 cosine, the first 100k rows: 1024         -> B4 fused_scan int4
+  * (h)   int4r cosine, the first 100k rows: 1024        -> B6 cell_scan
 
     python3 compare_scans.py ROOT [ROOT ...]
 
 Each ROOT is a directory holding an ``erlvectordb_tpu_torch`` package (a
 checkout, or ``git archive`` of one); they run in the order given, so
-``A B B A`` shows the drift between runs.  Each prints one JSON line: the
-median host milliseconds of submit -> complete (the readback waits for the
-device) over 10 calls after a warm-up, and torch.profiler's device
-milliseconds per call of the kernels that took the most device time.  The
+``A B B A`` shows the drift between runs.  Each prints one JSON line: per
+path, the median host milliseconds of submit -> complete (the readback
+waits for the device) over 10 calls after a warm-up, torch.profiler's
+device milliseconds per call, the device's busy share and the kernels that
+took the most device time; for (a), also the median of 5 MCP batches.  The
 card's name and power limit (nvidia-smi) come first.  Exits non-zero if a
 checkout fails or no CUDA device is present.
 """
@@ -33,7 +42,53 @@ import numpy as np
 import chip_smoke as cs
 
 REPS = 10
-SMALL_BATCHES = (1, 16)
+MCP_REPS = 5
+# store -> (rows, store options, (batch, k) of each timed path)
+STORES = {
+    "a": (cs.N_ROWS, dict(dtype="int8", metric="cosine", intkey=True),
+          ((cs.BATCH, cs.K),)),
+    "b": (cs.N_ROWS, dict(dtype="int8", metric="euclidean", intkey=True),
+          ((cs.BATCH, cs.K),)),
+    "c": (cs.N_ROWS, dict(dtype="int8", metric="cosine"),
+          ((cs.BATCH, cs.K), (cs.BATCH, 32))),
+    "c32": (cs.N_ROWS, dict(dtype="float32", metric="cosine"),
+            ((cs.BATCH, cs.K),)),
+    "e": (cs.N_ROWS, dict(dtype="int4", metric="cosine"), ((cs.BATCH, cs.K),)),
+    "f": (cs.N_ROWS, dict(dtype="int4r", metric="cosine"),
+          ((1, cs.K), (16, cs.K), (cs.BATCH, cs.K))),
+    "g": (cs.SMALL_ROWS, dict(dtype="int4", metric="cosine"),
+          ((cs.BATCH, cs.K),)),
+    "h": (cs.SMALL_ROWS, dict(dtype="int4r", metric="cosine"),
+          ((cs.BATCH, cs.K),)),
+}
+
+
+def mcp_batch_ms(store, queries) -> list:
+    """Host ms of MCP_REPS 1024-query search_vectors_batch calls (b64) on
+    ``store`` behind the port's MCP server, after a warm-up."""
+    from erlvectordb_tpu_torch.api import Database
+    from erlvectordb_tpu_torch.infra.config import load_config
+    from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
+
+    db = Database(load_config(overrides={"persistence_enabled": False}, env={}),
+                  device=store.device).start()
+    db.registry.adopt(store)
+    server = MCPServer(db, host="127.0.0.1", port=0).start()
+    try:
+        token = db.oauth.grant_client_credentials(
+            "erlvectordb_client", "erlvectordb_secret")["access_token"]
+        cl = cs.Client(server._sock.getsockname()[1], token)
+        cs.batch_rows(cl, store.name, queries)
+        out = []
+        for _ in range(MCP_REPS):
+            t0 = time.perf_counter()
+            cs.batch_rows(cl, store.name, queries)
+            out.append(1e3 * (time.perf_counter() - t0))
+        cl.sock.close()
+        return out
+    finally:
+        server.stop()
+        db.stop()
 
 
 def measure(root: str) -> dict:
@@ -47,21 +102,24 @@ def measure(root: str) -> dict:
     corpus = cs.make_corpus(cs.SEED, cs.N_ROWS)
     queries = cs.make_corpus(cs.SEED + 1, cs.BATCH)
     out = {"root": root, "package": os.path.dirname(erlvectordb_tpu_torch.__file__)}
-    for name, dtype, batches in (("f", "int4r", SMALL_BATCHES + (cs.BATCH,)),
-                                 ("c32", "float32", (cs.BATCH,))):
-        store = VectorStore.from_matrix(name, corpus, device=dev, dtype=dtype,
-                                        metric="cosine")
-        for bq in batches:
+    for name, (rows, kw, paths) in STORES.items():
+        store = VectorStore.from_matrix(name, corpus[:rows], device=dev, **kw)
+        for bq, k in paths:
             call = lambda: store.search_batch_complete_raw(
-                store.search_batch_submit(queries[:bq], k=cs.K))
+                store.search_batch_submit(queries[:bq], k=k))
             call()
             lat = []
             for _ in range(REPS):
                 t0 = time.perf_counter()
                 call()
                 lat.append(time.perf_counter() - t0)
-            out[f"{name}_bq{bq}_ms_median"] = 1e3 * float(np.median(lat))
-            out[f"{name}_bq{bq}_profile"] = cs.profile_calls(call, reps=REPS)
+            tag = f"{name}_bq{bq}" + ("" if k == cs.K else f"_k{k}")
+            out[f"{tag}_ms_median"] = 1e3 * float(np.median(lat))
+            out[f"{tag}_profile"] = cs.profile_calls(call, reps=REPS)
+        if name == "a":
+            ms = mcp_batch_ms(store, queries)
+            out["a_mcp_b64_batch_ms_median"] = float(np.median(ms))
+            out["a_mcp_b64_batch_ms_all"] = ms
         del store
         torch.cuda.empty_cache()
     return out

@@ -26,7 +26,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_topk.cu", "residual_scan.cu", "cell_probe.cu", "adc_scan.cu")
+SOURCES = ("fused_topk.cu", "tile_scan.cu", "residual_scan.cu", "cell_probe.cu",
+           "adc_scan.cu")
 HEADERS = ("scan_common.cuh", "mma_scan.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "erlvectordb_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,18 +37,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argtypes (every function returns cudaGetLastError())
 _SIGNATURES = {
-    "evdb_intkey_scan": [_P, _P, _I, _I, _I, _P, _P],
-    "evdb_l2key_scan": [_P, _P, _P, _I, _I, _I, _P, _P],
-    "evdb_pos_scan_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "evdb_intkey_scan": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "evdb_l2key_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "evdb_pos_scan_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P],
     "evdb_pos_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "evdb_fused_scan_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_pos_scan_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P],
+    "evdb_fused_scan_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P],
     "evdb_fused_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "evdb_pos_scan_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "evdb_fused_scan_i4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_fused_scan_i4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P],
     "evdb_pos_residual_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "evdb_cell_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _P, _P, _P],
+                       _I, _I, _I, _I, _P, _P, _P],
     "evdb_gather_dots": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "evdb_adc_scan": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "evdb_adc_rerank_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -326,6 +326,61 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+MMA_Q_TILE = 128     # queries per block of the tensor-core scans (8 warps x 16)
+MMA_ROWS = 64        # code rows per stage
+MMA_K = 128          # int8 elements (k) per stage
+MMA_PITCH = MMA_K + 16   # shared-memory row pitch of a k stage, bytes
+MMA_STAGES = 4       # depth of the ring of staged copies
+MMA_SMEM_MAX = 232_448   # the 227 KB of shared memory a block may use
+
+
+def mma_scan_layout(bq: int, n_segs: int, seg_rows: int, w: int,
+                    packed: bool, cell_cap: int, sm_count: int) -> dict:
+    """The launch of the tensor-core scans (B1-B3 on int8 and packed int4
+    codes, B4 on both, B5, B6), the one place that sizes it
+    (csrc/mma_scan.cuh::scan_block carves its shared memory in this order).
+    A 1-D grid of ``blocks`` = ``q_tiles`` x segment runs, the query tile
+    fastest; a block covers MMA_Q_TILE queries x ``run`` consecutive
+    segments of ``seg_rows`` rows (1024-row slices, 4096-row tiles), the
+    last run ragged.  ``cells`` = the most cells a MMA_ROWS-row stage spans
+    (the cell table's scans, ``cell_cap`` > 0; else 0).  ``smem`` = the
+    block's dynamic shared memory: the codes (int8: a ring of MMA_STAGES
+    stages; packed: two unpacked stages and a ring of MMA_STAGES packed
+    ones), the query tile's k stages (all of them up to MMA_STAGES, else a
+    ring of MMA_STAGES), and a ring of row factors and table blocks holding
+    the pieces in flight.  The run grows with the work so that a block's
+    query tile is staged once for up to 8192 rows while about 4 blocks per
+    SM remain."""
+    if cell_cap < 0:
+        raise ValueError(f"cell_cap must be >= 0, got {cell_cap}")
+    if w < MMA_K or w % MMA_K:
+        raise ValueError(f"row width must be a multiple of {MMA_K}, got {w}")
+    q_tiles = -(-bq // MMA_Q_TILE)
+    max_run = max(1, 8 * POS_SLICE // seg_rows)
+    run = max(1, min(max_run, n_segs * q_tiles // (4 * sm_count)))
+    cells = min(MMA_ROWS, (MMA_ROWS - 1) // cell_cap + 2) if cell_cap else 0
+    kw = w // MMA_K
+    pieces = 4 if kw <= 2 else 2     # the factor slots: the pieces in flight
+    stage = MMA_ROWS * MMA_PITCH
+    codes = (2 * stage + MMA_STAGES * MMA_ROWS * MMA_K // 2 if packed
+             else MMA_STAGES * stage)
+    smem = (codes + min(kw, MMA_STAGES) * MMA_Q_TILE * MMA_PITCH
+            + pieces * (MMA_ROWS * 16 + MMA_Q_TILE * cells * 4))
+    if smem > MMA_SMEM_MAX:
+        raise ValueError(f"{smem} B of shared memory exceed {MMA_SMEM_MAX}")
+    return dict(q_tiles=q_tiles, run=run, blocks=q_tiles * -(-n_segs // run),
+                cells=cells, smem=smem)
+
+
+def _layout(q: torch.Tensor, bq: int, n_segs: int, seg_rows: int, ww: int,
+            variant: str, cell_cap: int = 0) -> dict:
+    """mma_scan_layout for a kernel's arguments (``ww``: row words)."""
+    packed = variant == "int4"
+    return mma_scan_layout(
+        bq, n_segs, seg_rows, ww * (8 if packed else 4), packed, cell_cap,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+
+
 def _count(fn, variant: str) -> None:
     """One launch of ``fn``'s kernel (in its ``variant``)."""
     fn.launches += 1
@@ -343,11 +398,12 @@ def intkey_scan(codes_unit, q_in, n_tiles):
     bq, ww, variant = _kernel_args(q_in, codes_unit, n_tiles)
     if variant != "int8":
         raise ValueError("intkey_scan needs int8 codes")
+    lay = _layout(q_in, bq, 4 * n_tiles, POS_SLICE, ww, variant)
     out = torch.empty((bq, 4 * n_tiles), dtype=torch.int32, device=q_in.device)
     lib = cuda_lib.library()
     cuda_lib.check(lib.evdb_intkey_scan(
         q_in.data_ptr(), codes_unit.data_ptr(), bq, ww, 4 * n_tiles,
-        out.data_ptr(), _stream()), "intkey_scan")
+        lay["run"], lay["smem"], out.data_ptr(), _stream()), "intkey_scan")
     _count(intkey_scan, variant)
     return out
 
@@ -366,11 +422,13 @@ def l2key_scan(codes_mag, q_in, bias_int, n_tiles):
     if (bias_int.dtype != torch.int32 or not bias_int.is_contiguous()
             or bias_int.shape[0] < n_tiles * TILE_N):
         raise ValueError("bias_int must be contiguous int32 covering the scan")
+    lay = _layout(q_in, bq, 4 * n_tiles, POS_SLICE, ww, variant)
     out = torch.empty((bq, 4 * n_tiles), dtype=torch.int32, device=q_in.device)
     lib = cuda_lib.library()
     cuda_lib.check(lib.evdb_l2key_scan(
         q_in.data_ptr(), codes_mag.data_ptr(), bias_int.data_ptr(), bq, ww,
-        4 * n_tiles, out.data_ptr(), _stream()), "l2key_scan")
+        4 * n_tiles, lay["run"], lay["smem"], out.data_ptr(), _stream()),
+        "l2key_scan")
     _count(l2key_scan, variant)
     return out
 
@@ -390,12 +448,17 @@ def pos_scan(codes, q, qm, f, g, m, b, n_tiles, use_qm):
             _f32_vec(m, n, "m"), _f32_vec(b, n, "b")]
     out = torch.empty((bq, 4 * n_tiles), dtype=torch.int32, device=q.device)
     lib = cuda_lib.library()
-    fn = {"int8": lib.evdb_pos_scan_i8, "f32": lib.evdb_pos_scan_f32,
-          "int4": lib.evdb_pos_scan_i4}[variant]
-    qk = _kernel_query(q, variant)
-    cuda_lib.check(fn(qk.data_ptr(), codes.data_ptr(),
-                      *[a.data_ptr() for a in args], int(bool(use_qm)), bq, ww,
-                      4 * n_tiles, out.data_ptr(), _stream()), "pos_scan")
+    common = [a.data_ptr() for a in args] + [int(bool(use_qm)), bq, ww,
+                                             4 * n_tiles]
+    if variant == "f32":
+        rc = lib.evdb_pos_scan_f32(q.data_ptr(), codes.data_ptr(), *common,
+                                   out.data_ptr(), _stream())
+    else:
+        lay = _layout(q, bq, 4 * n_tiles, POS_SLICE, ww, variant)
+        fn = lib.evdb_pos_scan_i8 if variant == "int8" else lib.evdb_pos_scan_i4
+        rc = fn(_kernel_query(q, variant).data_ptr(), codes.data_ptr(), *common,
+                lay["run"], lay["smem"], out.data_ptr(), _stream())
+    cuda_lib.check(rc, "pos_scan")
     _count(pos_scan, variant)
     return out
 
@@ -423,13 +486,17 @@ def fused_scan(codes, q, qmult, rowmult, rowbias, n_tiles, t_per_tile):
     args = [_f32_vec(qmult, bq, "qmult"), _f32_vec(rowmult, n, "rowmult"),
             _f32_vec(rowbias, n, "rowbias")]
     lib = cuda_lib.library()
-    fn = {"int8": lib.evdb_fused_scan_i8, "f32": lib.evdb_fused_scan_f32,
-          "int4": lib.evdb_fused_scan_i4}[variant]
-    qk = _kernel_query(q, variant)
-    cuda_lib.check(fn(qk.data_ptr(), codes.data_ptr(),
-                      *[a.data_ptr() for a in args], bq, ww, n_tiles,
-                      t_per_tile, vals.data_ptr(), rows.data_ptr(), _stream()),
-                   "fused_scan")
+    common = [a.data_ptr() for a in args] + [bq, ww, n_tiles, t_per_tile]
+    if variant == "f32":
+        rc = lib.evdb_fused_scan_f32(q.data_ptr(), codes.data_ptr(), *common,
+                                     vals.data_ptr(), rows.data_ptr(), _stream())
+    else:
+        lay = _layout(q, bq, n_tiles, TILE_N, ww, variant)
+        fn = lib.evdb_fused_scan_i8 if variant == "int8" else lib.evdb_fused_scan_i4
+        rc = fn(_kernel_query(q, variant).data_ptr(), codes.data_ptr(), *common,
+                lay["run"], lay["smem"], vals.data_ptr(), rows.data_ptr(),
+                _stream())
+    cuda_lib.check(rc, "fused_scan")
     _count(fused_scan, variant)
     return vals, rows
 
@@ -454,50 +521,26 @@ def cell_scan(codes, q, qmult, rowmult, rowbias, qmult2, rowmult2, table,
     args = [_f32_vec(qmult, bq, "qmult"), _f32_vec(rowmult, n, "rowmult"),
             _f32_vec(rowbias, n, "rowbias"), _f32_vec(qmult2, bq, "qmult2"),
             _f32_vec(rowmult2, n, "rowmult2")]
+    lay = _layout(q, bq, n_tiles, TILE_N, ww, variant, cell_cap)
     lib = cuda_lib.library()
     qk = _kernel_query(q, variant)
     cuda_lib.check(lib.evdb_cell_scan(
         qk.data_ptr(), codes.data_ptr(), *[a.data_ptr() for a in args],
         tb.data_ptr(), tb.shape[1], cell_cap, bq, ww, n_tiles, t_per_tile,
-        vals.data_ptr(), rows.data_ptr(), _stream()), "cell_scan")
+        lay["run"], lay["cells"], lay["smem"], vals.data_ptr(),
+        rows.data_ptr(), _stream()), "cell_scan")
     _count(cell_scan, variant)
     return vals, rows
 
 
-RES_Q_TILE = 128     # B5: queries per block (8 warps x 16)
-RES_ROWS = 64        # B5: code rows per stage
-RES_K = 128          # B5: int8 elements (k) per stage
-RES_PITCH = RES_K + 16   # B5: shared-memory row pitch of a k stage, bytes
-RES_STAGES = 4       # B5: depth of its ring of staged copies
-
-
 def residual_scan_layout(bq: int, n_slices: int, w: int, cell_cap: int,
                          sm_count: int) -> dict:
-    """B5's launch, the one place that sizes it (csrc/residual_scan.cu
-    carves its shared memory in this order).  A 1-D grid of ``blocks`` =
-    ``q_tiles`` x slice runs, the query tile fastest; a block covers
-    RES_Q_TILE queries x ``run`` consecutive 1024-row slices, the last of
-    each ragged.  ``cells`` = the most cells a RES_ROWS-row stage spans.
-    ``smem`` = the block's dynamic shared memory: two stages of unpacked
-    codes, a ring of RES_STAGES packed stages, the query tile's k stages
-    (all of them up to RES_STAGES, else a ring of RES_STAGES), and a ring of
-    row factors and table blocks holding the pieces in flight.
-    The run grows with the work so that a block's query tile is staged once
-    for up to 8 slices while about 4 blocks per SM remain."""
+    """B5's launch: ``mma_scan_layout`` over 1024-row slices of packed
+    codes with the cell table."""
     if cell_cap < 1:
         raise ValueError(f"cell_cap must be positive, got {cell_cap}")
-    if w < RES_K or w % RES_K:
-        raise ValueError(f"row width must be a multiple of {RES_K}, got {w}")
-    q_tiles = -(-bq // RES_Q_TILE)
-    run = max(1, min(8, n_slices * q_tiles // (4 * sm_count)))
-    cells = min(RES_ROWS, (RES_ROWS - 1) // cell_cap + 2)
-    kw = w // RES_K
-    pieces = 4 if kw <= 2 else 2     # the factor slots: the pieces in flight
-    smem = (2 * RES_ROWS * RES_PITCH + RES_STAGES * RES_ROWS * RES_K // 2
-            + min(kw, RES_STAGES) * RES_Q_TILE * RES_PITCH
-            + pieces * (RES_ROWS * 16 + RES_Q_TILE * cells * 4))
-    return dict(q_tiles=q_tiles, run=run, blocks=q_tiles * -(-n_slices // run),
-                cells=cells, smem=smem)
+    return mma_scan_layout(bq, n_slices, POS_SLICE, w, True, cell_cap,
+                           sm_count)
 
 
 def pos_residual_scan(codes, q, qa, f, g, ma, mb, bb, table, n_tiles,

@@ -33,6 +33,15 @@ def dev():
     return torch.device("cuda")
 
 
+def _quantize8(x):
+    """Absmax int8 codes and scales of rows x (the int8 store's encoding)."""
+    absmax = x.abs().amax(dim=1)
+    scales = torch.where(absmax > 0, ft.div_scalar(absmax, 127.0),
+                         torch.ones_like(absmax))
+    return (torch.clamp(torch.round(x / scales[:, None]), -127, 127)
+            .to(torch.int8), scales)
+
+
 @pytest.fixture(scope="module")
 def inputs(dev):
     rng = np.random.default_rng(0)
@@ -44,10 +53,7 @@ def inputs(dev):
     q[:, 200:] = 0.0
     t = lambda a: torch.from_numpy(a).to(dev)
     x, q, valid = t(x), t(q), t(valid)
-    absmax = x.abs().amax(dim=1)
-    scales = torch.where(absmax > 0, ft.div_scalar(absmax, 127.0),
-                         torch.ones_like(absmax))
-    codes = torch.clamp(torch.round(x / scales[:, None]), -127, 127).to(torch.int8)
+    codes, scales = _quantize8(x)
     return x, q, valid, codes, scales, x.norm(dim=1)
 
 
@@ -58,8 +64,10 @@ def _factors(inputs, metric, int8):
     return (codes if int8 else x), q_in, qmult, rowmult, rowbias
 
 
-def test_intkey_kernel_bit_identical(inputs):
+@pytest.mark.parametrize("nq", [1, B])
+def test_intkey_kernel_bit_identical(inputs, nq):
     codes, q_in, *_ = _factors(inputs, "cosine", True)
+    q_in = q_in[:nq].contiguous()
     ft.reset_launches()
     kern = ft.intkey_scan(codes, q_in, N_TILES)
     assert ft.intkey_scan.launches == 1
@@ -67,9 +75,10 @@ def test_intkey_kernel_bit_identical(inputs):
                                rtol=0, atol=0)
 
 
-def test_l2key_kernel_bit_identical(inputs):
+@pytest.mark.parametrize("nq", [1, B])
+def test_l2key_kernel_bit_identical(inputs, nq):
     x, q, valid, codes, scales, norms = inputs
-    q8b, bias = ft.l2key_inputs(q, norms, 1.25 * float(norms.max()))
+    q8b, bias = ft.l2key_inputs(q[:nq], norms, 1.25 * float(norms.max()))
     bias[::7] = (1 << 20)   # the clamp: negative (D - bias) keys
     kern = ft.l2key_scan(codes, q8b, bias, N_TILES)
     torch.testing.assert_close(kern, ft.l2key_scan_ref(codes, q8b, bias, N_TILES),
@@ -79,8 +88,9 @@ def test_l2key_kernel_bit_identical(inputs):
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "f32"])
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
 def test_pos_kernel_keys(inputs, metric, int8):
-    """Bit-identical, or one key step (1024) on <= 0.1% of entries where f32
-    dots sum in another order than cuBLAS's."""
+    """int8 codes: bit-identical (integer dots are exact in any order).  f32
+    codes: one key step (1024) on <= 0.1% of entries, where f32 dots sum in
+    another order than cuBLAS's."""
     x, q, valid, codes, scales, norms = inputs
     c, q_in, qmult, rowmult, rowbias = _factors(inputs, metric, int8)
     f, g, m, b = ft._pos_window(c, scales if int8 else None, norms, valid,
@@ -89,7 +99,7 @@ def test_pos_kernel_keys(inputs, metric, int8):
     kern = ft.pos_scan(c, q_in, qmult, f, g, m, b, N_TILES, use_qm).long()
     ref = ft.pos_scan_ref(c, q_in, qmult, f, g, m, b, N_TILES, use_qm).long()
     diff = (kern - ref)[kern != ref]
-    assert diff.numel() <= 1e-3 * kern.numel()
+    assert diff.numel() <= (0 if int8 else 1e-3 * kern.numel())
     assert torch.all(diff.abs() == 1024)
 
 
@@ -103,7 +113,8 @@ def test_fused_kernel_top_t(inputs, metric, int8, t_per_tile):
                                t_per_tile)
     same = rk == rr
     assert int((~same).sum()) <= (0 if int8 else 1e-3 * same.numel())
-    torch.testing.assert_close(vk[same], vr[same], rtol=2.5e-4, atol=0)
+    torch.testing.assert_close(vk[same], vr[same], rtol=0 if int8 else 2.5e-4,
+                               atol=0)
 
 
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
@@ -369,6 +380,176 @@ def test_pos_kernel_keys_f32_edges(dev, w, metric, n_tiles):
         part = ft.pos_scan(x, q_in[:nq].contiguous(), qmult[:nq], f[:nq],
                            g[:nq], m, b, n_tiles, use_qm)
         torch.testing.assert_close(part, kern[:nq], rtol=0, atol=0)
+
+
+# ------------------------------- B1-B4 and B6 on the int8 tensor cores
+
+
+def _int_inputs(dev, nq, w, n_tiles, seed, dup=False, extreme=False):
+    """_edge_inputs plus the rows' absmax int8 codes and scales.  With
+    ``extreme`` every other row and every other query is +-1 on one sign
+    pattern, so its int8 codes and the queries are all +-127 and dots reach
+    127^2 (W - 28): past 2^22 from W 384, where the dots must take the
+    int -> f32 conversion, and past 2^21, where B1's << 10 wraps."""
+    x, q, valid, _, _, norms = _edge_inputs(dev, nq, w, n_tiles, seed, dup)
+    if extreme:
+        rng = np.random.default_rng(seed + 1)
+        s = torch.from_numpy(np.sign(rng.standard_normal(w)).astype(np.float32))
+        s[w - 28:] = 0.0
+        s = s.to(dev)
+        flip = torch.from_numpy(np.sign(rng.standard_normal(
+            (x.shape[0] + 1) // 2)).astype(np.float32)).to(dev)
+        x[::2] = flip[:, None] * s
+        q[::2] = s
+        norms = x.norm(dim=1)
+    codes, scales = _quantize8(x)
+    return x, q, valid, codes, scales, norms
+
+
+def _slice_case(kind, inp, n_tiles, clamp=False):
+    """(wrapper, plain version, arguments) of a key scan over ``inp``:
+    B1 (intkey), B2 (l2key, every fifth bias just under 2^20) or B3 on int8
+    or packed int4 codes, cosine or euclidean (the per-query multiplier)."""
+    x, q, valid, codes, scales, norms = inp
+    if kind == "intkey":
+        q8, *_ = ft._affine_factors("cosine", scales, norms, valid, q)
+        return ft.intkey_scan, ft.intkey_scan_ref, (codes, q8, n_tiles)
+    if kind == "l2key":
+        q8b, bias = ft.l2key_inputs(q, norms, 1.25 * float(norms.max()))
+        bias[::5] = (1 << 20) - torch.arange(0, bias[::5].numel(),
+                                             device=bias.device,
+                                             dtype=torch.int32) % 64
+        return ft.l2key_scan, ft.l2key_scan_ref, (codes, q8b, bias, n_tiles)
+    _, fmt, metric = kind.split("_")
+    c, s = _pack4(x) if fmt == "i4" else (codes, scales)
+    q_in, qmult, rowmult, rowbias, _ = ft._affine_factors(metric, s, norms,
+                                                          valid, q)
+    f, g, m, b = ft._pos_window(c, s, norms, valid, q_in, qmult, rowmult,
+                                rowbias, metric)
+    if clamp:
+        g = g * 1e4
+    return ft.pos_scan, ft.pos_scan_ref, (c, q_in, qmult, f, g, m, b, n_tiles,
+                                          metric == "euclidean")
+
+
+SLICE_KINDS = ["intkey", "l2key", "pos_i8_cosine", "pos_i8_euclidean",
+               "pos_i4_cosine", "pos_i4_euclidean"]
+
+
+@pytest.mark.parametrize("n_tiles", [1, 3])
+@pytest.mark.parametrize("w", [128, 256, 384, 768])
+@pytest.mark.parametrize("nq", [1, 7, 17, 130, 1024])
+@pytest.mark.parametrize("kind", SLICE_KINDS)
+def test_slice_kernels_bit_identical(dev, kind, nq, w, n_tiles):
+    """B1, B2 and B3 (int8 and packed int4, with and without the per-query
+    multiplier) at query counts ragged against the 128-query blocks, 1 and 3
+    tiles (4 and 12 slices) and rows of 1 to 6 k stages, half of the rows
+    +-127 throughout (B1's << 10 wraps; int8 dots pass 2^22 from W 384):
+    bit-identical with the plain versions."""
+    inp = _int_inputs(dev, nq, w, n_tiles, nq + w + n_tiles, extreme=True)
+    kern, ref, args = _slice_case(kind, inp, n_tiles)
+    ft.reset_launches()
+    got = kern(*args)
+    assert kern.launches == 1
+    want = ref(*args)
+    if kind == "intkey" and w >= 256:    # some keys wrapped past int32
+        dots = (args[1].double() @ args[0][:n_tiles * ft.TILE_N].double().T)
+        assert bool((dots.abs() >= 2 ** 21).any())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["pos_i8_cosine", "pos_i8_euclidean",
+                                  "pos_i4_cosine"])
+@pytest.mark.parametrize("nq", [7, 130])
+def test_pos_kernel_clamped_keys(dev, kind, nq):
+    """B3 with a g that drives scores into the +-2e9 clamp: bit-identical."""
+    inp = _int_inputs(dev, nq, 128, 3, nq)
+    kern, ref, args = _slice_case(kind, inp, 3, clamp=True)
+    want = ref(*args)
+    assert int((want >> 10 == (2_000_000_000 >> 10)).sum()) > 0
+    torch.testing.assert_close(kern(*args), want, rtol=0, atol=0)
+
+
+def _tile_case(kind, inp, n_tiles, t, cell_cap=128, metric="cosine"):
+    """(wrapper, plain version, arguments) of a masked extraction over
+    ``inp``: B4 on int8 or packed int4 codes, or B6 (``cell``)."""
+    x, q, valid, codes, scales, norms = inp
+    if kind == "cell":
+        packed, a = _residual_args(inp, metric, cell_cap, n_tiles=n_tiles)
+        return ft.cell_scan, ft.cell_scan_ref, (
+            packed, a["q_in"], a["qmult"], a["rowmult"], a["rowbias"],
+            a["qmult2"], a["rowmult2"], a["table"], n_tiles, t, cell_cap)
+    c, s = _pack4(x) if kind == "i4" else (codes, scales)
+    q_in, qmult, rowmult, rowbias, _ = ft._affine_factors(metric, s, norms,
+                                                          valid, q)
+    return ft.fused_scan, ft.fused_scan_ref, (c, q_in, qmult, rowmult, rowbias,
+                                              n_tiles, t)
+
+
+def _check_tile(kern, ref, args):
+    ft.reset_launches()
+    vk, rk = kern(*args)
+    assert kern.launches == 1
+    vr, rr = ref(*args)
+    torch.testing.assert_close(rk, rr, rtol=0, atol=0)
+    torch.testing.assert_close(vk, vr, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t", [2, 4, 8])
+@pytest.mark.parametrize("w", [128, 256, 384, 768])
+@pytest.mark.parametrize("nq", [1, 7, 17, 130, 1024])
+@pytest.mark.parametrize("kind", ["i8", "i4"])
+def test_fused_kernel_tensor_core_edges(dev, kind, nq, w, t):
+    """B4 on int8 and packed int4 codes over 2 tiles at ragged query counts
+    and rows of 1 to 6 k stages, each row repeated three times (values tie
+    within a tile, broken by the lane) and, int8, every other row +-127
+    (dots past 2^22 from W 384): rows and values bit-identical with the
+    plain version, order included."""
+    inp = _int_inputs(dev, nq, w, 2, 7 * nq + w, dup=True,
+                      extreme=kind == "i8")
+    _check_tile(*_tile_case(kind, inp, 2, t, metric="euclidean" if nq % 2
+                            else "cosine"))
+
+
+@pytest.mark.parametrize("t", [2, 4, 8])
+@pytest.mark.parametrize("cell_cap", [1, 64, 128, 512])
+@pytest.mark.parametrize("nq", [1, 7, 17, 130, 1024])
+def test_cell_kernel_tensor_core_edges(dev, nq, cell_cap, t):
+    """B6 at cell_cap 1 (64 cells a 64-row stage: the largest table blocks),
+    64, 128 and 512, ragged query counts, duplicated rows: bit-identical."""
+    inp = _int_inputs(dev, nq, 128, 2, nq + cell_cap + t, dup=True)
+    _check_tile(*_tile_case("cell", inp, 2, t, cell_cap))
+
+
+@pytest.mark.parametrize("w", [4096, 4224])
+@pytest.mark.parametrize("kind", ["pos_i4_cosine", "pos_i4_euclidean", "i4",
+                                  "cell"])
+def test_int4_kernels_at_the_conversion_limit(dev, kind, w):
+    """Packed int4 rows on both sides of the conversion limit (dots within
+    8 * 128 * 4096 = 2^22 take the mantissa add, W 4224 the conversion):
+    B3, B4 and B6 bit-identical with the plain versions."""
+    inp = _int_inputs(dev, 130, w, 1, w)
+    if kind.startswith("pos"):
+        kern, ref, args = _slice_case(kind, inp, 1)
+        torch.testing.assert_close(kern(*args), ref(*args), rtol=0, atol=0)
+    else:
+        _check_tile(*_tile_case(kind, inp, 1, 8))
+
+
+@pytest.mark.parametrize("run", [3, 7])
+@pytest.mark.parametrize("kind", SLICE_KINDS + ["i8", "i4", "cell"])
+def test_tensor_core_kernels_ragged_run(dev, monkeypatch, kind, run):
+    """Blocks of ``run`` segments where the segment count (20 slices, 5
+    tiles) is no multiple of the run, rows of 5 k stages (the query streams
+    through the copy ring): bit-identical with the plain versions."""
+    real = ft.mma_scan_layout
+    monkeypatch.setattr(ft, "mma_scan_layout", lambda *a: {**real(*a), "run": run})
+    inp = _int_inputs(dev, 200, 640, 5, 13 + run)
+    if kind in SLICE_KINDS:
+        kern, ref, args = _slice_case(kind, inp, 5)
+        torch.testing.assert_close(kern(*args), ref(*args), rtol=0, atol=0)
+    else:
+        _check_tile(*_tile_case(kind, inp, 5, 4))
 
 
 # ------------------------------------------- stores through the kernels

@@ -575,16 +575,16 @@ def test_residual_gate_matches():
 @pytest.mark.parametrize("n_slices", [4, 20, 548, 1568])
 def test_residual_layout_covers_each_pair_once(bq, n_slices):
     """The blocks of residual_scan_layout's 1-D grid (block b: query tile b
-    % q_tiles of RES_Q_TILE queries, slices ``run`` x (b // q_tiles) on,
+    % q_tiles of MMA_Q_TILE queries, slices ``run`` x (b // q_tiles) on,
     the last of each ragged, as the kernel masks them) cover every (query,
     slice) pair exactly once."""
     lay = tft.residual_scan_layout(bq, n_slices, 128, 128, 132)
     seen = np.zeros((bq, n_slices), np.int64)
     for b in range(lay["blocks"]):
-        q0 = (b % lay["q_tiles"]) * tft.RES_Q_TILE
+        q0 = (b % lay["q_tiles"]) * tft.MMA_Q_TILE
         s0 = (b // lay["q_tiles"]) * lay["run"]
         assert q0 < bq and s0 < n_slices      # no block is empty
-        seen[q0:q0 + tft.RES_Q_TILE, s0:s0 + lay["run"]] += 1
+        seen[q0:q0 + tft.MMA_Q_TILE, s0:s0 + lay["run"]] += 1
     assert np.all(seen == 1)
     assert 1 <= lay["run"] <= 8
 
@@ -596,9 +596,9 @@ def test_residual_layout_cells_bound_every_stage(cell_cap, w):
     shared memory stays within the 227 KB a block may use at every row
     width and cell_cap."""
     lay = tft.residual_scan_layout(1024, 1568, w, cell_cap, 132)
-    starts = np.arange(0, 64 * 4096, tft.RES_ROWS)
-    span = (starts + tft.RES_ROWS - 1) // cell_cap - starts // cell_cap + 1
-    assert span.max() <= lay["cells"] <= tft.RES_ROWS
+    starts = np.arange(0, 64 * 4096, tft.MMA_ROWS)
+    span = (starts + tft.MMA_ROWS - 1) // cell_cap - starts // cell_cap + 1
+    assert span.max() <= lay["cells"] <= tft.MMA_ROWS
     assert lay["smem"] <= 232_448
 
 
@@ -629,3 +629,96 @@ def test_residual_layout_grid_has_no_y_limit(sm_count):
     assert lay["run"] == 8 and lay["blocks"] == (1 << 20) // 8 < 2 ** 31 - 1
     small = tft.residual_scan_layout(1024, 548, 128, 128, sm_count)
     assert small["run"] == max(1, min(8, 548 * 8 // (4 * sm_count)))
+
+
+# ------------------------------------ the tensor-core scans' launch layout
+
+SEGS = [(4, 1024), (20, 1024), (1172, 1024), (1, 4096), (5, 4096),
+        (293, 4096)]
+
+
+@pytest.mark.parametrize("bq", [1, 7, 17, 128, 130, 1024, 1025])
+@pytest.mark.parametrize("n_segs, seg_rows", SEGS)
+def test_mma_layout_covers_each_pair_once(bq, n_segs, seg_rows):
+    """The blocks of mma_scan_layout's 1-D grid (block b: query tile b %
+    q_tiles, segments ``run`` x (b // q_tiles) on, the last run ragged, as
+    the kernels mask them) cover every (query, 1024-row slice or 4096-row
+    tile) pair exactly once; a block spans at most 8192 rows."""
+    for packed in (False, True):
+        lay = tft.mma_scan_layout(bq, n_segs, seg_rows, 128, packed, 0, 132)
+        seen = np.zeros((bq, n_segs), np.int64)
+        for b in range(lay["blocks"]):
+            q0 = (b % lay["q_tiles"]) * tft.MMA_Q_TILE
+            s0 = (b // lay["q_tiles"]) * lay["run"]
+            assert q0 < bq and s0 < n_segs      # no block is empty
+            seen[q0:q0 + tft.MMA_Q_TILE, s0:s0 + lay["run"]] += 1
+        assert np.all(seen == 1)
+        assert 1 <= lay["run"] * seg_rows <= 8192
+
+
+@pytest.mark.parametrize("w", list(range(128, 4224 + 1, 128)))
+def test_mma_layout_shared_memory_fits_every_width(w):
+    """Shared memory within the 227 KB a block may use for every row width
+    from 128 to 4224, int8 and packed codes, with no table (B1-B4) or B6's
+    at cell_cap 1 (64 cells a stage, the largest blocks), 128 and 512; the
+    int8 scans fit two blocks an SM (<= 113 KB each)."""
+    for packed in (False, True):
+        for cell_cap in (0, 1, 128, 512):
+            for seg_rows in (1024, 4096):
+                lay = tft.mma_scan_layout(1024, 12, seg_rows, w, packed,
+                                          cell_cap, 132)
+                assert lay["smem"] <= tft.MMA_SMEM_MAX
+                assert lay["cells"] == (0 if cell_cap == 0 else
+                                        min(64, 63 // cell_cap + 2))
+        lay = tft.mma_scan_layout(1024, 12, 1024, w, packed, 0, 132)
+        assert lay["smem"] <= 112_640
+
+
+def test_mma_layout_sizes_the_stages():
+    """The byte counts the kernels carve: int8 rows a ring of 4 stages of
+    64 x 144 B, packed rows two unpacked stages and 4 packed ones, the
+    query tile resident up to 4 k stages, then a ring of 4 of them; B5's
+    layout is the packed one with its table."""
+    lay = tft.mma_scan_layout(1024, 1172, 1024, 128, False, 0, 132)
+    assert (lay["q_tiles"], lay["run"], lay["blocks"]) == (8, 8, 8 * 147)
+    assert lay["smem"] == 4 * 64 * 144 + 128 * 144 + 4 * 64 * 16
+    tile = tft.mma_scan_layout(1024, 293, 4096, 128, True, 0, 132)
+    assert (tile["run"], tile["blocks"]) == (2, 8 * 147)
+    assert tile["smem"] == (2 * 64 * 144 + 4 * 64 * 64 + 128 * 144
+                            + 4 * 64 * 16)
+    wide = tft.mma_scan_layout(130, 12, 1024, 768, False, 0, 132)
+    assert wide["smem"] == 4 * 64 * 144 + 4 * 128 * 144 + 2 * 64 * 16
+    assert (tft.mma_scan_layout(1024, 1568, 1024, 256, True, 7, 132)
+            == tft.residual_scan_layout(1024, 1568, 256, 7, 132))
+
+
+@pytest.mark.parametrize("w", [0, 64, 100, 200, 4100])
+def test_mma_layout_refuses_bad_widths(w):
+    with pytest.raises(ValueError):
+        tft.mma_scan_layout(1024, 12, 1024, w, False, 0, 132)
+    with pytest.raises(ValueError):
+        tft.mma_scan_layout(1024, 12, 4096, w, True, 128, 132)
+
+
+def test_mma_layout_refuses_a_negative_cell_cap():
+    with pytest.raises(ValueError):
+        tft.mma_scan_layout(1024, 12, 4096, 128, True, -1, 132)
+
+
+@pytest.mark.parametrize("seg_rows", [1024, 4096])
+@pytest.mark.parametrize("sm_count", [78, 132])
+def test_mma_layout_grid_has_no_y_limit(sm_count, seg_rows):
+    """2^30 rows in one scan: the grid is 1-D, so the block count only has
+    to stay below 2^31 (grid.y would stop at 65,535); the run scales with
+    the device's SM count."""
+    n_segs = (1 << 30) // seg_rows
+    lay = tft.mma_scan_layout(1, n_segs, seg_rows, 128, False, 0, sm_count)
+    assert lay["run"] == 8192 // seg_rows
+    assert lay["blocks"] == n_segs // lay["run"] > 65_535
+    assert lay["blocks"] < 2 ** 31 - 1
+    big = tft.mma_scan_layout(1 << 20, n_segs, seg_rows, 128, False, 0,
+                              sm_count)
+    assert big["blocks"] == 8192 * n_segs // big["run"] < 2 ** 31 - 1
+    small = tft.mma_scan_layout(1024, 548, seg_rows, 128, False, 0, sm_count)
+    assert small["run"] == max(1, min(8192 // seg_rows,
+                                      548 * 8 // (4 * sm_count)))

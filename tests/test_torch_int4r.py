@@ -423,6 +423,44 @@ def test_h_store_b6_overlap_is_the_reference_level(monkeypatch):
     assert ov_t == pytest.approx(ov_j, abs=0.005)
 
 
+# (h)'s overlap@10 read by the test above on the port's own CPU build
+H_PORT_BUILD_OVERLAP = 0.958984375
+
+
+def test_h_store_jax_build_b6_overlap_is_the_port_level():
+    """chip_smoke.py's store (h) built by the JAX package itself (its int4r
+    host build, below 200k rows) from the same corpus, read through the JAX
+    B6 path (fused_topk_residual in interpret mode) against the JAX exact
+    scan of the same codes, on the same 256 queries.  The reference's own
+    level is printed beside the port-built store's, and the two builds read
+    within 0.01 of each other: (h)'s level is the reference's."""
+    import erlvectordb_tpu.ops.fused_topk as jft
+    from erlvectordb_tpu.core.search import exact_topk_int4r
+
+    x = _bench_corpus(0, 1_200_000, 100_000)
+    q = _bench_corpus(1, 1024, 256)
+    j = jstore.VectorStore.from_matrix("h", x, metric="cosine", dtype="int4r")
+    nt = tft.n_tiles_for(j.capacity, j.capacity)
+    assert nt < tft.POS_MIN_TILES
+    qp = np.zeros((len(q), 128), np.float32)
+    qp[:, :100] = q
+    _, rj = jft.fused_topk_residual(
+        j._vectors, j._scales, j._norms, j._valid, j._centroids,
+        jnp.asarray(qp), metric="cosine", k=tsearch.k_bucket(10, j.capacity),
+        n_tiles=nt, cell_cap=j._cell_cap,
+        code_norm_bound=jft.max_code_norm(j._vectors),
+        slice_w=tft.POS_RES_W, t_top=tft.POS_RES_T)
+    _, rx = exact_topk_int4r(
+        j._vectors, j._scales, j._norms, j._valid, j._centroids,
+        jnp.asarray(qp), metric="cosine", k=10, cell_cap=j._cell_cap)
+    ov = float(np.mean([len(set(r[:10].tolist()) & set(w.tolist())) / 10
+                        for r, w in zip(np.asarray(rj), np.asarray(rx))]))
+    print(f"(h) overlap@10 of the JAX B6 path with the JAX exact scan on the "
+          f"JAX package's own build ({len(j._cell_next)} cells, {nt} tiles): "
+          f"{ov!r}; on the port's build: {H_PORT_BUILD_OVERLAP!r}")
+    assert ov == pytest.approx(H_PORT_BUILD_OVERLAP, abs=0.01)
+
+
 def test_top8_recovers_one_cell_topk(monkeypatch):
     """tests/test_int4r.py::TestDeepSliceExtraction: plant the top-8 inside
     one 512-row cell; top-8 per slice recovers them all, top-2 at most 2."""
