@@ -8,19 +8,22 @@ Phases, each printing one JSON line of its own numbers:
   1. device   the card's name and power limit (nvidia-smi) and versions;
   2. build    the CUDA kernels compiled from csrc/ with nvcc (seconds,
               spills; registers and spills of every instantiation of the
-              tensor-core scans B1-B6 and the register-tiled B3-f32, which
-              must all be there and must not spill), and the stores built
-              on the card (ms, device bytes);
+              tensor-core scans B1-B6, the register-tiled B3-f32 and B4-f32
+              and the packed-LUT B8-B10, which must all be there and must
+              not spill), and the stores built on the card (ms, device
+              bytes);
   3. kernels  each kernel variant against its plain PyTorch version at the
-              shapes its served path gives it (1024 queries, W=128), with
-              the stated bars, median CUDA-event times and the bound;
+              shapes its served path gives it (1024 queries, W=128; B4-f32
+              also at 1 and 16 queries and at (c32)'s 1.2M rows at k = 32),
+              with the stated bars, median CUDA-event times and the bound;
   4. slice    the stores behind the MCP server, each path driven with the
               launch counts zeroed just before it and read just after:
                 (a) int8 cosine intkey, 1.2M     -> B1 intkey_scan
                 (b) int8 euclidean intkey, 1.2M  -> B2 l2key_scan
                 (c) int8 cosine, 1.2M            -> B3 pos_scan int8, and
                     B4 fused_scan int8 at k=32 (past the pos path's k)
-                (c32) f32 cosine, 1.2M           -> B3 pos_scan f32
+                (c32) f32 cosine, 1.2M           -> B3 pos_scan f32, and
+                    a 1024-query store batch at k=32 -> B4 fused_scan f32
                 (d) f32, 20k filled over MCP     -> B4 fused_scan f32
                 (e) int4 cosine, 1.2M            -> B3 pos_scan int4
                 (f) int4r cosine, 1.2M streaming -> B5 pos_residual_scan
@@ -34,8 +37,8 @@ Phases, each printing one JSON line of its own numbers:
                     calibration through the Python API -> B7 gather_dots int4
               recall@10 against exact f32 ground truth on the card, and
               overlap@10 of the int4/int4r stores with the plain exact scan
-              of the same codes; 1024-query store batches of (a), (c32) and
-              (f) timed and profiled;
+              of the same codes; 1024-query store batches of (a), (c32),
+              (f) and (c32) at k=32 timed and profiled;
               (f-rq) an int4r store of the same corpus with the rq_m = 9
                     second stage (bench.py:1008): device bytes beside the
                     int8 stores', multiprobe recall@10 at nprobe 512 by
@@ -128,9 +131,14 @@ KERNEL_INFO = {
 F32_SOURCE = "fused_topk.cu"   # B3 and B4 on f32 codes
 # the kernels that must not spill, with their instantiations: B1-B3 on int8
 # and packed int4 (B3: per-query multiplier x wide dots), B4 on both and B6
-# (T 2 / 4 / 8 x wide dots), B5 (t_top 2 / 8 x wide dots), B3-f32
+# (T 2 / 4 / 8 x wide dots), B5 (t_top 2 / 8 x wide dots), B3-f32, B4-f32
+# (T 2 / 4 / 8 x 1, 2, 4, 8 query columns) and its merge (T), B8-B10 on the
+# packed int8 LUT ((B10, B9 at list depths 2 / 4 / 8 / 32, B8) x 2, 4, 8
+# subspace phases a warp)
 CHECKED_KERNELS = {"slice_scan_kernel": 10, "tile_scan_kernel": 18,
-                   "residual_mma_kernel": 4, "pos_f32_kernel": 2}
+                   "residual_mma_kernel": 4, "pos_f32_kernel": 2,
+                   "tile_f32_kernel": 12, "tile_merge_kernel": 3,
+                   "adc_packed_kernel": 27}
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops/s (the
 # int4 codes are counted at the int8 rate they run at after unpacking), bf16
 # tensor-core FLOP/s (B7: a bf16-exact query against int8-exact codes), f32
@@ -140,8 +148,8 @@ HBM = 3.35e12
 NO_LIBRARY = "none: no single PyTorch call computes the scan and its selection"
 NO_LIBRARY_B7 = "none: a gather plus a product is not one PyTorch call"
 NO_LIBRARY_ADC = "none: no single PyTorch call computes a LUT scan and its selection"
-# LUT lookups have no tensor-core rate: one 32-bit shared-memory word per
-# lane per clock, 32 lanes on each SM (132 on an H100 SXM), at the SM clock
+# LUT lookups have no tensor-core rate: they are bounded by shared-memory
+# words, 32 a clock on each SM (132 on an H100 SXM), at the SM clock
 # nvidia-smi reports as clocks.max.sm (both set by main from the device)
 SM_COUNT = 132
 SM_CLOCK_HZ = 1.98e9
@@ -345,31 +353,35 @@ def kernel_phase(st, queries):
     qp[:, :DIM] = torch.from_numpy(queries[:BATCH]).to(DEVICE)
     out = {}
 
-    def run(name, variant, kern_fn, ref_fn, check, exact, *, rows, nbytes):
+    def run(name, variant, kern_fn, ref_fn, check, exact, *, rows, nbytes,
+            batch=BATCH, row=None, extra=None):
+        """``row``: the summary row's label where one kernel variant has
+        several rows (its launches are the variant's)."""
         kern, ref = kern_fn(), ref_fn()
         torch.cuda.synchronize()
-        err, frac = check(f"{name}[{variant}]", kern, ref, exact)
+        err, frac = check(f"{name}[{row or variant}]", kern, ref, exact)
         ms, plain_ms = cuda_ms(kern_fn), cuda_ms(ref_fn, reps=3)
-        b_ms, b_by = bound(variant, 2.0 * BATCH * rows * width, nbytes)
-        out[(name, variant)] = dict(
-            max_abs_err=err, mismatch=frac, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, rows=rows)
-        emit("kernel", name=name, variant=variant, max_abs_err=err,
-             mismatch=frac, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-             bound_by=b_by, batch=BATCH, rows=rows, width=width)
+        b_ms, b_by = bound(variant, 2.0 * batch * rows * width, nbytes)
+        rec = dict(max_abs_err=err, mismatch=frac, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, rows=rows,
+                   extra=dict(batch=batch, width=width, **(extra or {})))
+        if row:
+            rec["launch_variant"] = variant
+        out[(name, row or variant)] = rec
+        emit("kernel", name=name, variant=row or variant,
+             **{k: v for k, v in rec.items() if k != "extra"}, **rec["extra"])
 
     def code_bytes(store, rows):
         return rows * store._vectors.shape[1] * store._vectors.element_size()
 
-    qbytes = {"int8": BATCH * width, "f32": 4 * BATCH * width,
-              "int4": BATCH * width}
+    qbytes = {"int8": width, "f32": 4 * width, "int4": width}
 
     def slice_bytes(store, variant, nt, per_row, per_query=0, t=1,
-                    out_per_key=4, per_tile=False):
+                    out_per_key=4, per_tile=False, batch=BATCH):
         rows = nt * ft.TILE_N
-        keys = BATCH * t * (nt if per_tile else rows // ft.POS_SLICE)
-        return (code_bytes(store, rows) + qbytes[variant] + per_row * rows
-                + per_query * BATCH + out_per_key * keys)
+        keys = batch * t * (nt if per_tile else rows // ft.POS_SLICE)
+        return (code_bytes(store, rows) + qbytes[variant] * batch
+                + per_row * rows + per_query * batch + out_per_key * keys)
 
     a, b, c, c32 = st["a"], st["b"], st["c"], st["c32"]
     nt = ft.n_tiles_for(c._next_row, c.capacity)
@@ -408,14 +420,34 @@ def kernel_phase(st, queries):
         lambda: ft.pos_scan_ref(c32._vectors, qf, qmf, f, g, m, bv, nt, False),
         check_keys, False, rows=rows,
         nbytes=slice_bytes(c32, "f32", nt, 8, 12))
-    # B4 f32 at the 20k-row shape of path (d): 5 tiles of the same rows
+    # B4 f32 at the 20k-row shape of path (d): 5 tiles of the same rows, at
+    # 1024 queries, then at 1 and 16 (an MCP request on a default store)
     nt_d = ft.n_tiles_for(F32_ROWS, c32.capacity)
     t_d = ft.t_per_tile_for(nt_d, 16)
+    for bq in (BATCH, 1, 16):
+        qd, qmd = qf[:bq].contiguous(), qmf[:bq].contiguous()
+        run("fused_scan", "f32",
+            lambda: ft.fused_scan(c32._vectors, qd, qmd, rmf, rbf, nt_d, t_d),
+            lambda: ft.fused_scan_ref(c32._vectors, qd, qmd, rmf, rbf, nt_d,
+                                      t_d),
+            check_tile, False, rows=nt_d * ft.TILE_N, batch=bq,
+            row=None if bq == BATCH else f"f32_d_q{bq}",
+            nbytes=slice_bytes(c32, "f32", nt_d, 8, 4, t_d, 8, True, bq),
+            extra=dict(t_per_tile=t_d, layout=ft.f32_tile_layout(
+                bq, nt_d, t_d, SM_COUNT)))
+    # B4 f32 at (c32)'s full shape at k = 32 (past the pos path's k): the
+    # f32 product alone by torch.matmul beside it (never called by the port)
+    t_c = ft.t_per_tile_for(nt, 32)
+    with ft.full_f32_matmul():
+        product_ms = cuda_ms(lambda: qf @ c32._vectors[:rows].T, reps=3)
     run("fused_scan", "f32",
-        lambda: ft.fused_scan(c32._vectors, qf, qmf, rmf, rbf, nt_d, t_d),
-        lambda: ft.fused_scan_ref(c32._vectors, qf, qmf, rmf, rbf, nt_d, t_d),
-        check_tile, False, rows=nt_d * ft.TILE_N,
-        nbytes=slice_bytes(c32, "f32", nt_d, 8, 4, t_d, 8, True))
+        lambda: ft.fused_scan(c32._vectors, qf, qmf, rmf, rbf, nt, t_c),
+        lambda: ft.fused_scan_ref(c32._vectors, qf, qmf, rmf, rbf, nt, t_c),
+        check_tile, False, rows=rows, row="f32_c32_k32",
+        nbytes=slice_bytes(c32, "f32", nt, 8, 4, t_c, 8, True),
+        extra=dict(t_per_tile=t_c, product_ms=product_ms,
+                   product="torch.matmul of the same f32 product alone",
+                   layout=ft.f32_tile_layout(BATCH, nt, t_c, SM_COUNT)))
 
     # B3 int4 over store (e)
     e = st["e"]
@@ -681,6 +713,10 @@ def slice_phase(db, corpus, queries, f32_rows):
         got["c"] = path("c", lambda: (batch_rows(cl, "c", nq),
                                       batch_rows(cl, "c", nq, k=32)))[0]
         got["c32"] = path("c32", lambda: batch_rows(cl, "c32", nq))
+        # (c32) at k = 32, past the pos path's k: B4-f32 over 1.2M rows
+        c32 = db.get_store("c32")
+        got["c32-k32"] = path("c32-k32", lambda: c32.search_batch_complete_raw(
+            c32.search_batch_submit(queries[:BATCH], k=32))[1])[:N_RECALL, :K]
         got["d"] = path("d", lambda: batch_rows(cl, "d", nq))
         got["e"] = path("e", lambda: batch_rows(cl, "e", nq))
         got["f"] = path("f", lambda: batch_ids(cl, "f", queries[:BATCH]))[:N_RECALL]
@@ -746,6 +782,7 @@ def slice_phase(db, corpus, queries, f32_rows):
 
     expect = {"a": ("intkey_scan", "int8"), "b": ("l2key_scan", "int8"),
               "c": ("pos_scan", "int8"), "c32": ("pos_scan", "f32"),
+              "c32-k32": ("fused_scan", "f32"),
               "d": ("fused_scan", "f32"), "e": ("pos_scan", "int4"),
               "f": ("pos_residual_scan", "int4"), "g": ("fused_scan", "int4"),
               "h": ("cell_scan", "int4"), "f-mp": ("gather_dots", "int4")}
@@ -771,6 +808,7 @@ def slice_phase(db, corpus, queries, f32_rows):
            "b_int8_intkey_euclidean": overlap(got["b"], gt_l2),
            "c_int8_cosine": overlap(got["c"], gt_cos),
            "c32_f32_cosine": overlap(got["c32"], gt_cos),
+           "c32_f32_cosine_k32": overlap(got["c32-k32"], gt_cos),
            "d_f32_cosine_20k": overlap(got["d"], gt_d),
            "e_int4_cosine": overlap(got["e"], gt_cos),
            "f_int4r_cosine": overlap(got["f"], gt_cos),
@@ -782,8 +820,10 @@ def slice_phase(db, corpus, queries, f32_rows):
         db.get_store(s), nq)) for s in ("e", "f", "g", "h")}
     if rec["a_int8_intkey_cosine"] < 0.95:
         raise AssertionError(f"recall@10 of store (a) below 0.95: {rec}")
-    if rec["d_f32_cosine_20k"] < 0.99:
-        raise AssertionError(f"f32 store (d) disagrees with exact search: {rec}")
+    if min(rec["d_f32_cosine_20k"], rec["c32_f32_cosine_k32"]) < 0.99:
+        raise AssertionError(f"an f32 store's masked extraction (B4-f32, "
+                             f"(d) and (c32) at k = 32) disagrees with exact "
+                             f"search: {rec}")
     if rec["f_int4r_cosine"] < 0.83:
         raise AssertionError(f"recall@10 of the int4r store (f) below 0.83: {rec}")
     if rec["f_int4r_cosine"] - rec["e_int4_cosine"] < 0.20:
@@ -812,24 +852,26 @@ def slice_phase(db, corpus, queries, f32_rows):
 
     # end to end on the store API: 1024-query batches, host clock around
     # submit -> complete (the readback waits for the device)
+    batches = (("a", K), ("c32", K), ("f", K), ("c32", 32))
+    tag = lambda s, k: s if k == K else f"{s}_k{k}"
     store_lat = {}
-    for s in ("a", "c32", "f"):
+    for s, k in batches:
         store = db.get_store(s)
         lat = []
         for _ in range(6):
             t0 = time.perf_counter()
             store.search_batch_complete_raw(store.search_batch_submit(
-                queries[:BATCH], k=K))
+                queries[:BATCH], k=k))
             lat.append(time.perf_counter() - t0)
-        store_lat[s] = sorted(lat[1:])[len(lat[1:]) // 2]
-    # where a store batch of (a) (B1), (f) (B5) and (c32) (B3-f32) spends
-    # its time
+        store_lat[tag(s, k)] = sorted(lat[1:])[len(lat[1:]) // 2]
+    # where a store batch of (a) (B1), (f) (B5), (c32) (B3-f32) and (c32) at
+    # k = 32 (B4-f32) spends its time
     batch_profile = {}
-    for s in ("a", "f", "c32"):
+    for s, k in batches:
         store = db.get_store(s)
-        batch_profile[s] = profile_calls(
+        batch_profile[tag(s, k)] = profile_calls(
             lambda: store.search_batch_complete_raw(store.search_batch_submit(
-                queries[:BATCH], k=K)), reps=10)
+                queries[:BATCH], k=k)), reps=10)
     # (f-mp) at the store API: small batches through B7 at nprobe 64 beside
     # the full B5 scan of the same store (config 9's comparison)
     f_store = db.get_store("f")
@@ -1079,14 +1121,20 @@ def adc_corpus(seed: int):
 
 
 def adc_bound(lut, rows_scanned, rows, q=None, d=0):
-    """(bound_ms, bound_by, extra): the LUT lookups (B x rows x M) at the
-    lookup rate against the bytes each input needs once — the codes, the
-    LUT, the outputs, and for the rerank scans the queries and the int8
-    rows, scales and norms of the distinct winners."""
+    """(bound_ms, bound_by, extra): the least time for the LUT lookups (B x
+    rows x M) against the bytes each input needs once — the codes, the LUT,
+    the outputs, and for the rerank scans the queries and the int8 rows,
+    scales and norms of the distinct winners.  The lookups are counted in
+    32-bit shared-memory words at 32 words per clock on each SM: an int8
+    LUT packed 4 queries to a word (ops/adc_pallas.py::pack_lut) needs a
+    word per 4 lookups, a bf16 LUT (one entry a load) a word per lookup.
+    The one-lookup-per-lane reckoning of the int8 kernels' first design is
+    reported beside it."""
     import torch
 
     b, m = lut.shape[0], J_OPQ["m"]
     lookups = b * rows_scanned * m
+    per_word = 4 if lut.dtype == torch.int8 else 1
     nbytes = (rows_scanned * m + lut.numel() * lut.element_size()
               + rows.numel() * 8)
     winners = 0
@@ -1094,14 +1142,16 @@ def adc_bound(lut, rows_scanned, rows, q=None, d=0):
         winners = int(torch.unique(rows).numel())
         nbytes += q.numel() * 4 + winners * (d + 8)
     rate = SM_COUNT * 32 * SM_CLOCK_HZ
-    t_ops, t_bytes = lookups / rate, nbytes / HBM
+    t_ops, t_bytes = lookups / per_word / rate, nbytes / HBM
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes",
-            dict(lookups=lookups, bound_bytes=nbytes, distinct_winners=winners,
-                 lookup_rate_per_s=rate,
-                 lookup_rate_basis=f"{SM_COUNT} SMs x 32 lanes x "
+            dict(lookups=lookups, lookups_per_word=per_word,
+                 bound_bytes=nbytes, distinct_winners=winners,
+                 word_rate_per_s=rate,
+                 word_rate_basis=f"{SM_COUNT} SMs x 32 banks x "
                  f"{SM_CLOCK_HZ / 1e6:.0f} MHz (clocks.max.sm), one 32-bit "
-                 "shared-memory word per lane per clock"))
+                 "shared-memory word per bank per clock",
+                 bound_ms_one_lookup_a_lane=1e3 * max(lookups / rate, t_bytes)))
 
 
 def adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p, q, books, nt):
@@ -1164,24 +1214,20 @@ def adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p, q, books, nt):
              **{k: v for k, v in rec.items() if k != "extra"}, **rec["extra"])
 
 
-def adc_phase(kernels, launches):
-    """(j): config 4 on the card.  Build (OPQ fit, encode, rotation, int8
-    rerank rows, as bench.py:381-404), the kernel checks of B8-B10 on one
-    batch, then the path with the launch counts zeroed: B8
+def adc_build(data_dev):
+    """Config 4's index on the card (bench.py:381-404): OPQ fit, encode,
+    rotation, int8 rerank rows, everything padded to whole 8-slice groups;
+    the timed query batches (rotated standard normals, bench.py:421-425) and
+    the three searches, each a function of a query batch: B8
     (adc_search_exact_pos), B9 (adc_search_exact_fused) and B10
-    (adc_search_fused, c = 2048) on 512-query batches of rotated standard
-    normals (bench.py:421-425), and recall@10 of each on the 256 held-out
-    corpus points against exact f32 ground truth.  Returns (corpus, held-out
-    points, ground truth) for path (k)."""
+    (adc_search_fused, c = 2048).  Returns (codebook, (codes, i8 rows,
+    scales, norms2), tiles, timed queries, searches, build seconds)."""
     import torch
     import torch.nn.functional as F
 
     import erlvectordb_tpu_torch.ops.adc_pallas as ap
     from erlvectordb_tpu_torch.ops.fused_topk import mul_recip
     from erlvectordb_tpu_torch.quant import OPQCodebook
-
-    data, held = adc_corpus(SEED + 4)
-    data_dev = torch.from_numpy(data).to(DEVICE)
 
     def build():
         cb = OPQCodebook.fit(data_dev, **J_OPQ)
@@ -1202,18 +1248,11 @@ def adc_phase(kernels, launches):
     i8_p = F.pad(i8, (0, 0, 0, pad)).contiguous()
     sc_p = F.pad(scales, (0, pad), value=1.0)
     n2_p = F.pad(norms2, (0, pad))
-    del codes, i8, scales, norms2
     nt = ap.adc_n_tiles(J_ROWS)
     books = cb.codebooks
     gen = np.random.default_rng(5)
     tq = cb.rotate(torch.from_numpy(gen.standard_normal(
         (J_BATCHES * J_BATCH, J_DIM)).astype(np.float32)).to(DEVICE))
-    rq = cb.rotate(torch.from_numpy(held[:J_RECALL]).to(DEVICE))
-    gt = exact_rows(data_dev, held[:J_RECALL], "euclidean")
-    del data_dev
-    adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p,
-                      tq[:J_BATCH].contiguous(), books, nt)
-
     searches = {
         "pos": lambda q: ap.adc_search_exact_pos(
             codes_p, books, i8_p, sc_p, n2_p, q, J_ROWS, k=K, n_tiles=nt),
@@ -1222,6 +1261,26 @@ def adc_phase(kernels, launches):
         "fused": lambda q: ap.adc_search_fused(
             codes_p, books, i8_p, sc_p, q, J_ROWS, k=K, c=J_C, n_tiles=nt),
     }
+    return cb, (codes_p, i8_p, sc_p, n2_p), nt, tq, searches, build_s
+
+
+def adc_phase(kernels, launches):
+    """(j): config 4 on the card.  Build (adc_build), the kernel checks of
+    B8-B10 on one batch, then the path with the launch counts zeroed: the
+    three searches on 512-query batches, and recall@10 of each on the 256
+    held-out corpus points against exact f32 ground truth.  Returns (corpus,
+    held-out points, ground truth) for path (k)."""
+    import torch
+
+    data, held = adc_corpus(SEED + 4)
+    data_dev = torch.from_numpy(data).to(DEVICE)
+    cb, (codes_p, i8_p, sc_p, n2_p), nt, tq, searches, build_s = adc_build(
+        data_dev)
+    rq = cb.rotate(torch.from_numpy(held[:J_RECALL]).to(DEVICE))
+    gt = exact_rows(data_dev, held[:J_RECALL], "euclidean")
+    del data_dev
+    adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p,
+                      tq[:J_BATCH].contiguous(), cb.codebooks, nt)
 
     def run():
         out = {}
@@ -1333,6 +1392,38 @@ def index_manager_phase(data, held, gt, launches):
                              f"gather_dots[int8]: {launches['k']}")
 
 
+def kernel_summary(kernels, launches) -> list:
+    """The contract's kernel rows: each checked kernel row with its launches
+    on the paths that serve it (a row of a variant checked at several
+    shapes counts the variant's launches)."""
+    served = {}   # (kernel, variant) -> launches on the path that serves it
+    for counts in launches.values():
+        for kname, by in counts.items():
+            for variant, n in by.items():
+                served[(kname, variant)] = served.get((kname, variant), 0) + n
+    summary = []
+    for (name, variant), r in kernels.items():
+        src, replaces = KERNEL_INFO[name]
+        launch_variant = r.get("launch_variant", variant)
+        src = F32_SOURCE if launch_variant == "f32" else src
+        summary.append({
+            "name": (f"{name}_{variant}"
+                     if name in ("pos_scan", "fused_scan", "gather_dots",
+                                 "adc_pallas_scan")
+                     else name),
+            "route": "cuda", "source": CSRC + src, "replaces": replaces,
+            "launches": served.get((name, launch_variant), 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library": (NO_LIBRARY_B7 if name == "gather_dots" else
+                        NO_LIBRARY_ADC if name.startswith("adc_") else
+                        NO_LIBRARY),
+            "variant": variant, "rows": r["rows"], "mismatch": r["mismatch"],
+            **r.get("extra", {})})
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1441,31 +1532,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     index_manager_phase(data, held, gt, launches)
 
-    served = {}   # (kernel, variant) -> launches on the path that serves it
-    for counts in launches.values():
-        for kname, by in counts.items():
-            for variant, n in by.items():
-                served[(kname, variant)] = served.get((kname, variant), 0) + n
-    summary = []
-    for (name, variant), r in kernels.items():
-        src, replaces = KERNEL_INFO[name]
-        src = F32_SOURCE if variant == "f32" else src
-        summary.append({
-            "name": (f"{name}_{variant}"
-                     if name in ("pos_scan", "fused_scan", "gather_dots",
-                                 "adc_pallas_scan")
-                     else name),
-            "route": "cuda", "source": CSRC + src, "replaces": replaces,
-            "launches": served.get((name, variant), 0),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "library": (NO_LIBRARY_B7 if name == "gather_dots" else
-                        NO_LIBRARY_ADC if name.startswith("adc_") else
-                        NO_LIBRARY),
-            "variant": variant, "rows": r["rows"], "mismatch": r["mismatch"],
-            **r.get("extra", {})})
-    print(json.dumps({"kernels": summary}), flush=True)
+    print(json.dumps({"kernels": kernel_summary(kernels, launches)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,17 @@ chip_smoke.py names for it:
   * (b)   int8 euclidean, intkey plane: 1024             -> B2 l2key_scan
   * (c)   int8 cosine: 1024 at k=10 (B3 pos_scan int8) and at k=32 (B4
           fused_scan int8, past the pos path's k)
-  * (c32) float32 cosine: 1024                           -> B3 pos_scan f32
+  * (c32) float32 cosine: 1024 at k=10 (B3 pos_scan f32) and at k=32 (B4
+          fused_scan f32, past the pos path's k)
+  * (d)   float32 cosine, 20,000 rows of their own (seed 2): 1, 16 and
+          1024                                           -> B4 fused_scan f32
   * (e)   int4 cosine: 1024                              -> B3 pos_scan int4
   * (f)   int4r cosine: 1, 16 and 1024                   -> B5 pos_residual_scan
   * (g)   int4 cosine, the first 100k rows: 1024         -> B4 fused_scan int4
   * (h)   int4r cosine, the first 100k rows: 1024        -> B6 cell_scan
+  * (j)   config 4 as chip_smoke.py builds it (1M x 128, OPQ 8 x 8 bits,
+          int8 rerank rows): the three ADC searches on 512 queries
+          -> B8 adc_pos_scan, B9 adc_exact_scan, B10 adc_pallas_scan int8
 
     python3 compare_scans.py ROOT [ROOT ...]
 
@@ -22,7 +28,8 @@ Each ROOT is a directory holding an ``erlvectordb_tpu_torch`` package (a
 checkout, or ``git archive`` of one); they run in the order given, so
 ``A B B A`` shows the drift between runs.  Each prints one JSON line: per
 path, the median host milliseconds of submit -> complete (the readback
-waits for the device) over 10 calls after a warm-up, torch.profiler's
+waits for the device; (j): the search function, synchronised) over 10
+calls after a warm-up, torch.profiler's
 device milliseconds per call, the device's busy share and the kernels that
 took the most device time; for (a), also the median of 5 MCP batches.  The
 card's name and power limit (nvidia-smi) come first.  Exits non-zero if a
@@ -52,7 +59,9 @@ STORES = {
     "c": (cs.N_ROWS, dict(dtype="int8", metric="cosine"),
           ((cs.BATCH, cs.K), (cs.BATCH, 32))),
     "c32": (cs.N_ROWS, dict(dtype="float32", metric="cosine"),
-            ((cs.BATCH, cs.K),)),
+            ((cs.BATCH, cs.K), (cs.BATCH, 32))),
+    "d": (cs.F32_ROWS, dict(dtype="float32", metric="cosine"),
+          ((1, cs.K), (16, cs.K), (cs.BATCH, cs.K))),
     "e": (cs.N_ROWS, dict(dtype="int4", metric="cosine"), ((cs.BATCH, cs.K),)),
     "f": (cs.N_ROWS, dict(dtype="int4r", metric="cosine"),
           ((1, cs.K), (16, cs.K), (cs.BATCH, cs.K))),
@@ -91,6 +100,25 @@ def mcp_batch_ms(store, queries) -> list:
         db.stop()
 
 
+def timed_calls(call, out: dict, tag: str) -> None:
+    """Host-clock median of REPS synchronised calls after a warm-up, and
+    their profile, into ``out`` under ``tag``."""
+    import torch
+
+    def sync_call():
+        call()
+        torch.cuda.synchronize()
+
+    sync_call()
+    lat = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        sync_call()
+        lat.append(time.perf_counter() - t0)
+    out[f"{tag}_ms_median"] = 1e3 * float(np.median(lat))
+    out[f"{tag}_profile"] = cs.profile_calls(sync_call, reps=REPS)
+
+
 def measure(root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -103,25 +131,24 @@ def measure(root: str) -> dict:
     queries = cs.make_corpus(cs.SEED + 1, cs.BATCH)
     out = {"root": root, "package": os.path.dirname(erlvectordb_tpu_torch.__file__)}
     for name, (rows, kw, paths) in STORES.items():
-        store = VectorStore.from_matrix(name, corpus[:rows], device=dev, **kw)
+        data = (cs.make_corpus(cs.SEED + 2, rows) if name == "d"
+                else corpus[:rows])
+        store = VectorStore.from_matrix(name, data, device=dev, **kw)
         for bq, k in paths:
-            call = lambda: store.search_batch_complete_raw(
-                store.search_batch_submit(queries[:bq], k=k))
-            call()
-            lat = []
-            for _ in range(REPS):
-                t0 = time.perf_counter()
-                call()
-                lat.append(time.perf_counter() - t0)
-            tag = f"{name}_bq{bq}" + ("" if k == cs.K else f"_k{k}")
-            out[f"{tag}_ms_median"] = 1e3 * float(np.median(lat))
-            out[f"{tag}_profile"] = cs.profile_calls(call, reps=REPS)
+            timed_calls(lambda: store.search_batch_complete_raw(
+                store.search_batch_submit(queries[:bq], k=k)), out,
+                f"{name}_bq{bq}" + ("" if k == cs.K else f"_k{k}"))
         if name == "a":
             ms = mcp_batch_ms(store, queries)
             out["a_mcp_b64_batch_ms_median"] = float(np.median(ms))
             out["a_mcp_b64_batch_ms_all"] = ms
         del store
         torch.cuda.empty_cache()
+    del corpus
+    data, _ = cs.adc_corpus(cs.SEED + 4)
+    *_, tq, searches, _ = cs.adc_build(torch.from_numpy(data).to(dev))
+    for name, fn in searches.items():
+        timed_calls(lambda: fn(tq[:cs.J_BATCH]), out, f"j_{name}_bq{cs.J_BATCH}")
     return out
 
 

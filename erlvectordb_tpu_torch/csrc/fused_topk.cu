@@ -54,11 +54,38 @@
 // an SM (254 registers a thread) leaves little to hide each chunk's barrier
 // and the epilogue, by count about a tenth of the FFMAs' issue at W 128.
 //
-// B4 on f32 codes (the small f32 store below the pos gate) keeps the first
-// design: one block of 256 threads per (4096-row tile, 8 queries), codes
-// staged in [256 rows x 64 B] pieces, one row a thread with its 8 dots in
-// registers as fmaf chains, a sorted per-thread top-T list per query, and
-// T rounds of a block-wide max per query to finish the tile.
+// B4 on f32 codes (every f32 store below the pos gate's 144 tiles, and
+// every f32 store at k > 16 or under EVDB_EXACT_SCAN=1) runs on the same
+// mainloop (f32_block), so its dots, and so its keys, are B3-f32's fmaf
+// chains; only the epilogue differs.  Where B3 keeps a running max per
+// (query, slice) in registers, B4 needs the top-T (2, 4, 8) per (query,
+// 4096-row tile), and T keys for each of a thread's 8 queries would spill
+// a kernel already at ~250 registers.  So:
+//   * after each 128-row tile the epilogue writes the 128 x 128 keys to a
+//     key tile in shared memory (one barrier), and each query's two
+//     selecting threads fold 64 keys each into a sorted list of T that
+//     lives in shared memory between row tiles: one compare a key, an
+//     insertion only past the list's last key;
+//   * the two lists of a query merge by T shuffle rounds at the end;
+//   * a tile is split into 1-16 pieces across blocks (4096 / split rows
+//     each) so that a small store still fills the card (at 20k rows and
+//     1024 queries a whole-tile block gives 40 blocks for 132 SMs); the
+//     pieces' lists go to a scratch buffer and tile_merge_kernel takes the
+//     top-T of their union, the tile's top-T (keys carry their lane, so ties
+//     fall as in the plain version);
+//   * a batch under 128 queries runs a narrower micro-tile (JN of 8 query
+//     columns, 16 JN queries), so 1-16 queries cost 1/8 of a full block;
+//   * the row factors of both f32 scans come through the copy ring with
+//     each row tile's first k chunk: loaded from global memory in the
+//     epilogue, their latency stalled every warp before the key tile's
+//     barrier, a fifth of B4's time at 1.2M rows.
+// What bounds it: the FFMAs, as B3 (1.57e11 of them at (c32)'s 1.2M rows,
+// 1024 queries, k = 32: 4.7 ms at 67 TFLOP/s); by count the epilogue and
+// selection add a few percent of the mainloop's issue at W 128, and what
+// B4 loses to B3 beyond that is waiting at the key tile's barrier.  It
+// replaces a first design of one block per (4096-row tile, 8 queries),
+// which staged every tile's codes 128 times for a 1024-query batch and
+// ended each tile in T x 8 rounds of a block-wide max, a barrier each.
 //
 // Bit-exactness with the JAX kernels: keys are shifted and subtracted as
 // uint32 (JAX wraps int32; signed overflow is undefined in C++); B3/B4 keep
@@ -205,74 +232,74 @@ SliceLaunch pos_launch(bool use_qm, int W) {
   return wide ? &launch_slice<PACKED, kPos, false, true> : &launch_slice<PACKED, kPos, false, false>;
 }
 
-// ------------------------------------------------------------ B3 on f32 codes
+// ------------------------------------------- the f32 mainloop of B3 and B4
 
-// One block per (kFQ-query tile, 1024-row slice), in a 1-D grid with the
-// query tile fastest, so the blocks that read a slice's codes run together
-// (and the slice count has no grid.y limit).
+// One block of 256 threads covers kFQ queries x a run of kFR-row tiles.
 constexpr int kFQ = 128;          // queries per block
-constexpr int kFR = 128;          // rows per tile of the slice
+constexpr int kFR = 128;          // rows per row tile
 constexpr int kFK = 64;           // k per staged chunk
 constexpr int kFP = kFK + 4;      // smem row pitch (floats): 16-B aligned, and
                                   // 8 rows 68 words apart hit distinct banks
 constexpr int kFStages = 2;       // cp.async pipeline depth
 constexpr int kFStageFloats = 2 * kFR * kFP;   // codes then queries
-constexpr int kFSmem = kFStages * kFStageFloats * 4;   // 139,264 B, dynamic
+constexpr int kFRing = 2 * 2 * kFR;   // two row tiles' two factor planes
+constexpr int kFSmem = (kFStages * kFStageFloats + kFRing) * 4;   // 141,312 B, dynamic
 
-// Thread (tx, ty) of the 16 x 16 grid owns rows ty + 16 i and queries
-// tx + 16 j (i, j < 8) of the block's 128 x 128 tile; the stages hold rows
-// of kFK k each (row-major at pitch kFP), so a thread reads 4 k of a row or a
-// query with one LDS.128 and the 8 queries' reads of a warp phase fall on
-// distinct banks.
-template <bool QM>
-__global__ void __launch_bounds__(kThreads, 1) pos_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ codes, int B, int W,
-    int n_slices, const float* __restrict__ qm, const float* __restrict__ f,
-    const float* __restrict__ g, const float* __restrict__ m,
-    const float* __restrict__ bv, int* __restrict__ out) {
-  extern __shared__ __align__(16) float fsm[];
-  __shared__ float qm_s[kFQ], f_s[kFQ], g_s[kFQ];
-  __shared__ int red[kThreads / 32][kFQ];
+// The register-tiled FFMA mainloop B3-f32 and B4-f32 share.  Thread (tx, ty)
+// of the 16 x 16 grid owns rows ty + 16 i (i < 8) and queries tx + 16 j (j <
+// JN) of the block's tile; JN < 8 only where the whole batch is under 128
+// queries, so a block of 1-16 queries does 1/8 of the work of a full one.
+// The stages hold rows of kFK k each (row-major at pitch kFP), so a thread
+// reads 4 k of a row or a query with one LDS.128 and the 8 queries' reads
+// of a warp phase fall on distinct banks.  Every dot is one fmaf chain over
+// k = 0 .. W-1 in order.  The row tile's two row-factor planes (f0, f1:
+// 16-byte aligned) arrive by cp.async with its first k chunk, so the
+// epilogue does not wait on global loads.  ``epi(acc, rt, fr)`` runs on the
+// finished micro-tile of row tile rt, fr[r] and fr[kFR + r] being its
+// factors (every thread calls it at the same point, so it may
+// synchronise); the loop then zeroes acc.  The ring's barrier at the top of
+// each stage also orders one row tile's epilogue before the next one's.
+template <int JN, typename Epi>
+__device__ __forceinline__ void f32_block(
+    float* fsm, const float* __restrict__ q, const float* __restrict__ codes,
+    const float* __restrict__ f0, const float* __restrict__ f1, int B, int W,
+    int q0, long long row0, int n_rt, Epi&& epi) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q_tiles = (B + kFQ - 1) / kFQ;
-  const int q0 = (int)(blockIdx.x % q_tiles) * kFQ, s = (int)(blockIdx.x / q_tiles);
-  const long long slice0 = (long long)s * kSlice;
-  if (tid < kFQ) {   // read after the first barrier
-    const bool ok = q0 + tid < B;
-    qm_s[tid] = ok ? qm[q0 + tid] : 0.f;
-    f_s[tid] = ok ? f[q0 + tid] : 0.f;
-    g_s[tid] = ok ? g[q0 + tid] : 0.f;
-  }
   const int kch = W / kFK;
-  const int n_stage = (kSlice / kFR) * kch;
+  const int n_stage = n_rt * kch;
 
   // stage st: row tile st / kch, k chunk st % kch; 16-byte piece e = tid +
-  // 256 p of each [128 x kFK] operand is row e / (kFK / 4), k 4 (e % (kFK / 4))
+  // 256 p of each [128 x kFK] operand is row e / (kFK / 4) = ty + 16 p,
+  // k 4 (e % (kFK / 4)); query rows past 16 JN are never read
   auto issue = [&](int st) {
     if (st < n_stage) {
       float* cs = fsm + (st % kFStages) * kFStageFloats;
       float* qs = cs + kFR * kFP;
-      const long long row0 = slice0 + (long long)(st / kch) * kFR;
+      const long long r0 = row0 + (long long)(st / kch) * kFR;
       const int k0 = (st % kch) * kFK;
 #pragma unroll
       for (int p = 0; p < kFR * kFK / 4 / kThreads; ++p) {
         const int e = tid + kThreads * p, r = e / (kFK / 4), c = 4 * (e % (kFK / 4));
-        cp_async16(cs + r * kFP + c, codes + (row0 + r) * W + k0 + c, true);
-        const bool ok = q0 + r < B;
-        cp_async16(qs + r * kFP + c, ok ? q + (long long)(q0 + r) * W + k0 + c : q, ok);
+        cp_async16(cs + r * kFP + c, codes + (r0 + r) * W + k0 + c, true);
+        if (p < JN) {
+          const bool ok = q0 + r < B;
+          cp_async16(qs + r * kFP + c, ok ? q + (long long)(q0 + r) * W + k0 + c : q, ok);
+        }
+      }
+      if (st % kch == 0 && tid < 2 * kFR / 4) {   // the row tile's factors
+        float* fs = fsm + kFStages * kFStageFloats + ((st / kch) & 1) * 2 * kFR;
+        const int plane = tid / (kFR / 4), c = 4 * (tid % (kFR / 4));
+        cp_async16(fs + plane * kFR + c, (plane ? f1 : f0) + r0 + c, true);
       }
     }
     cp_async_commit();   // an empty group past the end keeps the count
   };
 
-  float acc[8][8];
+  float acc[8][JN];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  int best[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) best[j] = INT32_MIN;
+    for (int j = 0; j < JN; ++j) acc[i][j] = 0.f;
 
 #pragma unroll
   for (int st = 0; st < kFStages - 1; ++st) issue(st);
@@ -289,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, 1) pos_f32_kernel(
       for (int i = 0; i < 8; ++i)
         a[i] = *reinterpret_cast<const float4*>(cs + (ty + 16 * i) * kFP + k4);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < JN; ++j) {
         const float4 b = *reinterpret_cast<const float4*>(qs + (tx + 16 * j) * kFP + k4);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {   // k in order: one fmaf chain per dot
@@ -301,27 +328,61 @@ __global__ void __launch_bounds__(kThreads, 1) pos_f32_kernel(
       }
     }
     if (st % kch == kch - 1) {
-      // epilogue of this row tile, in the JAX kernel's operation order
-      const int rt = st / kch;
+      epi(acc, st / kch, fsm + kFStages * kFStageFloats + ((st / kch) & 1) * 2 * kFR);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int rl = rt * kFR + ty + 16 * i;   // row & 1023
-        const float mr = __ldg(m + slice0 + rl), br = __ldg(bv + slice0 + rl);
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int qj = tx + 16 * j;
-          float v = acc[i][j];
-          v = QM ? __fmaf_rn(__fmul_rn(v, mr), qm_s[qj], br) : __fmaf_rn(v, mr, br);
-          v = __fmul_rn(__fsub_rn(v, f_s[qj]), g_s[qj]);
-          // rint after the clamp (integer bounds): one conversion, not two
-          const int si = __float2int_rn(fminf(fmaxf(v, -2.0e9f), 2.0e9f));
-          best[j] = max(best[j], (int)(((uint32_t)si & ~1023u) | (uint32_t)rl));
-          acc[i][j] = 0.f;
-        }
-      }
+        for (int j = 0; j < JN; ++j) acc[i][j] = 0.f;
     }
   }
   cp_async_wait<0>();
+}
+
+// B3 on f32 codes: one block per (kFQ-query tile, 1024-row slice), in a 1-D
+// grid with the query tile fastest, so the blocks that read a slice's codes
+// run together (and the slice count has no grid.y limit).
+template <bool QM>
+__global__ void __launch_bounds__(kThreads, 1) pos_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ codes, int B, int W,
+    int n_slices, const float* __restrict__ qm, const float* __restrict__ f,
+    const float* __restrict__ g, const float* __restrict__ m,
+    const float* __restrict__ bv, int* __restrict__ out) {
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ float qm_s[kFQ], f_s[kFQ], g_s[kFQ];
+  __shared__ int red[kThreads / 32][kFQ];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q_tiles = (B + kFQ - 1) / kFQ;
+  const int q0 = (int)(blockIdx.x % q_tiles) * kFQ, s = (int)(blockIdx.x / q_tiles);
+  const long long slice0 = (long long)s * kSlice;
+  if (tid < kFQ) {   // read after the mainloop's first barrier
+    const bool ok = q0 + tid < B;
+    qm_s[tid] = ok ? qm[q0 + tid] : 0.f;
+    f_s[tid] = ok ? f[q0 + tid] : 0.f;
+    g_s[tid] = ok ? g[q0 + tid] : 0.f;
+  }
+  int best[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) best[j] = INT32_MIN;
+
+  f32_block<8>(fsm, q, codes, m, bv, B, W, q0, slice0, kSlice / kFR,
+               [&](float (&acc)[8][8], int rt, const float* fr) {
+    // the row tile's keys, in the JAX kernel's operation order
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int rl = rt * kFR + ty + 16 * i;   // row & 1023
+      const float mr = fr[ty + 16 * i], br = fr[kFR + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qj = tx + 16 * j;
+        float v = acc[i][j];
+        v = QM ? __fmaf_rn(__fmul_rn(v, mr), qm_s[qj], br) : __fmaf_rn(v, mr, br);
+        v = __fmul_rn(__fsub_rn(v, f_s[qj]), g_s[qj]);
+        // rint after the clamp (integer bounds): one conversion, not two
+        const int si = __float2int_rn(fminf(fmaxf(v, -2.0e9f), 2.0e9f));
+        best[j] = max(best[j], (int)(((uint32_t)si & ~1023u) | (uint32_t)rl));
+      }
+    }
+  });
 
   // the 16 threads of a query column: ty = 2w, 2w + 1 in warp w, then 8 warps
   const int warp = tid >> 5;
@@ -339,17 +400,18 @@ __global__ void __launch_bounds__(kThreads, 1) pos_f32_kernel(
   }
 }
 
+template <typename K>
+int set_smem(K kern, int bytes) {   // above 48 KB of dynamic shared memory
+  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   bytes);
+}
+
 template <bool QM>
 int launch_pos_f32(int blocks, cudaStream_t st, const float* q, const float* codes,
                    int B, int W, int n_slices, const float* qm, const float* f,
                    const float* g, const float* m, const float* bv, int* out) {
-  static bool configured = false;   // above 48 KB of dynamic shared memory
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pos_f32_kernel<QM>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  static const int rc = set_smem(pos_f32_kernel<QM>, kFSmem);
+  if (rc) return rc;
   pos_f32_kernel<QM><<<blocks, kThreads, kFSmem, st>>>(q, codes, B, W, n_slices, qm,
                                                      f, g, m, bv, out);
   return (int)cudaGetLastError();
@@ -357,124 +419,155 @@ int launch_pos_f32(int blocks, cudaStream_t st, const float* q, const float* cod
 
 // ------------------------------------------------------------ B4 on f32 codes
 
-constexpr int kWords = 16;   // f32 codes of a row per staged piece (64 B)
-constexpr int kTileQ = 8;    // queries per block (T keys each per thread)
+// The row tile's keys, staged for the selection: [kFQ queries][kFR rows] at
+// a pitch of 130 words.  The epilogue's stores (thread (tx, ty): query tx +
+// 16 j, row ty + 16 i) land on banks 2 tx + ty, and the selection's loads
+// (lane l: query l & 15, row 2 r + (l >> 4)) on 2 (l & 15) + (l >> 4): both
+// conflict-free.
+constexpr int kKP = kFR + 2;
+constexpr int kKeyBytes = kFQ * kKP * 4;          // 66,560 B
+constexpr int tile_f32_smem(int T) { return kFSmem + kKeyBytes + T * kThreads * 4; }
 
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void put_tile_key(float* vals, int* rows, long long o,
+                                             int key, int tile) {
+  const uint32_t kt = (uint32_t)key & ~0xFFFu;
+  const uint32_t sr = ((int)kt >= 0) ? kt : 0x80000000u - kt;
+  vals[o] = __int_as_float((int)sr);
+  rows[o] = (int)((uint32_t)key & 0xFFFu) + tile * kTile;
 }
 
-// Dots of the kTileQ queries from q0 against the thread's row of the
-// 256-row piece starting at row0, W floats a row.  Every thread of the
-// block must call this (it synchronises).
-__device__ __forceinline__ void piece_dots_f32(
+// One block per (kFQ-query tile, piece of a 4096-row tile): ``split``
+// pieces of 4096 / split rows a tile, the query tile fastest in a 1-D grid.
+// After each 128-row tile the epilogue stages its 128 x 128 keys in shared
+// memory; then each query's two selecting threads (lanes l and l ^ 16 of
+// warp l / 16's query group) fold their 64 of the row tile's keys into a
+// sorted list of T, kept in shared memory between row tiles (so nothing
+// more stays live in registers across the mainloop), skipping every key
+// below the list's last (one compare).  At the end of the piece the pair
+// merges by T shuffle rounds.  With one piece a tile, the result goes
+// straight out; else to ``part`` [B, n_tiles, split, T], merged by
+// tile_merge_kernel.
+template <int T, int JN>
+__global__ void __launch_bounds__(kThreads, 1) tile_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ codes, int B, int W,
-    int q0, long long row0, float (*cs)[kWords + 1], float (*qs)[kWords],
-    float (&acc)[kTileQ]) {
-  const int t = threadIdx.x;
+    int n_tiles, int split, const float* __restrict__ qmult,
+    const float* __restrict__ rowmult, const float* __restrict__ rowbias,
+    float* __restrict__ vals, int* __restrict__ rows, int* __restrict__ part) {
+  extern __shared__ __align__(16) float fsm[];
+  int* ks = reinterpret_cast<int*>(fsm + kFStages * kFStageFloats + kFRing);
+  int* lists = ks + kFQ * kKP;   // [T][kThreads]: each thread's sorted list
+  __shared__ float qm_s[kFQ];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int q_tiles = (B + kFQ - 1) / kFQ;
+  const int q0 = (int)(blockIdx.x % q_tiles) * kFQ;
+  const int seg = (int)(blockIdx.x / q_tiles);
+  const int tile = seg / split, piece = seg % split;
+  const int piece_rows = kTile / split;
+  const long long row0 = (long long)seg * piece_rows;
+  if (tid < kFQ)   // read after the mainloop's first barrier
+    qm_s[tid] = q0 + tid < B ? qmult[q0 + tid] : 0.f;
 #pragma unroll
-  for (int j = 0; j < kTileQ; ++j) acc[j] = 0.f;
-  for (int w0 = 0; w0 < W; w0 += kWords) {
-    // codes piece: 256 rows x 16 floats, consecutive threads on consecutive words
+  for (int i = 0; i < T; ++i) lists[i * kThreads + tid] = INT32_MIN;
+  // the selecting thread's query and half of each row tile
+  const int sq = 16 * warp + (lane & 15), sh = lane >> 4;
+  const bool s_live = sq < 16 * JN && q0 + sq < B;
+
+  f32_block<JN>(fsm, q, codes, rowmult, rowbias, B, W, q0, row0, piece_rows / kFR,
+                [&](float (&acc)[8][JN], int rt, const float* fr) {
+    const int lane0 = piece * piece_rows + rt * kFR;   // tile lane of row 0
 #pragma unroll
-    for (int i = t; i < kThreads * kWords; i += kThreads) {
-      const int r = i / kWords, w = i % kWords;
-      cs[r][w] = codes[(row0 + r) * W + w0 + w];
-    }
-    for (int i = t; i < kTileQ * kWords; i += kThreads) {
-      const int j = i / kWords, w = i % kWords;
-      qs[j][w] = (q0 + j < B) ? q[(long long)(q0 + j) * W + w0 + w] : 0.f;
-    }
-    __syncthreads();
+    for (int i = 0; i < 8; ++i) {
+      const int rl = ty + 16 * i;
+      const float rm = fr[rl], rb = fr[kFR + rl];
 #pragma unroll
-    for (int w = 0; w < kWords; w += 4) {
-      const float a0 = cs[t][w], a1 = cs[t][w + 1], a2 = cs[t][w + 2], a3 = cs[t][w + 3];
-#pragma unroll
-      for (int j = 0; j < kTileQ; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(&qs[j][w]);
-        float s = fmaf(a0, v.x, acc[j]);
-        s = fmaf(a1, v.y, s);
-        s = fmaf(a2, v.z, s);
-        acc[j] = fmaf(a3, v.w, s);
+      for (int j = 0; j < JN; ++j) {
+        const int qj = tx + 16 * j;
+        const float sims = __fmaf_rn(__fmul_rn(acc[i][j], qm_s[qj]), rm, rb);
+        ks[qj * kKP + rl] = (int)((float_key(sims) & ~0xFFFu) | (uint32_t)(lane0 + rl));
       }
     }
     __syncthreads();
-  }
-}
-
-// one round of a block max over the heads of every thread's list; the one
-// thread holding the winner pops it.  ``red`` is [2][warps] shared scratch,
-// double-buffered by ``round`` so one barrier per round suffices.
-template <int T>
-__device__ __forceinline__ int pop_block_max(int (&top)[T], int (*red)[kThreads / 32],
-                                             int round) {
-  const int warp = threadIdx.x / 32;
-  const int v = warp_max(top[0]);
-  if ((threadIdx.x & 31) == 0) red[round & 1][warp] = v;
-  __syncthreads();
-  int mx = red[round & 1][0];
+    if (s_live) {
+      int top[T];
 #pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) mx = max(mx, red[round & 1][w]);
-  if (top[0] == mx) {
-#pragma unroll
-    for (int i = 0; i + 1 < T; ++i) top[i] = top[i + 1];
-    top[T - 1] = INT32_MIN;
-  }
-  return mx;
-}
-
-// One block per (4096-row tile, 8 queries); top-T per tile and query.
-template <int T>
-__global__ void __launch_bounds__(kThreads) tile_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ codes, int B, int W,
-    int n_tiles, const float* __restrict__ qmult, const float* __restrict__ rowmult,
-    const float* __restrict__ rowbias, float* __restrict__ vals,
-    int* __restrict__ rows) {
-  __shared__ float cs[kThreads][kWords + 1];
-  __shared__ __align__(16) float qs[kTileQ][kWords];
-  __shared__ int red[2][kThreads / 32];
-  __shared__ float qm_s[kTileQ];
-  const int tile = blockIdx.x, q0 = blockIdx.y * kTileQ, t = threadIdx.x;
-  if (t < kTileQ)  // read after piece_dots_f32's first barrier
-    qm_s[t] = q0 + t < B ? qmult[q0 + t] : 0.f;
-
-  int top[kTileQ][T];
-#pragma unroll
-  for (int j = 0; j < kTileQ; ++j)
-#pragma unroll
-    for (int i = 0; i < T; ++i) top[j][i] = INT32_MIN;
-
-  for (int p = 0; p < kTile / kThreads; ++p) {
-    const long long row0 = (long long)tile * kTile + p * kThreads;
-    float acc[kTileQ];
-    piece_dots_f32(q, codes, B, W, q0, row0, cs, qs, acc);
-    const long long row = row0 + t;
-    const uint32_t lane = (uint32_t)(p * kThreads + t);  // row & 4095
-    const float rm = rowmult[row], rb = rowbias[row];
-#pragma unroll
-    for (int j = 0; j < kTileQ; ++j) {
-      const float sims = __fmaf_rn(__fmul_rn(acc[j], qm_s[j]), rm, rb);
-      push_top<T>(top[j], (int)((float_key(sims) & ~0xFFFu) | lane));
-    }
-  }
-
-  int round = 0;
-#pragma unroll
-  for (int j = 0; j < kTileQ; ++j) {
-#pragma unroll
-    for (int r = 0; r < T; ++r, ++round) {
-      const int mx = pop_block_max<T>(top[j], red, round);
-      if (t == 0 && q0 + j < B) {
-        const uint32_t kt = (uint32_t)mx & ~0xFFFu;
-        const uint32_t sr = ((int)kt >= 0) ? kt : 0x80000000u - kt;
-        const long long o = (long long)(q0 + j) * n_tiles * T + (long long)tile * T + r;
-        vals[o] = __int_as_float((int)sr);
-        rows[o] = (int)((uint32_t)mx & 0xFFFu) + tile * kTile;
+      for (int i = 0; i < T; ++i) top[i] = lists[i * kThreads + tid];
+      int thr = top[T - 1];
+      const int* kr = ks + sq * kKP + sh;
+#pragma unroll 8
+      for (int r = 0; r < kFR / 2; ++r) {
+        const int k = kr[2 * r];
+        if (k > thr) {
+          push_top<T>(top, k);
+          thr = top[T - 1];
+        }
       }
+#pragma unroll
+      for (int i = 0; i < T; ++i) lists[i * kThreads + tid] = top[i];
+    }
+  });
+
+  int top[T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) top[i] = lists[i * kThreads + tid];
+#pragma unroll
+  for (int r = 0; r < T; ++r) {   // the pair's lists, merged
+    const int mx = max(top[0], __shfl_xor_sync(0xffffffffu, top[0], 16));
+    const bool pop = top[0] == mx;
+#pragma unroll
+    for (int i = 0; i + 1 < T; ++i) top[i] = pop ? top[i + 1] : top[i];
+    top[T - 1] = pop ? INT32_MIN : top[T - 1];
+    if (sh == 0 && s_live) {
+      const long long qt = (long long)(q0 + sq) * n_tiles + tile;
+      if (split == 1)
+        put_tile_key(vals, rows, qt * T + r, mx, tile);
+      else
+        part[(qt * split + piece) * T + r] = mx;
     }
   }
+}
+
+// The pieces' lists of each (query, tile) -> its top-T: the top-T of the
+// union of the pieces' top-T lists is the tile's.
+template <int T>
+__global__ void __launch_bounds__(kThreads) tile_merge_kernel(
+    const int* __restrict__ part, int B, int n_tiles, int split,
+    float* __restrict__ vals, int* __restrict__ rows) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)B * n_tiles) return;
+  const int* p = part + idx * split * T;
+  int top[T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) top[i] = INT32_MIN;
+  for (int i = 0; i < split * T; ++i) push_top<T>(top, p[i]);
+  const int tile = (int)(idx % n_tiles);
+#pragma unroll
+  for (int r = 0; r < T; ++r) put_tile_key(vals, rows, idx * T + r, top[r], tile);
+}
+
+template <int T, int JN>
+int launch_tile_f32(int blocks, cudaStream_t st, const float* q, const float* codes,
+                    int B, int W, int n_tiles, int split, const float* qm,
+                    const float* rm, const float* rb, float* vals, int* rows,
+                    int* part) {
+  static const int rc = set_smem(tile_f32_kernel<T, JN>, tile_f32_smem(T));
+  if (rc) return rc;
+  tile_f32_kernel<T, JN><<<blocks, kThreads, tile_f32_smem(T), st>>>(
+      q, codes, B, W, n_tiles, split, qm, rm, rb, vals, rows, part);
+  if (split > 1) {
+    const long long n = (long long)B * n_tiles;
+    tile_merge_kernel<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+        part, B, n_tiles, split, vals, rows);
+  }
+  return (int)cudaGetLastError();
+}
+
+using TileF32Launch = decltype(&launch_tile_f32<2, 8>);
+
+template <int T>
+TileF32Launch tile_f32_launch(int jn) {
+  return jn == 1 ? &launch_tile_f32<T, 1> : jn == 2 ? &launch_tile_f32<T, 2>
+       : jn == 4 ? &launch_tile_f32<T, 4> : &launch_tile_f32<T, 8>;
 }
 
 }  // namespace
@@ -533,24 +626,20 @@ int evdb_pos_scan_f32(const void* q, const void* codes, const void* qm,
 
 int evdb_fused_scan_f32(const void* q, const void* codes, const void* qmult,
                         const void* rowmult, const void* rowbias, int B, int ww,
-                        int n_tiles, int t, void* vals, void* rows,
-                        void* stream) {
-  const dim3 grid(n_tiles, (B + kTileQ - 1) / kTileQ);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *qq = (const float*)q, *cc = (const float*)codes,
-              *qm = (const float*)qmult, *rm = (const float*)rowmult,
-              *rb = (const float*)rowbias;
-  float* v = (float*)vals;
-  int* r = (int*)rows;
-  if (t == 2)
-    tile_f32_kernel<2><<<grid, kThreads, 0, st>>>(qq, cc, B, ww, n_tiles, qm, rm, rb, v, r);
-  else if (t == 4)
-    tile_f32_kernel<4><<<grid, kThreads, 0, st>>>(qq, cc, B, ww, n_tiles, qm, rm, rb, v, r);
-  else if (t == 8)
-    tile_f32_kernel<8><<<grid, kThreads, 0, st>>>(qq, cc, B, ww, n_tiles, qm, rm, rb, v, r);
-  else
+                        int n_tiles, int t, int split, int jn, void* part,
+                        void* vals, void* rows, void* stream) {
+  if (ww % kFK || B < 1 || n_tiles < 1 || !(split == 1 || split == 2 ||
+      split == 4 || split == 8 || split == 16) || !(jn == 1 || jn == 2 ||
+      jn == 4 || jn == 8) || (jn < 8 && B > 16 * jn) || (split > 1 && !part))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const TileF32Launch go = t == 2 ? tile_f32_launch<2>(jn)
+                         : t == 4 ? tile_f32_launch<4>(jn)
+                         : t == 8 ? tile_f32_launch<8>(jn) : nullptr;
+  if (!go) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + kFQ - 1) / kFQ * n_tiles * split;
+  return go(blocks, (cudaStream_t)stream, (const float*)q, (const float*)codes, B,
+            ww, n_tiles, split, (const float*)qmult, (const float*)rowmult,
+            (const float*)rowbias, (float*)vals, (int*)rows, (int*)part);
 }
 
 }  // extern "C"

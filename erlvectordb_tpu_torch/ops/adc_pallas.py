@@ -21,6 +21,12 @@ doubling rules, row padding and the ``n_big`` rule of the pos scan, the
 ``rows < n_valid`` mask, the final top-k (ties to the lower column, as
 ``lax.top_k``) and the XLA rerank of ``adc_search_fused``.
 
+The int8-LUT kernels read the LUT packed by ``pack_lut``: 4 queries'
+entries of one (subspace, code) in a 32-bit word, +128 each, the tables of
+``s`` subspaces interleaved so a warp's 32 lookups hit 32 banks;
+``packed_lut_dists`` is that arithmetic in plain PyTorch, and ``adc_layout``
+sizes the launch.
+
 Each scan wrapper runs its plain version for tensors on the CPU and its CUDA
 kernel for tensors on a CUDA device (raising if the kernel cannot run), and
 counts kernel launches in its ``launches`` attribute.  The TPU accommodations
@@ -41,6 +47,9 @@ from erlvectordb_tpu_torch.quant.pq import _adc_l2_tables
 ADC_TILE_N = 1024
 _ROW_CHUNK = 64 * ADC_TILE_N   # rows per step of the plain scans
 _RERANK_CHUNK = 1 << 27        # bytes of f32 rows the plain rerank gathers per step
+ADC_SMEM_MAX = 232_448         # shared memory a block may use (H100)
+ADC_MAX_M = 256                # the packed 16-bit sums stay exact: M * 255 < 65,536
+LUT_BIAS = 128                 # added to each int8 entry of the packed LUT
 
 
 def adc_n_tiles(count: int) -> int:
@@ -172,6 +181,107 @@ def adc_pos_scan_ref(codes, lut_q, q, i8_codes, i8_scales, i8_norms2,
             rows.to(torch.int32))
 
 
+# ------------------------------------------- the packed LUT of B8-B10-int8
+
+
+def adc_t_max(t: int) -> int:
+    """The list depth of the int8 kernels for T picks a tile: 2, 4, 8 or
+    32 (the kernel keeps TMAX >= T keys a list and emits the first T)."""
+    return 2 if t <= 2 else 4 if t <= 4 else 8 if t <= 8 else 32
+
+
+def adc_packed_smem(m: int, k: int, s: int, tmax: int) -> int:
+    """Shared memory of csrc/adc_scan.cu::adc_packed_kernel's block: the
+    packed LUTs of 128 / s queries, two 1024-row code tiles, the warps'
+    lists of tmax keys a query (padded), the picks, the queries' |q|^2."""
+    qg, warps = 128 // s, (8 if tmax > 8 else 16)
+    return (qg * m * k + 2 * ADC_TILE_N * m
+            + 4 * warps * (qg * (tmax + 1) + 1) + 4 * qg * tmax + 4 * qg)
+
+
+def adc_layout(b: int, m: int, k: int, t: int) -> dict:
+    """The launch of the int8-LUT scans (B8, B9, B10-int8), the one place
+    that sizes it.  A block holds the packed LUTs of ``qg`` = 128 / ``s``
+    queries: 32 lanes of a warp are ``s`` subspace phases x ``g`` = 32 /
+    ``s`` groups of 4 queries.  ``s`` is 2 (64 queries a block) unless the
+    batch is small (<= 16 queries: 8; <= 32: 4, where M allows) or the LUTs
+    do not fit; ``groups`` blocks' worth of queries, ``threads`` a block
+    (16 warps, 8 for lists deeper than 8), ``smem`` bytes.  Raises where
+    no layout fits: M past ADC_MAX_M, K past 256, T past 32, or shared
+    memory."""
+    if m < 4 or m % 4 or m > ADC_MAX_M or not 1 <= k <= 256:
+        raise ValueError(f"need 4 <= M <= {ADC_MAX_M}, M % 4 == 0 and "
+                         f"1 <= K <= 256 (M={m}, K={k})")
+    if not 1 <= t <= 32 or b < 1:
+        raise ValueError(f"need 1 <= T <= 32 and B >= 1 (T={t}, B={b})")
+    tmax = adc_t_max(t)
+    fits = [s for s in (2, 4, 8)
+            if m % s == 0 and adc_packed_smem(m, k, s, tmax) <= ADC_SMEM_MAX]
+    if not fits:
+        raise ValueError(f"the packed LUTs of M={m}, K={k} (T={t}) exceed "
+                         f"{ADC_SMEM_MAX} B of shared memory")
+    want = 8 if b <= 16 else 4 if b <= 32 else 2
+    s = min(fits, key=lambda x: (abs(x - want), x))
+    qg = 128 // s
+    return dict(s=s, g=32 // s, qg=qg, groups=-(-b // qg), tmax=tmax,
+                threads=256 if tmax > 8 else 512,
+                smem=adc_packed_smem(m, k, s, tmax))
+
+
+def pack_lut(lut_q: torch.Tensor, m: int, s: int) -> torch.Tensor:
+    """[B, M*K] int8 LUT -> the int8 kernels' packed words [groups, M/s, K,
+    32] int32, groups of 4g queries (g = 32 / s).  Word (p, c, l) of a
+    group, lane l = i * g + h, holds in byte j the entry of query 4h + j,
+    subspace p*s + i, code c, plus 128 (an unsigned byte): the lanes of a
+    warp, each reading the word of its own (subspace phase i, query group
+    h) at a code, read 32 distinct banks.  Queries past B are zeros
+    (entries of 128)."""
+    b, mk = lut_q.shape
+    k = mk // m
+    g = 32 // s
+    groups = -(-b // (4 * g))
+    # + 128 as an unsigned byte: the sign bit flipped
+    x = lut_q.view(torch.uint8) ^ LUT_BIAS
+    if groups * 4 * g > b:
+        x = torch.nn.functional.pad(x, (0, 0, 0, groups * 4 * g - b),
+                                    value=LUT_BIAS)
+    # [groups, h, j, p, i, K] -> [groups, p, K, i, h, j]
+    x = x.reshape(groups, g, 4, m // s, s, k)
+    x = x.permute(0, 3, 5, 4, 1, 2).contiguous()
+    return x.view(torch.int32).reshape(groups, m // s, k, 32)
+
+
+def packed_lut_dists(codes: torch.Tensor, packed: torch.Tensor, m: int,
+                     s: int, b: int) -> torch.Tensor:
+    """The int8 kernels' arithmetic in plain PyTorch: [R, M] uint8 codes
+    against pack_lut's words -> [B, R] int32 distances.  Each word's even
+    and odd bytes are summed as two 16-bit lanes (exact while M * 255 <
+    65,536), the queries' sums taken from the lanes, and 128 * M taken
+    off."""
+    groups, _, k, _ = packed.shape
+    g = 32 // s
+    words = packed.long() & 0xFFFFFFFF
+    idx = codes.long()
+    out = torch.empty((b, codes.shape[0]), dtype=torch.int32,
+                      device=codes.device)
+    for r0 in range(0, codes.shape[0], _ROW_CHUNK):
+        ic = idx[r0:r0 + _ROW_CHUNK]
+        ae = torch.zeros((groups, ic.shape[0], g), dtype=torch.int64,
+                         device=codes.device)
+        ao = torch.zeros_like(ae)
+        for mm in range(m):
+            i = mm % s
+            w = words[:, mm // s, :, i * g:(i + 1) * g][:, ic[:, mm], :]
+            ae += w & 0x00FF00FF
+            ao += (w >> 8) & 0x00FF00FF
+        # query 4h + j: j = 0, 1 in the low lanes of ae, ao; 2, 3 the high
+        q4 = torch.stack([ae & 0xFFFF, ao & 0xFFFF, ae >> 16, ao >> 16],
+                         dim=-1)                              # [groups, R, g, 4]
+        d = q4.permute(0, 2, 3, 1).reshape(groups * 4 * g, -1)[:b]
+        out[:, r0:r0 + _ROW_CHUNK] = (d - LUT_BIAS * m).to(torch.int32)
+    return out
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -191,9 +301,6 @@ def _check_codes(codes, lut, n_tiles, name):
     if not (codes.is_contiguous() and lut.is_contiguous()) or codes.data_ptr() % 16:
         raise ValueError(f"{name}: inputs must be contiguous, codes 16-byte "
                          "aligned")
-    if 8 * mk * 2 + ADC_TILE_N * m > 200 * 1024:
-        raise ValueError(f"{name}: LUTs of M*K={mk} exceed the kernel's "
-                         "shared memory")
     return b, m, mk // m
 
 
@@ -218,9 +325,6 @@ def _rerank_args(q, i8_codes, i8_scales, i8_norms2, n_rows, b, name):
             i8_codes.data_ptr() % 4 or q.data_ptr() % 16):
         raise ValueError(f"{name}: rerank inputs must be contiguous CUDA "
                          "tensors, aligned")
-    if 8 * 4 * d > 32 * 1024:
-        raise ValueError(f"{name}: query rows of {d} f32 exceed the "
-                         "kernel's shared memory")
     return d, [a.data_ptr() for a in args]
 
 
@@ -242,10 +346,19 @@ def adc_pallas_scan(codes, lut_flat, *, n_tiles: int, t_per_tile: int = 4
     variant = "int8" if lut_flat.dtype == torch.int8 else "bf16"
     vals, rows = _outputs(b, n_tiles * t_per_tile, codes.device)
     lib = cuda_lib.library()
-    cuda_lib.check(lib.evdb_adc_scan(
-        codes.data_ptr(), lut_flat.data_ptr(), int(variant == "bf16"), b, m, k,
-        n_tiles, t_per_tile, vals.data_ptr(), rows.data_ptr(), _stream()),
-        "adc_pallas_scan")
+    if variant == "int8":
+        s = adc_layout(b, m, k, t_per_tile)["s"]
+        rc = lib.evdb_adc_scan_i8(
+            codes.data_ptr(), pack_lut(lut_flat, m, s).data_ptr(), b, m, k, s,
+            n_tiles, t_per_tile, vals.data_ptr(), rows.data_ptr(), _stream())
+    else:
+        if 2 * 8 * m * k + ADC_TILE_N * m > ADC_SMEM_MAX:
+            raise ValueError(f"adc_pallas_scan: bf16 LUTs of M*K={m * k} "
+                             "exceed the kernel's shared memory")
+        rc = lib.evdb_adc_scan_bf16(
+            codes.data_ptr(), lut_flat.data_ptr(), b, m, k, n_tiles,
+            t_per_tile, vals.data_ptr(), rows.data_ptr(), _stream())
+    cuda_lib.check(rc, "adc_pallas_scan")
     _count(adc_pallas_scan, variant)
     return vals, rows
 
@@ -284,11 +397,13 @@ def _rerank_scan(fn, codes, lut_q, q, i8_codes, i8_scales, i8_norms2,
         raise ValueError(f"{name}: the LUT must be int8")
     d, ptrs = _rerank_args(q, i8_codes, i8_scales, i8_norms2,
                            n_tiles * ADC_TILE_N, b, name)
+    s = adc_layout(b, m, k, t)["s"]
+    packed = pack_lut(lut_q, m, s)
     vals, rows = _outputs(b, n_tiles * t, codes.device)
     lib = cuda_lib.library()
     cuda_lib.check(lib.evdb_adc_rerank_scan(
-        codes.data_ptr(), lut_q.data_ptr(), *ptrs, b, m, k, d, n_tiles, t,
-        int(high_lane), vals.data_ptr(), rows.data_ptr(), _stream()), name)
+        codes.data_ptr(), packed.data_ptr(), *ptrs, b, m, k, s, d, n_tiles,
+        t, int(high_lane), vals.data_ptr(), rows.data_ptr(), _stream()), name)
     _count(fn, "int8")
     return vals, rows
 

@@ -46,7 +46,8 @@ _SIGNATURES = {
                          _P, _P],
     "evdb_fused_scan_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P],
-    "evdb_fused_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_fused_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P],
     "evdb_fused_scan_i4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P],
     "evdb_pos_residual_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -54,9 +55,10 @@ _SIGNATURES = {
     "evdb_cell_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _P, _P, _P],
     "evdb_gather_dots": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "evdb_adc_scan": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_adc_scan_i8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "evdb_adc_scan_bf16": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "evdb_adc_rerank_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _P, _P, _P],
+                             _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -305,10 +305,13 @@ def _kernel_query(q_in: torch.Tensor, variant: str) -> torch.Tensor:
 
 
 def _f32_vec(x: torch.Tensor, n: int, name: str) -> torch.Tensor:
+    """A contiguous, 16-byte aligned f32 vector (the f32 scans copy row
+    factors 16 bytes at a time)."""
     x = x.reshape(-1)
     if x.dtype != torch.float32 or not x.is_cuda or x.shape[0] < n:
         raise ValueError(f"{name}: need >= {n} f32 CUDA values")
-    return x.contiguous()
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _table_arg(table: torch.Tensor, bq: int, n_rows: int, cell_cap: int):
@@ -370,6 +373,52 @@ def mma_scan_layout(bq: int, n_segs: int, seg_rows: int, w: int,
         raise ValueError(f"{smem} B of shared memory exceed {MMA_SMEM_MAX}")
     return dict(q_tiles=q_tiles, run=run, blocks=q_tiles * -(-n_segs // run),
                 cells=cells, smem=smem)
+
+
+F32_Q_TILE = 128       # queries per block of the f32 scans (B3-f32, B4-f32)
+F32_ROW_TILE = 128     # rows per row tile of their mainloop
+# two stages of codes + queries, and two row tiles' two row-factor planes
+F32_RING_BYTES = 2 * 2 * F32_ROW_TILE * (64 + 4) * 4 + 2 * 2 * F32_ROW_TILE * 4
+F32_KEY_BYTES = F32_Q_TILE * (F32_ROW_TILE + 2) * 4    # B4-f32's staged key tile
+F32_SPLITS = (1, 2, 4, 8, 16)   # pieces a 4096-row tile may be cut into
+F32_BLOCK_COST_ROWS = 256       # a block's fixed cost (fill, lists, merge), in rows
+
+
+def f32_tile_layout(bq: int, n_tiles: int, t_per_tile: int,
+                    sm_count: int) -> dict:
+    """B4-f32's launch (csrc/fused_topk.cu::tile_f32_kernel), the one place
+    that sizes it.  A 1-D grid of ``blocks`` = ``q_tiles`` x ``n_tiles`` x
+    ``split``, the query tile fastest; a block covers F32_Q_TILE queries x
+    one piece of ``piece_rows`` = 4096 / ``split`` rows.  ``split`` is the
+    one whose waves of one block an SM take the least time, a block's time
+    being its rows plus F32_BLOCK_COST_ROWS (ties to fewer pieces).  ``jn``:
+    the micro-tile's query columns, under 8 only for a batch under 65
+    queries (16 ``jn`` queries a block).  With ``split`` > 1 the pieces'
+    top-T lists go to a scratch buffer of ``part`` int32 keys, merged by a
+    second launch of ``merge_blocks`` blocks of 256 threads.  ``smem``: the
+    block's dynamic shared memory (the copy ring, the key tile, the
+    threads' lists)."""
+    if t_per_tile not in (2, 4, 8):
+        raise ValueError(f"t_per_tile must be 2, 4 or 8, got {t_per_tile}")
+    if bq < 1 or n_tiles < 1:
+        raise ValueError(f"need >= 1 query and tile, got {bq}, {n_tiles}")
+    q_tiles = -(-bq // F32_Q_TILE)
+    jn = next(j for j in (1, 2, 4, 8) if bq <= 16 * j or j == 8)
+
+    def cost(split):
+        waves = -(-q_tiles * n_tiles * split // sm_count)
+        return waves * (TILE_N // split + F32_BLOCK_COST_ROWS)
+
+    split = min(F32_SPLITS, key=lambda s: (cost(s), s))
+    smem = F32_RING_BYTES + F32_KEY_BYTES + t_per_tile * 256 * 4
+    if smem > MMA_SMEM_MAX:
+        raise ValueError(f"{smem} B of shared memory exceed {MMA_SMEM_MAX}")
+    part = bq * n_tiles * split * t_per_tile if split > 1 else 0
+    return dict(q_tiles=q_tiles, jn=jn, split=split,
+                piece_rows=TILE_N // split,
+                blocks=q_tiles * n_tiles * split, part=part,
+                merge_blocks=-(-bq * n_tiles // 256) if split > 1 else 0,
+                smem=smem)
 
 
 def _layout(q: torch.Tensor, bq: int, n_segs: int, seg_rows: int, ww: int,
@@ -488,8 +537,15 @@ def fused_scan(codes, q, qmult, rowmult, rowbias, n_tiles, t_per_tile):
     lib = cuda_lib.library()
     common = [a.data_ptr() for a in args] + [bq, ww, n_tiles, t_per_tile]
     if variant == "f32":
-        rc = lib.evdb_fused_scan_f32(q.data_ptr(), codes.data_ptr(), *common,
-                                     vals.data_ptr(), rows.data_ptr(), _stream())
+        lay = f32_tile_layout(
+            bq, n_tiles, t_per_tile,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+        part = (torch.empty(lay["part"], dtype=torch.int32, device=q.device)
+                if lay["part"] else None)
+        rc = lib.evdb_fused_scan_f32(
+            q.data_ptr(), codes.data_ptr(), *common, lay["split"], lay["jn"],
+            None if part is None else part.data_ptr(), vals.data_ptr(),
+            rows.data_ptr(), _stream())
     else:
         lay = _layout(q, bq, n_tiles, TILE_N, ww, variant)
         fn = lib.evdb_fused_scan_i8 if variant == "int8" else lib.evdb_fused_scan_i4

@@ -349,3 +349,106 @@ def test_kernel_wrappers_refuse_bad_cuda_input():
     with pytest.raises(ValueError):
         tap.adc_pallas_scan(codes, torch.zeros((1, 64), dtype=torch.int8),
                             n_tiles=1)
+
+
+# ------------------------------ the packed LUT of the int8 kernels (B8-B10)
+
+
+def _largest_m(b=9, k=16, t=2):
+    """The largest M the int8 wrappers' layout accepts (shared memory
+    decides it at small K; the 16-bit sums hold to M 256)."""
+    def fits(m):
+        try:
+            tap.adc_layout(b, m, k, t)
+            return True
+        except ValueError:
+            return False
+    return max(m for m in range(4, tap.ADC_MAX_M + 1, 4) if fits(m))
+
+
+@pytest.mark.parametrize("b", [1, 9, 64, 513])
+@pytest.mark.parametrize("m,k", [(8, 256), (4, 16), (16, 64), ("largest", 16)])
+def test_packed_lut_matches_jax_distances(m, k, b):
+    """pack_lut + packed_lut_dists — the int8 kernels' arithmetic: 4
+    queries' biased entries a word, even and odd bytes summed as 16-bit
+    lanes, 128 M taken off — give the JAX package's ADC distances
+    (erlvectordb_tpu/ops/adc.py, every row ranked) for an integer LUT, at
+    M 8 and at the largest M the wrappers accept, for each subspace
+    phase count the layout may pick."""
+    if m == "largest":
+        m = _largest_m(k=k)
+    rng = np.random.default_rng(m * 1000 + k + b)
+    n = 700
+    books = rng.integers(-5, 6, (m, k, 1)).astype(np.float32)
+    q = rng.integers(-5, 6, (b, m)).astype(np.float32)
+    codes = rng.integers(0, k, (n, m)).astype(np.uint8)
+    codes[10:30] = codes[9]
+    d_sorted, rows = jadc.adc_search_exact_topk(
+        jnp.asarray(codes), jnp.asarray(books), jnp.asarray(q), k=n)
+    want = np.empty((b, n), np.float32)
+    np.put_along_axis(want, np.asarray(rows), np.asarray(d_sorted), axis=1)
+    lut = ((q[:, :, None] - books[None, :, :, 0]) ** 2).astype(np.int8)
+    lut = torch.from_numpy(lut.reshape(b, m * k))
+    for s in (2, 4, 8):
+        if m % s:
+            continue
+        packed = tap.pack_lut(lut, m, s)
+        assert packed.shape == (-(-b // (128 // s)), m // s, k, 32)
+        got = tap.packed_lut_dists(torch.from_numpy(codes), packed, m, s, b)
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_packed_lut_signed_entries_at_the_16_bit_limit(m):
+    """Signed LUT entries (-128..127, biased to 0..255) at M 8 and at M 256,
+    where a lane's biased sum reaches 255 * 256 = 65,280 < 65,536: the
+    packed arithmetic gives the plain version's int32 distances exactly,
+    and the layout refuses M past 256."""
+    rng = np.random.default_rng(m)
+    k, b = 16, 37
+    codes = torch.from_numpy(rng.integers(0, k, (500, m)).astype(np.uint8))
+    lut = torch.from_numpy(rng.integers(-128, 128, (b, m * k)).astype(np.int8))
+    lut[0] = 127                  # every lookup of query 0 at the top
+    lut[1] = -128
+    want = tap._lut_dists(codes, lut)
+    for s in (2, 4, 8):
+        got = tap.packed_lut_dists(codes, tap.pack_lut(lut, m, s), m, s, b)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(want[0, 0]) == 127 * m
+    with pytest.raises(ValueError):
+        tap.adc_layout(b, tap.ADC_MAX_M + 4, 1, 2)
+
+
+@pytest.mark.parametrize("t", [1, 2, 4, 8, 32])
+def test_adc_layout_fits_and_covers(t):
+    """The int8 kernels' launch over B 1-1024 and the shapes the wrappers
+    take: shared memory within the 232,448 B a block may use (mirroring the
+    kernel's carve-up), the subspace phases dividing M, the query groups
+    covering the batch, small batches on narrow groups."""
+    for m, k in ((4, 16), (8, 256), (16, 256), (32, 64), (_largest_m(), 16)):
+        for b in (1, 2, 9, 16, 17, 32, 33, 64, 65, 512, 513, 1024):
+            try:
+                lay = tap.adc_layout(b, m, k, t)
+            except ValueError:
+                assert m > 8 and all(
+                    tap.adc_packed_smem(m, k, s, tap.adc_t_max(t))
+                    > tap.ADC_SMEM_MAX for s in (2, 4, 8) if m % s == 0)
+                continue
+            s = lay["s"]
+            assert m % s == 0
+            assert lay["qg"] == 4 * lay["g"] == 128 // s
+            assert lay["groups"] * lay["qg"] >= b > (lay["groups"] - 1) * lay["qg"]
+            assert lay["tmax"] >= t and lay["smem"] <= tap.ADC_SMEM_MAX
+            assert lay["threads"] == (256 if lay["tmax"] > 8 else 512)
+            assert lay["smem"] == (lay["qg"] * m * k + 2 * 1024 * m
+                                   + 4 * (lay["threads"] // 32)
+                                   * (lay["qg"] * (lay["tmax"] + 1) + 1)
+                                   + 4 * lay["qg"] * lay["tmax"]
+                                   + 4 * lay["qg"])
+            def fits(x):
+                return m % x == 0 and tap.adc_packed_smem(
+                    m, k, x, lay["tmax"]) <= tap.ADC_SMEM_MAX
+            if b <= 16 and fits(8):
+                assert s == 8
+            if b > 32 and fits(2):
+                assert s == 2

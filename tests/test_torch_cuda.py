@@ -877,3 +877,184 @@ def test_adc_scan_wrappers_refuse_bad_input(dev):
                           c["scales"], c["n2"], 3, 4)
     with pytest.raises(ValueError):       # a CPU LUT beside CUDA codes
         ap.adc_pallas_scan(c["codes"], c["lut_q"].cpu(), n_tiles=3)
+
+
+# ------------------------- B4-f32 on the register-tiled mainloop of B3-f32
+
+
+def _f32_tile_case(dev, nq, w, n_tiles, seed, metric="cosine"):
+    """f32 rows (every row repeated three times: ties within a tile, broken
+    by the lane) and the masked extraction's factors."""
+    x, q, valid, _, _, norms = _edge_inputs(dev, nq, w, n_tiles, seed, dup=True)
+    q_in, qmult, rowmult, rowbias, _ = ft._affine_factors(metric, None, norms,
+                                                          valid, q)
+    return x, q_in, qmult, rowmult, rowbias
+
+
+def _check_f32_tile(kern, ref):
+    """The f32 bar: rows identical on >= 99.9% of entries (the rest
+    near-ties whose keys straddle a step, the kernel's dots summed in
+    another order than cuBLAS's), vals to rtol 2.5e-4 where rows agree."""
+    (vk, rk), (vr, rr) = kern, ref
+    same = rk == rr
+    assert int((~same).sum()) <= 1e-3 * same.numel()
+    torch.testing.assert_close(vk[same], vr[same], rtol=2.5e-4, atol=0)
+
+
+@pytest.mark.parametrize("t", [2, 4, 8])
+@pytest.mark.parametrize("w", [128, 384, 768])
+@pytest.mark.parametrize("n_tiles", [1, 5, 7])
+@pytest.mark.parametrize("nq", [1, 16, 129, 1024])
+def test_fused_f32_kernel_edges(dev, nq, n_tiles, w, t):
+    """B4-f32 at 1, 16 (one narrow micro-tile), 129 (a ragged second query
+    tile) and 1024 queries, over 1, 5 and 7 tiles (pieces a tile from the
+    launch layout, waves that do not fill the card) and rows of 2, 6 and
+    12 k chunks, with duplicated rows: against the plain version; then the
+    first 3 queries alone give their rows of the full batch bit for bit
+    (each dot is one fmaf chain over k, whatever block it lands in)."""
+    args = _f32_tile_case(dev, nq, w, n_tiles, nq + w + t,
+                          "euclidean" if nq % 2 else "cosine")
+    x, q_in, qmult, rowmult, rowbias = args
+    ft.reset_launches()
+    vk, rk = ft.fused_scan(*args, n_tiles, t)
+    assert ft.fused_scan.launches_by == {"f32": 1}
+    _check_f32_tile((vk, rk), ft.fused_scan_ref(*args, n_tiles, t))
+    v3, r3 = ft.fused_scan(x, q_in[:3].contiguous(), qmult[:3], rowmult,
+                           rowbias, n_tiles, t)
+    torch.testing.assert_close(r3, rk[:3], rtol=0, atol=0)
+    torch.testing.assert_close(v3, vk[:3], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("nq", [7, 200])
+def test_fused_f32_kernel_every_split(dev, monkeypatch, nq, split):
+    """Every split of a tile across blocks (pieces of 4096 down to 256 rows,
+    merged by the second launch) gives the same rows and vals as one piece
+    a tile, bit for bit, and meets the f32 bar against the plain version."""
+    args = _f32_tile_case(dev, nq, 256, 3, 31 + nq)
+    real = ft.f32_tile_layout
+    whole = ft.fused_scan(*args, 3, 8)
+    monkeypatch.setattr(ft, "f32_tile_layout", lambda *a: {
+        **real(*a), "split": split,
+        "part": a[0] * a[1] * split * a[2] if split > 1 else 0})
+    got = ft.fused_scan(*args, 3, 8)
+    for a, b in zip(got, whole):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _check_f32_tile(got, ft.fused_scan_ref(*args, 3, 8))
+
+
+def test_fused_f32_wrapper_refuses_other_widths(dev):
+    """Rows that are no multiple of 128 floats are refused with an error,
+    not scanned."""
+    x, q_in, qmult, rowmult, rowbias = _f32_tile_case(dev, 5, 256, 1, 3)
+    with pytest.raises(ValueError):
+        ft.fused_scan(x[:, :200].contiguous(), q_in[:, :200].contiguous(),
+                      qmult, rowmult, rowbias, 1, 4)
+
+
+# ------------------------- B8-B10 on the packed, bank-interleaved LUT
+
+
+def _adc_dup_case(dev, b, m, k, seed):
+    """Random PQ codes over 3 tiles with runs of duplicated codes (inside a
+    warp's rows, across the boundary of two warps' rows and across two
+    tiles), int8 rerank rows of 64 dims, an int8 LUT of -128..127."""
+    rng = np.random.default_rng(seed)
+    n = 3 * 1024 + 100
+    codes = rng.integers(0, k, (n, m)).astype(np.uint8)
+    codes[5:40] = codes[4]
+    codes[50:140] = codes[49]
+    codes[1000:1100] = codes[999]
+    x = rng.standard_normal((n, 64)).astype(np.float32)
+    scales = (np.abs(x).max(axis=1) / 127.0).astype(np.float32)
+    i8 = np.clip(np.round(x / scales[:, None]), -127, 127).astype(np.int8)
+    n2 = (scales.astype(np.float64) ** 2
+          * (i8.astype(np.float64) ** 2).sum(1)).astype(np.float32)
+    q = rng.standard_normal((b, 64)).astype(np.float32)
+    lut = rng.integers(-128, 128, (b, m * k)).astype(np.int8)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(codes), t(lut), t(q), t(i8), t(scales), t(n2)
+
+
+def _check_adc(kern, ref, rerank, q, i8, scales, n2):
+    """Rows identical; B10's values identical, B8/B9's reranked values
+    within 1e-5 of the magnitude of their terms (the bar of
+    test_adc_rerank_scans_match_plain)."""
+    (vk, rk), (vr, rr) = kern, ref
+    np.testing.assert_array_equal(rk.cpu().numpy(), rr.cpu().numpy())
+    if not rerank:
+        np.testing.assert_array_equal(vk.cpu().numpy(), vr.cpu().numpy())
+        return
+    rows = rr.long()
+    xs = i8[rows].float() * scales[rows][:, :, None]
+    mag = ((q * q).sum(1, keepdim=True) + 2 * (q[:, None, :] * xs).sum(-1).abs()
+           + n2[rows])
+    assert ((vk - vr).abs() <= 1e-5 * mag).all()
+
+
+@pytest.mark.parametrize("t", [1, 2, 4, 8, 13, 32])
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("m", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 9, 513])
+@pytest.mark.parametrize("scan", ["pallas", "exact"])
+def test_adc_packed_kernels_match_plain(dev, scan, b, m, k, t):
+    """B10-int8 and B9 on the packed LUT at 1, 9 and 513 queries (the
+    layout's 8-, 4- and 2-phase warps), M 4, 8, 16, K 16 and 256, every
+    list depth (T 1 to 32), ties inside a warp's rows, across warps and
+    across tiles: the plain version's picks, bit for bit."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    codes, lut, q, i8, sc, n2 = _adc_dup_case(dev, b, m, k, b + m + k + t)
+    ap.reset_launches()
+    if scan == "pallas":
+        kern = ap.adc_pallas_scan(codes, lut, n_tiles=3, t_per_tile=t)
+        ref = ap.adc_pallas_scan_ref(codes, lut, 3, t)
+    else:
+        kern = ap.adc_exact_scan(codes, lut, q, i8, sc, n2, 3, t)
+        ref = ap.adc_exact_scan_ref(codes, lut, q, i8, sc, n2, 3, t)
+    torch.cuda.synchronize()
+    assert sum(f.launches for f in ap.KERNELS) == 1
+    _check_adc(kern, ref, scan == "exact", q, i8, sc, n2)
+
+
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("m", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 9, 513])
+def test_adc_pos_packed_kernel_matches_plain(dev, b, m, k):
+    """B8 (top-2 a slice, ties to the higher row) on the packed LUT: the
+    plain version's picks bit for bit, reranked values to the rerank bar."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    codes, lut, q, i8, sc, n2 = _adc_dup_case(dev, b, m, k, 7 * b + m + k)
+    kern = ap.adc_pos_scan(codes, lut, q, i8, sc, n2, 3)
+    ref = ap.adc_pos_scan_ref(codes, lut, q, i8, sc, n2, 3)
+    torch.cuda.synchronize()
+    _check_adc(kern, ref, True, q, i8, sc, n2)
+
+
+def test_adc_packed_kernel_at_the_largest_m(dev):
+    """The largest M the int8 wrappers accept (at K 16, the layout's
+    shared memory decides it; the 16-bit sums hold to M 256): B10-int8 and
+    B8 with every entry at an extreme of the LUT's range, against the plain
+    versions, and one M more is refused."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    def fits(m):
+        try:
+            ap.adc_layout(9, m, 16, 2)
+            return True
+        except ValueError:
+            return False
+
+    m = max(x for x in range(4, ap.ADC_MAX_M + 1, 4) if fits(x))
+    codes, lut, q, i8, sc, n2 = _adc_dup_case(dev, 9, m, 16, m)
+    lut = torch.where(lut >= 0, 127, -128).to(torch.int8)
+    _check_adc(ap.adc_pallas_scan(codes, lut, n_tiles=3, t_per_tile=2),
+               ap.adc_pallas_scan_ref(codes, lut, 3, 2), False, q, i8, sc, n2)
+    _check_adc(ap.adc_pos_scan(codes, lut, q, i8, sc, n2, 3),
+               ap.adc_pos_scan_ref(codes, lut, q, i8, sc, n2, 3), True, q, i8,
+               sc, n2)
+    big = torch.zeros((9, (m + 4) * 16), dtype=torch.int8, device=dev)
+    wide = torch.zeros((codes.shape[0], m + 4), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        ap.adc_pallas_scan(wide, big, n_tiles=3, t_per_tile=2)

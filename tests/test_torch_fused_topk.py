@@ -722,3 +722,52 @@ def test_mma_layout_grid_has_no_y_limit(sm_count, seg_rows):
     small = tft.mma_scan_layout(1024, 548, seg_rows, 128, False, 0, sm_count)
     assert small["run"] == max(1, min(8192 // seg_rows,
                                       548 * 8 // (4 * sm_count)))
+
+
+# --------------------------------------------------- B4-f32's launch layout
+
+
+@pytest.mark.parametrize("t", [2, 4, 8])
+def test_f32_tile_layout_covers_every_tile(t):
+    """B4-f32's launch over B 1-1024, n_tiles 1-300 (132 SMs): every tile
+    cut into whole pieces of 128-row tiles, one block per (query tile,
+    piece), the merge only for split tiles, the scratch sized for every
+    piece's list, narrow micro-tiles only for batches they cover, shared
+    memory within the 232,448 B a block may use; and no other split takes
+    fewer waves by the layout's own reckoning."""
+    for bq in (1, 2, 15, 16, 17, 33, 64, 65, 127, 128, 129, 513, 1024):
+        for n_tiles in range(1, 301):
+            lay = tft.f32_tile_layout(bq, n_tiles, t, 132)
+            split, q_tiles = lay["split"], -(-bq // 128)
+            assert split in tft.F32_SPLITS
+            assert lay["piece_rows"] * split == TILE_N
+            assert lay["piece_rows"] % tft.F32_ROW_TILE == 0
+            assert lay["q_tiles"] == q_tiles
+            assert lay["blocks"] == q_tiles * n_tiles * split
+            assert lay["part"] == (bq * n_tiles * split * t if split > 1 else 0)
+            assert lay["merge_blocks"] * 256 >= (bq * n_tiles if split > 1 else 0)
+            assert lay["jn"] in (1, 2, 4, 8)
+            assert lay["jn"] == 8 or 16 * lay["jn"] >= bq
+            assert lay["jn"] == 8 or 16 * lay["jn"] < 2 * max(bq, 16)
+            assert lay["smem"] == (2 * 2 * 128 * 68 * 4 + 2 * 2 * 128 * 4
+                                   + 128 * 130 * 4 + t * 256 * 4
+                                   ) <= tft.MMA_SMEM_MAX
+
+            def cost(s):
+                return (-(-q_tiles * n_tiles * s // 132)
+                        * (TILE_N // s + tft.F32_BLOCK_COST_ROWS))
+            assert all(cost(split) <= cost(s) for s in tft.F32_SPLITS)
+    with pytest.raises(ValueError):
+        tft.f32_tile_layout(16, 5, 3, 132)
+
+
+def test_f32_tile_layout_at_the_served_shapes():
+    """The two served shapes: (d)'s 5 tiles at 1024 queries are split so
+    that more than 40 blocks run; (c32)'s 293 tiles at k = 32 keep whole
+    tiles (18 waves either way); 1 and 16 queries run one query column."""
+    d = tft.f32_tile_layout(1024, 5, 8, 132)
+    assert d["split"] > 1 and d["blocks"] > 40
+    c = tft.f32_tile_layout(1024, 293, tft.t_per_tile_for(293, 32), 132)
+    assert c["split"] == 1 and c["part"] == 0 and c["blocks"] == 2344
+    for bq in (1, 16):
+        assert tft.f32_tile_layout(bq, 5, 8, 132)["jn"] == 1
