@@ -8,14 +8,17 @@ Phases, each printing one JSON line of its own numbers:
   1. device   the card's name and power limit (nvidia-smi) and versions;
   2. build    the CUDA kernels compiled from csrc/ with nvcc (seconds,
               spills; registers and spills of every instantiation of the
-              tensor-core scans B1-B6, the register-tiled B3-f32 and B4-f32
-              and the packed-LUT B8-B10, which must all be there and must
+              tensor-core scans B1-B6, the register-tiled B3-f32 and B4-f32,
+              B7 (int4 and int8) and B8-B10, which must all be there and must
               not spill), and the stores built on the card (ms, device
               bytes);
   3. kernels  each kernel variant against its plain PyTorch version at the
               shapes its served path gives it (1024 queries, W=128; B4-f32
-              also at 1 and 16 queries and at (c32)'s 1.2M rows at k = 32),
-              with the stated bars, median CUDA-event times and the bound;
+              also at 1 and 16 queries and at (c32)'s 1.2M rows at k = 32;
+              B7-int4 also at nprobe 512 and at 1 and 16 queries, with the
+              cell blocks its plan reads, and timed under each plan by
+              batch), with the stated bars, median CUDA-event times and the
+              bound;
   4. slice    the stores behind the MCP server, each path driven with the
               launch counts zeroed just before it and read just after:
                 (a) int8 cosine intkey, 1.2M     -> B1 intkey_scan
@@ -134,11 +137,13 @@ F32_SOURCE = "fused_topk.cu"   # B3 and B4 on f32 codes
 # (T 2 / 4 / 8 x wide dots), B5 (t_top 2 / 8 x wide dots), B3-f32, B4-f32
 # (T 2 / 4 / 8 x 1, 2, 4, 8 query columns) and its merge (T), B8-B10 on the
 # packed int8 LUT ((B10, B9 at list depths 2 / 4 / 8 / 32, B8) x 2, 4, 8
-# subspace phases a warp)
+# subspace phases a warp), B7 on int4 (bf16 mma; windows of up to 8 or 32
+# pairs) and int8, B10-bf16
 CHECKED_KERNELS = {"slice_scan_kernel": 10, "tile_scan_kernel": 18,
                    "residual_mma_kernel": 4, "pos_f32_kernel": 2,
                    "tile_f32_kernel": 12, "tile_merge_kernel": 3,
-                   "adc_packed_kernel": 27}
+                   "adc_packed_kernel": 27, "gather_mma_kernel": 2,
+                   "gather_dots_kernel": 1, "adc_bf16_kernel": 1}
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops/s (the
 # int4 codes are counted at the int8 rate they run at after unpacking), bf16
 # tensor-core FLOP/s (B7: a bf16-exact query against int8-exact codes), f32
@@ -293,12 +298,31 @@ def read_launches() -> dict:
             for mod in kernel_modules() for k in mod.KERNELS if k.launches}
 
 
-def gather_check(out, variant, codes3, probe, q):
+def b7_reads(probe, n_cells, plan):
+    """Cell blocks B7-int4 reads for ``probe`` under ``plan`` (window,
+    sort): one a run of equal cells within a window of the pairs."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+
+    window, sort = plan
+    cells, _ = cp.b7_plan(probe, sort)
+    cells = cells.clamp(0, n_cells - 1)
+    i = torch.arange(cells.numel(), device=cells.device)
+    new_run = torch.ones_like(cells, dtype=torch.bool)
+    new_run[1:] = cells[1:] != cells[:-1]
+    return int((new_run | (i % window == 0)).sum())
+
+
+def gather_check(out, variant, codes3, probe, q, row=None):
     """B7 against its plain version on the same inputs: every entry within
     1e-5 of sum |q| |c| (the kernel sums in f32, the plain version in
-    float64).  The bound counts each distinct probed cell's block once, the
-    query and probe lists, and the [B, nprobe, cap] f32 output; the bytes the
-    kernel reads (a block per query and probe) are reported beside it."""
+    float64); the largest ratio is reported beside the bar.  The bound
+    counts each distinct probed cell's block once, the query and probe
+    lists, and the [B, nprobe, cap] f32 output; the bytes the kernel reads
+    (int8: a block per query and probe; int4: a block per run of its plan)
+    are reported beside it.  ``row``: the summary row's label where the
+    variant has several rows."""
     import torch
 
     import erlvectordb_tpu_torch.ops.cell_probe as cp
@@ -318,26 +342,56 @@ def gather_check(out, variant, codes3, probe, q):
     torch.cuda.synchronize()
     err = (kern - ref).abs()
     over = float((err > 1e-5 * mag + 1e-30).float().mean())
+    rel = float((err / (mag + 1e-30)).max())
+    label = f"gather_dots[{row or variant}]"
     if over:
-        raise AssertionError(f"gather_dots[{variant}]: {over:.2e} of entries "
-                             "beyond 1e-5 of sum |q| |c|")
+        raise AssertionError(f"{label}: {over:.2e} of entries beyond 1e-5 of "
+                             f"sum |q| |c| (largest ratio {rel:.2e})")
     ms = cuda_ms(lambda: cp.gather_dots(codes3, probe, q))
     plain_ms = cuda_ms(lambda: cp.gather_dots_ref(codes3, probe, q), reps=3)
     b, nprobe = probe.shape
-    _, cap, wc = codes3.shape
+    n_cells, cap, wc = codes3.shape
     cells = int(torch.unique(probe).numel())
     nbytes = (cells * cap * wc + 4 * b * q.shape[1] + 4 * b * nprobe
               + 4 * b * nprobe * cap)
     b_ms, b_by = bound("bf16", 2.0 * b * nprobe * cap * q.shape[1], nbytes)
+    extra = dict(batch=b, nprobe=nprobe, cap=cap, width=q.shape[1],
+                 distinct_cells=cells, bound_bytes=nbytes, max_rel_err=rel)
+    if variant == "int4":
+        plan = cp.b7_plan_for(b * nprobe, b)
+        reads = b7_reads(probe, n_cells, plan)
+        extra.update(window=plan[0], sorted=plan[1], cell_reads=reads,
+                     bytes_read=reads * cap * wc)
+    else:
+        extra.update(bytes_read=b * nprobe * cap * wc)
     rec = dict(max_abs_err=float(err.max()), mismatch=over, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               rows=b * nprobe * cap,
-               extra=dict(batch=b, nprobe=nprobe, cap=cap, width=q.shape[1],
-                          distinct_cells=cells, bound_bytes=nbytes,
-                          bytes_read=b * nprobe * cap * wc))
-    out[("gather_dots", variant)] = rec
-    emit("kernel", name="gather_dots", variant=variant,
+               rows=b * nprobe * cap, extra=extra)
+    if row:
+        rec["launch_variant"] = variant
+    out[("gather_dots", row or variant)] = rec
+    emit("kernel", name="gather_dots", variant=row or variant,
          **{k: v for k, v in rec.items() if k != "extra"}, **rec["extra"])
+
+
+def b7_window_sweep(codes3, probe_of, q):
+    """B7-int4 at nprobe 64 by batch under three plans: one pair a window,
+    B7_PIPELINE pairs a window in pair order, B7_WINDOW sorted (the sort
+    included), and the plan the wrapper picks: the CUDA-event ms (host
+    bound at small batches) that set B7_SORT_MIN_PAIRS."""
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+
+    plans = {"s1": (1, False), f"s{cp.B7_PIPELINE}": (cp.B7_PIPELINE, False),
+             f"s{cp.B7_WINDOW}-sorted": (cp.B7_WINDOW, True), "picked": None}
+    sweep = {}
+    for b in (16, 64, 256, 512, 1024):
+        probe = probe_of(b, B7_NPROBE)
+        sweep[b] = {k: cuda_ms(lambda: cp.gather_dots(codes3, probe, q[:b],
+                                                      plan=v), reps=20)
+                    for k, v in plans.items()}
+        sweep[b]["plan"] = cp.b7_plan_for(b * B7_NPROBE, b)
+    emit("b7_window_sweep", nprobe=B7_NPROBE, ms_by_batch_and_plan=sweep,
+         sort_min_pairs=cp.B7_SORT_MIN_PAIRS)
 
 
 def kernel_phase(st, queries):
@@ -509,12 +563,23 @@ def kernel_phase(st, queries):
 
     f = st["f"]
     n_cells, cap = f._centroids.shape[0], f._cell_cap
-    probe = cp.route_probes(
-        f._centroids, qp[:B7_BATCH["int4"]],
-        f._valid.reshape(n_cells, cap).any(dim=1), metric="cosine",
-        nprobe=B7_NPROBE).to(torch.int32).contiguous()
-    gather_check(out, "int4", f._vectors.reshape(n_cells, cap, -1), probe,
-                 qp[:B7_BATCH["int4"]].to(torch.bfloat16).float())
+    codes3 = f._vectors.reshape(n_cells, cap, -1)
+    qbf = qp.to(torch.bfloat16).float()
+
+    def probe_of(b, nprobe):
+        return cp.route_probes(
+            f._centroids, qp[:b], f._valid.reshape(n_cells, cap).any(dim=1),
+            metric="cosine", nprobe=nprobe).to(torch.int32).contiguous()
+
+    b = B7_BATCH["int4"]
+    gather_check(out, "int4", codes3, probe_of(b, B7_NPROBE), qbf[:b])
+    # (f-mp)'s deepest point and (f-rq)'s width, and small requests
+    gather_check(out, "int4", codes3, probe_of(b, RQ_NPROBE), qbf[:b],
+                 row=f"int4-np{RQ_NPROBE}")
+    for bq in (1, 16):
+        gather_check(out, "int4", codes3, probe_of(bq, B7_NPROBE), qbf[:bq],
+                     row=f"int4-bq{bq}")
+    b7_window_sweep(codes3, probe_of, qbf)
     return out
 
 

@@ -21,6 +21,14 @@ chip_smoke.py names for it:
   * (j)   config 4 as chip_smoke.py builds it (1M x 128, OPQ 8 x 8 bits,
           int8 rerank rows): the three ADC searches on 512 queries
           -> B8 adc_pos_scan, B9 adc_exact_scan, B10 adc_pallas_scan int8
+  * (f-mp) store (f) searched by nprobe: 1024 queries at nprobe 64 and 512,
+    16 and 64 at 64 -> B7 gather_dots int4 and its glue (f_mp_*); the same
+    for the rq_m = 9 store (f-rq) of the same corpus (f_rq_*)
+  * B7 int4 alone on store (f)'s cells and routed probe lists: 1024 queries
+    at nprobe 64 and 512, 1, 16, 64 and 256 queries at nprobe 64 (b7_int4_*)
+  * B7 int8 alone at (i)'s shapes: 256 queries x 64 probes of a 20,224-cell
+    table of 512 x 768 random int8 codes, probes drawn at random (seeded);
+    also a hash of its output, equal between checkouts that share the kernel
 
     python3 compare_scans.py ROOT [ROOT ...]
 
@@ -119,6 +127,63 @@ def timed_calls(call, out: dict, tag: str) -> None:
     out[f"{tag}_profile"] = cs.profile_calls(sync_call, reps=REPS)
 
 
+def multiprobe(store, queries, out, tag) -> None:
+    """Multiprobe batches of an int4r store at the store API (B7 int4 and
+    its glue): 1024 queries at nprobe 64 and 512, 16 and 64 at 64."""
+    for bq, nprobe in ((cs.BATCH, cs.B7_NPROBE), (cs.BATCH, cs.RQ_NPROBE),
+                       (16, cs.B7_NPROBE), (64, cs.B7_NPROBE)):
+        timed_calls(lambda: store.search_batch_complete_raw(
+            store.search_batch_submit(queries[:bq], k=cs.K, nprobe=nprobe)),
+            out, f"{tag}_bq{bq}_np{nprobe}")
+
+
+def b7_int4(store, queries, out) -> None:
+    """B7 int4 on the int4r store's cells at (f-mp)'s shapes."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+
+    n_cells, cap = store._centroids.shape[0], store._cell_cap
+    codes3 = store._vectors.reshape(n_cells, cap, -1)
+    qp = torch.zeros((cs.BATCH, codes3.shape[2] * 2), device=codes3.device)
+    qp[:, :cs.DIM] = torch.from_numpy(queries[:cs.BATCH]).to(codes3.device)
+    active = store._valid.reshape(n_cells, cap).any(dim=1)
+    for bq, nprobe in ((cs.BATCH, cs.B7_NPROBE), (cs.BATCH, cs.RQ_NPROBE),
+                       (1, cs.B7_NPROBE), (16, cs.B7_NPROBE),
+                       (64, cs.B7_NPROBE), (256, cs.B7_NPROBE)):
+        probe = cp.route_probes(store._centroids, qp[:bq], active,
+                                metric="cosine", nprobe=nprobe
+                                ).to(torch.int32).contiguous()
+        qbf = qp[:bq].to(torch.bfloat16).float()
+        timed_calls(lambda: cp.gather_dots(codes3, probe, qbf), out,
+                    f"b7_int4_bq{bq}_np{nprobe}")
+
+
+def b7_int8(out) -> None:
+    """B7 int8 at the cell-probe index's shapes, on seeded random codes."""
+    import hashlib
+
+    import torch
+
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
+    codes3 = torch.randint(-127, 128, (20_224, 512, cs.I_DIM), generator=gen,
+                           device="cuda", dtype=torch.int8)
+    bq = cs.B7_BATCH["int8"]
+    probe = torch.randint(0, codes3.shape[0], (bq, cs.B7_NPROBE), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    q = torch.randn((bq, cs.I_DIM), generator=gen, device="cuda"
+                    ).to(torch.bfloat16).float()
+    res = cp.gather_dots(codes3, probe, q)
+    out["b7_int8_output_sha256"] = hashlib.sha256(
+        res.cpu().numpy().tobytes()).hexdigest()
+    timed_calls(lambda: cp.gather_dots(codes3, probe, q), out,
+                f"b7_int8_bq{bq}_np{cs.B7_NPROBE}")
+    del codes3
+    torch.cuda.empty_cache()
+
+
 def measure(root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -138,13 +203,21 @@ def measure(root: str) -> dict:
             timed_calls(lambda: store.search_batch_complete_raw(
                 store.search_batch_submit(queries[:bq], k=k)), out,
                 f"{name}_bq{bq}" + ("" if k == cs.K else f"_k{k}"))
+        if name == "f":
+            b7_int4(store, queries, out)
+            multiprobe(store, queries, out, "f_mp")
         if name == "a":
             ms = mcp_batch_ms(store, queries)
             out["a_mcp_b64_batch_ms_median"] = float(np.median(ms))
             out["a_mcp_b64_batch_ms_all"] = ms
         del store
         torch.cuda.empty_cache()
-    del corpus
+    rq = VectorStore.from_matrix("f-rq", corpus, device=dev, dtype="int4r",
+                                 rq_m=cs.RQ_M)
+    multiprobe(rq, queries, out, "f_rq")
+    del rq, corpus
+    torch.cuda.empty_cache()
+    b7_int8(out)
     data, _ = cs.adc_corpus(cs.SEED + 4)
     *_, tq, searches, _ = cs.adc_build(torch.from_numpy(data).to(dev))
     for name, fn in searches.items():

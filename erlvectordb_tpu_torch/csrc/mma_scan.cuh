@@ -20,6 +20,9 @@
 // Packed nibbles unpack to the order [high nibbles | low nibbles] of each
 // 32-bit code word, i.e. elements [0 2 4 6 | 1 3 5 7] of its 8-element
 // group: the order in which the wrappers already hand over the query.
+//
+// Below them, the bf16 mma.sync helpers of B7's packed-int4 gather
+// (cell_probe.cu).
 
 #pragma once
 
@@ -94,6 +97,50 @@ __device__ __forceinline__ void warp_tile_dots(const int8_t* qs, int qp,
       mma_s8(acc[j + 1], a, b[2], b[3]);
     }
   }
+}
+
+// ------------------------------------------- bf16 mma.sync (B7, int4 codes)
+//
+// mma.sync m16n8k16 bf16 with f32 accumulators, thread (g = lane / 4,
+// t = lane % 4):
+//   A (16 x 16, row-major)  a0: row g,     k 2t, 2t+1;  a1: row g + 8, same k;
+//                           a2: row g,     k 2t+8, 2t+9; a3: row g + 8, same k;
+//   B (16 x 8, col-major)   b0: k 2t, 2t+1, column g;   b1: k 2t+8, 2t+9;
+//   C (16 x 8)              [0], [1]: row g, columns 2t, 2t+1; [2], [3]: row g + 8.
+// The lower k of each pair sits in the register's low 16 bits.
+
+// one packed code word (bytes i = 0..3, element 2i in the high nibble) ->
+// four bf16x2, r[i] = (element 2i, element 2i + 1) of byte i: (n ^ 8) | 0x4300
+// is the bf16 128 + (n ^ 8), less 136 the signed nibble (both steps exact)
+__device__ __forceinline__ void nibbles_bf16(uint32_t w, uint32_t (&r)[4]) {
+  const uint32_t hi = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t lo = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t t0 = __byte_perm(hi, lo, 0x5140);   // h0 l0 h1 l1
+  const uint32_t t1 = __byte_perm(hi, lo, 0x7362);   // h2 l2 h3 l3
+  r[0] = __byte_perm(t0, 0x43434343u, 0x4140);
+  r[1] = __byte_perm(t0, 0x43434343u, 0x4342);
+  r[2] = __byte_perm(t1, 0x43434343u, 0x4140);
+  r[3] = __byte_perm(t1, 0x43434343u, 0x4342);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)   // x * 1.0 - 136.0
+    asm("fma.rn.bf16x2 %0, %0, %1, %2;\n"
+        : "+r"(r[i]) : "r"(0x3F803F80u), "r"(0xC308C308u));
+}
+
+// two f32 -> one bf16x2 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------ the block mainloop

@@ -22,8 +22,11 @@ gather+dot kernel B7 (``gather_dots``, ``csrc/cell_probe.cu``) on the
 bf16-rounded query held as f32 — the precision class of the JAX package's
 path, where the TPU kernel multiplies at bf16 class and its CPU path rounds
 the query to bf16 with f32 accumulation.  Every multiprobe search on a CUDA
-device launches B7, for any nprobe, cell size and batch; on the CPU the
-plain version ``gather_dots_ref`` answers.
+device launches B7, for any nprobe, cell size and batch: on packed int4
+codes, with products on bf16 tensor cores, and from B7_SORT_MIN_PAIRS
+(query, probe) pairs sorted by cell (``b7_plan``) so a block reads each
+probed cell once for the queries of its window; on the CPU the plain
+version ``gather_dots_ref`` answers.
 
 The TPU accommodations of the JAX module do not carry over: the TPU gate and
 the VMEM/SMEM batch chunking, the [evens | odds] query reorder and the
@@ -102,12 +105,63 @@ def gather_dots_ref(codes3, probe, queries):
     return out
 
 
-def gather_dots(codes3, probe, queries):
+# B7-int4's plan: from B7_SORT_MIN_PAIRS (query, probe) pairs, windows of
+# B7_WINDOW pairs sorted by cell; below, windows of 1 to B7_PIPELINE pairs
+# in pair order, as few as fill B7_BLOCKS blocks (132 SMs x 4 resident
+# blocks of the kernel); one pair a window for one query
+B7_WINDOW = 32
+B7_SORT_MIN_PAIRS = 65536
+B7_PIPELINE = 8
+B7_BLOCKS = 528
+B7_CHUNK = 128   # k elements of the kernel's chunk
+
+
+def b7_query_order(w: int) -> np.ndarray:
+    """The k order of B7-int4 (``csrc/cell_probe.cu``): the element of a
+    query row of width ``w`` staged at each position of its bf16 row, in
+    chunks of 128 (the last one zero past ``w``: -1).  In each chunk, position
+    32m + 8t + i holds element 32t + 8m + i: the 8-element groups transposed,
+    so thread t of a quad reads its B fragments for mma k steps 2m, 2m + 1 as
+    the 16 bytes at 64m + 16t, matching the A fragments it takes from bytes
+    16t .. 16t + 15 of the packed code chunk."""
+    n = -(-w // B7_CHUNK) * B7_CHUNK
+    p = np.arange(n)
+    m, t, i = (p % B7_CHUNK) // 32, (p % 32) // 8, p % 8
+    e = p - p % B7_CHUNK + 32 * t + 8 * m + i
+    return np.where(e < w, e, -1)
+
+
+def b7_plan_for(n_pairs: int, batch: int):
+    """(window, sort): B7-int4's plan for ``n_pairs`` (query, probe) pairs.
+    One query's probes are distinct cells, and few pairs share few cells,
+    so neither sorts (the sort's launches would cost more than the reads it
+    saves): windows in pair order, one pair for one query."""
+    if batch > 1 and n_pairs >= B7_SORT_MIN_PAIRS:
+        return B7_WINDOW, True
+    if batch == 1:
+        return 1, False
+    return max(1, min(B7_PIPELINE, -(-n_pairs // B7_BLOCKS))), False
+
+
+def b7_plan(probe, sort):
+    """(cells, order): the flat probe ids sorted, with their flat pairs b *
+    nprobe + j (int64; stable, so equal cells keep pair order); unsorted,
+    the ids in pair order and no order.  Sorting the raw ids sorts the
+    clamped ones too (clamping is monotone)."""
+    flat = probe.reshape(-1)
+    if not sort:
+        return flat, None
+    return torch.sort(flat, stable=True)
+
+
+def gather_dots(codes3, probe, queries, *, plan=None):
     """B7: the raw residual dots [B, nprobe, cap] f32 of each query against
     each probed cell's code block (int8 [K, cap, W] or packed int4 [K, cap,
-    W/2] codes; probe [B, nprobe] int32; queries [B, W] f32).  Replaces
+    W/2] codes; probe [B, nprobe] int32; queries [B, W] f32, bf16-exact for
+    packed codes, which the kernel multiplies in bf16).  Replaces
     erlvectordb_tpu ``_dma_gather_dots``.  Probe ids outside [0, K) are
-    clamped into it by the kernel."""
+    clamped into it by the kernel.  ``plan``: B7-int4's (window, sort)
+    (default ``b7_plan_for``); the output does not depend on it."""
     if codes3.device.type == "cpu":
         return gather_dots_ref(codes3, probe, queries)
     from erlvectordb_tpu_torch.ops import cuda_lib
@@ -133,18 +187,36 @@ def gather_dots(codes3, probe, queries):
     if wc % 16 or codes3.data_ptr() % 16 or queries.data_ptr() % 16:
         raise ValueError("gather_dots: rows must be 16-byte multiples, "
                          "16-byte aligned")
-    if 4 * w > 48 * 1024:
+    if variant == "int8" and 4 * w > 48 * 1024:
         raise ValueError(f"gather_dots: query rows of {w} f32 exceed the "
                          "kernel's shared memory")
+    if b * nprobe >= 2 ** 31:
+        raise ValueError("gather_dots: more than 2^31 - 1 (query, probe) pairs")
+    if variant == "int8":
+        if plan is not None:
+            raise ValueError("gather_dots: int8 codes take no plan")
+    else:
+        window, sort = b7_plan_for(b * nprobe, b) if plan is None else plan
+        if not 1 <= window <= B7_WINDOW:
+            raise ValueError(f"gather_dots: window {window} not in "
+                             f"[1, {B7_WINDOW}]")
     out = torch.empty((b, nprobe, cap), dtype=torch.float32,
                       device=queries.device)
     if b == 0 or nprobe == 0:
         return out
     lib = cuda_lib.library()
-    cuda_lib.check(lib.evdb_gather_dots(
-        codes3.data_ptr(), probe.data_ptr(), queries.data_ptr(), k_cells, cap,
-        wc, w, b, nprobe, int(variant == "int4"), out.data_ptr(), _stream()),
-        "gather_dots")
+    if variant == "int8":
+        rc = lib.evdb_gather_dots(
+            codes3.data_ptr(), probe.data_ptr(), queries.data_ptr(), k_cells,
+            cap, wc, w, b, nprobe, out.data_ptr(), _stream())
+    else:
+        cells, order = b7_plan(probe, sort)
+        rc = lib.evdb_gather_dots_i4(
+            codes3.data_ptr(), cells.data_ptr(),
+            None if order is None else order.data_ptr(), queries.data_ptr(),
+            k_cells, cap, w, nprobe, b * nprobe, window, out.data_ptr(),
+            _stream())
+    cuda_lib.check(rc, "gather_dots")
     _count(gather_dots, variant)
     return out
 

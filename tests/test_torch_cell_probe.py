@@ -94,6 +94,139 @@ def test_gather_dots_counts_no_launch_on_cpu():
     assert tcp.gather_dots.launches == 0 and tcp.gather_dots.launches_by == {}
 
 
+# ------------------------------------- B7-int4's k order and plan (the kernel)
+
+
+def _nibble_pair(byte):
+    """A packed byte as the kernel's bf16 pair: (high nibble, low nibble),
+    signed, the high nibble in the register's low half (the lower k)."""
+    return ((int(byte) >> 4) ^ 8) - 8, ((int(byte) & 15) ^ 8) - 8
+
+
+@pytest.mark.parametrize("w", [32, 128, 768, 1536])
+def test_b7_fragment_order_gives_the_plain_dot(w):
+    """A model of mma.sync m16n8k16's bf16 fragments (the PTX ISA's thread
+    mapping: a0/a1 rows g/g+8 at k 2t, 2t+1, a2/a3 at k 2t+8, 2t+9; b0/b1
+    column g at the same k) filled as csrc/cell_probe.cu fills them: A from
+    bytes 16t + 4c + 2s + j of the packed chunk, B from the 16 bytes at
+    64c + 16t of the query row staged in ``b7_query_order``.  Summed over the
+    k steps, the fragments give the plain dot exactly (integer inputs)."""
+    rng = np.random.default_rng(w)
+    vals = rng.integers(-8, 8, (16, w)).astype(np.int8)
+    q = rng.integers(-50, 51, (8, w)).astype(np.float64)
+    order = tcp.b7_query_order(w)
+    assert len(order) % 128 == 0 and len(order) - w < 128
+    assert sorted(order[order >= 0]) == list(range(w))
+    staged = np.where(order >= 0, q[:, np.maximum(order, 0)], 0.0)
+    nk = len(order) // 128
+    chunks = np.zeros((16, nk * 64), np.uint8)
+    chunks[:, :w // 2] = _pack(vals)
+    acc = np.zeros((16, 8))
+    for kc in range(nk):
+        for ks in range(8):
+            c, s = divmod(ks, 2)
+            a = np.full((16, 16), np.nan)
+            b = np.full((16, 8), np.nan)
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for j in (0, 1):
+                    k = 2 * t + 8 * j
+                    for row in (g, g + 8):
+                        a[row, k:k + 2] = _nibble_pair(
+                            chunks[row, kc * 64 + 16 * t + 4 * c + 2 * s + j])
+                    pos = kc * 128 + 32 * c + 8 * t + 4 * s + 2 * j
+                    b[k:k + 2, g] = staged[g, pos:pos + 2]
+            assert not np.isnan(a).any() and not np.isnan(b).any()
+            acc += a @ b
+    np.testing.assert_array_equal(acc, vals.astype(np.float64) @ q.T)
+
+
+def _emulate_b7_plan(codes3, probe, q, window, sort):
+    """The kernel's plan in plain torch: b7_plan's pairs (sorted by cell, or
+    in pair order) cut into windows of ``window``, each window walked as
+    runs of equal (clamped) cells, each run's queries dotted with its cell.
+    Returns the output and the number of runs (cell reads)."""
+    b, nprobe = probe.shape
+    k_cells, cap, _ = codes3.shape
+    cells, order = tcp.b7_plan(probe, sort)
+    if order is None:
+        order = torch.arange(b * nprobe)
+    cells = cells.clamp(0, k_cells - 1)
+    assert torch.all(cells[1:] >= cells[:-1]) or not sort
+    out = torch.full((b * nprobe, cap), float("nan"))
+    runs = 0
+    for w0 in range(0, b * nprobe, window):
+        w1 = min(b * nprobe, w0 + window)
+        starts = [i for i in range(w0, w1) if i == w0 or cells[i] != cells[i - 1]]
+        for r0, r1 in zip(starts, starts[1:] + [w1]):
+            pairs = order[r0:r1]
+            cell = torch.full((r1 - r0, 1), int(cells[r0]), dtype=torch.int32)
+            out[pairs] = tcp.gather_dots_ref(codes3, cell, q[pairs // nprobe])[:, 0]
+            runs += 1
+    assert not torch.isnan(out).any()
+    return out.reshape(b, nprobe, cap), runs
+
+
+def _plan_case(case):
+    rng = np.random.default_rng(len(case))
+    k_cells, b, nprobe = 40, 13, 5
+    if case == "run-across-windows":     # one cell in every query's list
+        probe = rng.integers(0, k_cells, (b, nprobe))
+        probe[:, 2] = 7
+    elif case == "ragged":               # P = 35, no multiple of 8 or 32
+        b, nprobe = 5, 7
+        probe = rng.integers(0, k_cells, (b, nprobe))
+    elif case == "same-cells":           # every query probes the same list
+        probe = np.tile(rng.permutation(k_cells)[:nprobe], (b, 1))
+    elif case == "distinct":             # every pair its own cell
+        k_cells = b * nprobe
+        probe = rng.permutation(k_cells).reshape(b, nprobe)
+    else:                                # ids below 0 and past K, clamped
+        probe = rng.integers(-4, k_cells + 4, (b, nprobe))
+    vals = rng.integers(-8, 8, (k_cells, 3, 64)).astype(np.int8)
+    q = rng.integers(-20, 21, (b, 64)).astype(np.float32)
+    return (torch.from_numpy(_pack(vals)), torch.from_numpy(probe.astype(np.int32)),
+            torch.from_numpy(q))
+
+
+@pytest.mark.parametrize("window,sort", [(1, False), (8, False), (8, True),
+                                         (32, True)],
+                         ids=["s1", "s8-pair-order", "s8", "s32"])
+@pytest.mark.parametrize("case", ["run-across-windows", "ragged", "same-cells",
+                                  "distinct", "clamped"])
+def test_b7_plan_emulation_matches_plain(case, window, sort):
+    """Sorting the pairs, cutting windows and walking runs, as the kernel
+    does, gives gather_dots_ref's output (on the clamped ids) exactly;
+    sorted, with at most (distinct cells + windows) cell reads; in pair
+    order, at most one a pair."""
+    codes3, probe, q = _plan_case(case)
+    got, runs = _emulate_b7_plan(codes3, probe, q, window, sort)
+    clamped = probe.clamp(0, codes3.shape[0] - 1)
+    assert torch.equal(got, tcp.gather_dots_ref(codes3, clamped, q))
+    p = probe.numel()
+    distinct = int(torch.unique(clamped).numel())
+    assert runs <= distinct + -(-p // window) if sort else runs <= p
+    if window == 1:
+        assert runs == p
+    if case == "same-cells" and window == 32:
+        assert runs < p // 4
+
+
+def test_b7_plan_from_the_pair_count():
+    """One query: one pair a window, no sort; few pairs: windows in pair
+    order, as few as fill B7_BLOCKS blocks; many: the widest sorted window."""
+    assert tcp.b7_plan_for(64, 1) == (1, False)
+    assert tcp.b7_plan_for(100_000, 1) == (1, False)
+    assert tcp.b7_plan_for(tcp.B7_BLOCKS, 8) == (1, False)
+    assert tcp.b7_plan_for(16 * 64, 16) == (2, False)
+    assert tcp.b7_plan_for(4 * tcp.B7_BLOCKS, 64) == (4, False)
+    assert tcp.b7_plan_for(tcp.B7_SORT_MIN_PAIRS - 1, 1024) == (tcp.B7_PIPELINE, False)
+    assert tcp.b7_plan_for(tcp.B7_SORT_MIN_PAIRS, 1024) == (tcp.B7_WINDOW, True)
+    assert tcp.b7_plan_for(1024 * 512, 1024) == (tcp.B7_WINDOW, True)
+    cells, order = tcp.b7_plan(torch.tensor([[3, 1], [1, 0]], dtype=torch.int32), True)
+    assert cells.tolist() == [0, 1, 1, 3] and order.tolist() == [3, 1, 2, 0]
+
+
 # ---------------------------------------------------------- multiprobe_topk
 
 

@@ -684,6 +684,128 @@ def test_gather_dots_wrapper_validates(dev):
         cp.gather_dots(codes3.float(), probe, q)
 
 
+def _gather_err(codes3, probe, q, kern):
+    """max |kernel - plain| / sum |q| |c| over the outputs (the plain
+    version on the clamped ids)."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    probe = probe.clamp(0, codes3.shape[0] - 1)
+    ref = cp.gather_dots_ref(codes3, probe, q)
+    mag = cp.gather_dots_ref(ft.unpack_int4(codes3).abs(), probe, q.abs())
+    return float(((kern - ref).abs() / (mag + 1e-30)).max())
+
+
+@pytest.mark.parametrize("b", [1, 3, 16, 1024])
+@pytest.mark.parametrize("w", [32, 128, 768, 1536])
+@pytest.mark.parametrize("cap", [1, 13, 128, 512])
+def test_gather_dots_int4_mma_matches_plain(dev, cap, w, b):
+    """B7-int4 (bf16 mma.sync on windows of pairs sorted by cell) within
+    1e-5 of sum |q| |c| of the plain version: products are exact, only the
+    order and rounding of the f32 sums differ."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    nprobe = 8 if cap * w <= 128 * 768 else 2
+    codes3, probe, q = _gather_case(dev, True, 61, cap, w, b, nprobe, seed=cap + w)
+    cp.reset_launches()
+    kern = cp.gather_dots(codes3, probe, q)
+    torch.cuda.synchronize()
+    assert cp.gather_dots.launches_by == {"int4": 1}
+    assert kern.shape == (b, nprobe, cap)
+    assert _gather_err(codes3, probe, q, kern) <= 1e-5
+
+
+@pytest.mark.parametrize("b", [64, 1024])
+@pytest.mark.parametrize("case", ["one-cell", "distinct", "clamped"])
+def test_gather_dots_int4_duplication(dev, case, b):
+    """Every query probing one cell (runs that fill whole windows and cross
+    them), every pair its own cell, and ids past the table, clamped."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    nprobe = 8
+    k_cells = b * nprobe if case == "distinct" else 97
+    codes3, probe, q = _gather_case(dev, True, k_cells, 128, 128, b, nprobe)
+    if case == "one-cell":
+        probe[:, 3] = 5
+    elif case == "distinct":
+        probe = torch.randperm(k_cells, generator=torch.Generator().manual_seed(0)
+                               ).to(dev, torch.int32).reshape(b, nprobe)
+    else:
+        probe[:, ::3] += k_cells
+        probe[:, 1] -= 2 * k_cells
+    kern = cp.gather_dots(codes3, probe, q)
+    torch.cuda.synchronize()
+    assert _gather_err(codes3, probe, q, kern) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1024, 64, 128, 128), (64, 64, 128, 768),
+                                   (300, 16, 13, 1536)],
+                         ids=["fmp", "w768", "cap13"])
+def test_gather_dots_int4_same_for_every_window(dev, shape):
+    """Each output's k sequence does not depend on its window or its column
+    in the mma, so every plan the wrapper can pick (windows of 1 to
+    B7_PIPELINE pairs in pair order, of B7_WINDOW sorted) and any other
+    gives the same bits."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    b, nprobe, cap, w = shape
+    codes3, probe, q = _gather_case(dev, True, 200, cap, w, b, nprobe)
+    outs = [cp.gather_dots(codes3, probe, q, plan=(s, sort))
+            for s, sort in ((1, False), (cp.B7_PIPELINE, False), (2, True),
+                            (8, True), (17, True), (cp.B7_WINDOW, True))]
+    outs.append(cp.gather_dots(codes3, probe, q))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+def _gather_i8_lane_sums(codes3, probe, q):
+    """The int8 kernel's arithmetic in numpy f32: per row, lane l of a
+    group of G lanes chains fmaf over the 16-byte pieces l, l + G, ... (each
+    product code x bf16 query is exact in f32, so fmaf is an f32 add), then a
+    butterfly sum over the G lanes."""
+    codes = codes3.cpu().numpy()[probe.cpu().numpy()].astype(np.float32)
+    qn = q.cpu().numpy().astype(np.float32)
+    b, nprobe, cap, w = codes.shape
+    pieces = w // 16
+    group = 1
+    while group < 32 and group < pieces:
+        group *= 2
+    prod = codes * qn[:, None, None, :]             # exact in f32
+    lanes = np.zeros((group, b, nprobe, cap), np.float32)
+    for p in range(pieces):
+        for e in range(16):
+            lanes[p % group] += prod[..., 16 * p + e]
+    off = group // 2
+    while off:
+        lanes = lanes + lanes[np.arange(group) ^ off]
+        off //= 2
+    return lanes[0]
+
+
+def test_gather_dots_int8_bit_identical_to_its_lane_sums(dev):
+    """The int8 kernel keeps its order of f32 sums: bit-identical to the
+    lane chains and butterfly of _gather_i8_lane_sums on one fixed case
+    (rows of 48 pieces: groups of 32 lanes)."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    codes3, probe, q = _gather_case(dev, False, 40, 24, 768, 9, 5, seed=3)
+    got = cp.gather_dots(codes3, probe, q)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), _gather_i8_lane_sums(codes3, probe, q))
+
+
+def test_gather_dots_int4_window_validates(dev):
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    codes3, probe, q = _gather_case(dev, True, 8, 16, 64, 4, 2)
+    for s in (0, cp.B7_WINDOW + 1):
+        with pytest.raises(ValueError):
+            cp.gather_dots(codes3, probe, q, plan=(s, True))
+    c8, p8, q8 = _gather_case(dev, False, 8, 16, 32, 4, 2)
+    with pytest.raises(ValueError):
+        cp.gather_dots(c8, p8, q8, plan=(1, False))
+
+
 def test_int4r_store_multiprobe_through_kernel(dev):
     """nprobe searches of an int4r store on the card launch B7 (packed) and
     agree with the same state searched on the CPU by the plain version."""
