@@ -138,12 +138,13 @@ F32_SOURCE = "fused_topk.cu"   # B3 and B4 on f32 codes
 # (T 2 / 4 / 8 x 1, 2, 4, 8 query columns) and its merge (T), B8-B10 on the
 # packed int8 LUT ((B10, B9 at list depths 2 / 4 / 8 / 32, B8) x 2, 4, 8
 # subspace phases a warp), B7 on int4 (bf16 mma; windows of up to 8 or 32
-# pairs) and int8, B10-bf16
+# pairs) and int8, B10-bf16 on the packed bf16 LUT (list depths 2 / 4 / 8 /
+# 32 x (S, S0) in (2, 8), (4, 8), (8, 8), (2, 4), (4, 4))
 CHECKED_KERNELS = {"slice_scan_kernel": 10, "tile_scan_kernel": 18,
                    "residual_mma_kernel": 4, "pos_f32_kernel": 2,
                    "tile_f32_kernel": 12, "tile_merge_kernel": 3,
                    "adc_packed_kernel": 27, "gather_mma_kernel": 2,
-                   "gather_dots_kernel": 1, "adc_bf16_kernel": 1}
+                   "gather_dots_kernel": 1, "adc_bf16_packed_kernel": 20}
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops/s (the
 # int4 codes are counted at the int8 rate they run at after unpacking), bf16
 # tensor-core FLOP/s (B7: a bf16-exact query against int8-exact codes), f32
@@ -1192,14 +1193,14 @@ def adc_bound(lut, rows_scanned, rows, q=None, d=0):
     scales and norms of the distinct winners.  The lookups are counted in
     32-bit shared-memory words at 32 words per clock on each SM: an int8
     LUT packed 4 queries to a word (ops/adc_pallas.py::pack_lut) needs a
-    word per 4 lookups, a bf16 LUT (one entry a load) a word per lookup.
-    The one-lookup-per-lane reckoning of the int8 kernels' first design is
-    reported beside it."""
+    word per 4 lookups, a bf16 LUT staged 2 queries to a word (the words
+    of pack_lut_bf16) a word per 2.  The one-lookup-a-word reckoning of the
+    first designs is reported beside it."""
     import torch
 
     b, m = lut.shape[0], J_OPQ["m"]
     lookups = b * rows_scanned * m
-    per_word = 4 if lut.dtype == torch.int8 else 1
+    per_word = 4 if lut.dtype == torch.int8 else 2
     nbytes = (rows_scanned * m + lut.numel() * lut.element_size()
               + rows.numel() * 8)
     winners = 0
@@ -1221,10 +1222,16 @@ def adc_bound(lut, rows_scanned, rows, q=None, d=0):
 
 def adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p, q, books, nt):
     """B8, B9, B10 (int8 and bf16 LUT) against their plain versions on one
-    512-query batch of path (j): the LUTs the searches make of it, rows
-    bit-identical, B10's values bit-identical (integer sums; bf16 values
-    added in the same order), B8/B9's reranked values within 1e-5 of
-    (|q| + |x|)^2 (the kernel sums q.x in another order)."""
+    512-query batch of path (j): the LUTs the searches make of it.  The
+    int8 LUT's: rows bit-identical, B10's values bit-identical (integer
+    sums), B8/B9's reranked values within 1e-5 of (|q| + |x|)^2 (the kernel
+    sums q.x in another order).  B10-bf16 adds each row's bf16 entries in
+    another order than the plain version (subspace order): its rows and
+    values bit-identical to that order's plain PyTorch (adc_bf16_model),
+    and against the plain version its values within the bound of a
+    reordered f32 sum, its picks the plain ones or near ties
+    (adc_pallas.bf16_agreement; max_abs_err is against the plain
+    version)."""
     import torch
 
     import erlvectordb_tpu_torch.ops.adc_pallas as ap
@@ -1255,17 +1262,31 @@ def adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p, q, books, nt):
     for name, variant, lut, tiles, rerank, kern_fn, ref_fn in cases:
         (vk, rk), (vr, rr_) = kern_fn(), ref_fn()
         torch.cuda.synchronize()
-        bad = rk != rr_
-        mismatch = int(bad.sum())
         err = (vk - vr).abs()
-        if rerank:
+        checks = {}
+        if variant == "bf16":
+            vm, rm = ap.adc_bf16_model(codes_p, lut, tiles, t10)
+            agree = ap.bf16_agreement(vk, rk, codes_p, lut, tiles, t10,
+                                      ref=(vr, rr_))
+            checks = dict(model_mismatch=int((rk != rm).sum()
+                                             + (vk != vm).sum()),
+                          tolerance=agree["bound"],
+                          max_err_over_tolerance=agree["max_err_over_bound"],
+                          picks_differ_from_plain=agree["picks_differ"],
+                          values_past_tolerance=agree["bad_values"],
+                          picks_not_near_ties=agree["bad_picks"])
+            mismatch = (checks["model_mismatch"] + agree["bad_values"]
+                        + agree["bad_picks"])
+            del vm, rm
+        elif rerank:
+            mismatch = int((rk != rr_).sum())
             tol = 1e-5 * (qn + torch.sqrt(n2_p[rr_.long()])) ** 2
             mismatch += int((err > tol).sum())
         else:
-            mismatch += int((err != 0).sum())
+            mismatch = int((rk != rr_).sum() + (err != 0).sum())
         if mismatch:
             raise AssertionError(f"{name}[{variant}]: {mismatch} entries "
-                                 "differ from the plain version")
+                                 f"differ from the plain version {checks}")
         ms, plain_ms = cuda_ms(kern_fn), cuda_ms(ref_fn, reps=2)
         b_ms, b_by, extra = adc_bound(lut, tiles * ap.ADC_TILE_N, rk,
                                       q if rerank else None, q.shape[1])
@@ -1273,7 +1294,8 @@ def adc_kernel_checks(kernels, codes_p, i8_p, sc_p, n2_p, q, books, nt):
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    rows=tiles * ap.ADC_TILE_N,
                    extra=dict(batch=q.shape[0], m=J_OPQ["m"], k=books.shape[1],
-                              picks_per_query=rk.shape[1], **extra))
+                              picks_per_query=rk.shape[1], **checks,
+                              **extra))
         kernels[(name, variant)] = rec
         emit("kernel", name=name, variant=variant,
              **{k: v for k, v in rec.items() if k != "extra"}, **rec["extra"])

@@ -29,6 +29,12 @@ chip_smoke.py names for it:
   * B7 int8 alone at (i)'s shapes: 256 queries x 64 probes of a 20,224-cell
     table of 512 x 768 random int8 codes, probes drawn at random (seeded);
     also a hash of its output, equal between checkouts that share the kernel
+  * the ADC kernels alone on (j)'s codes and the LUTs of its first 512-query
+    batch, as chip_smoke.adc_kernel_checks calls them: B8, B9 and B10-int8
+    at 512 queries, B10-bf16 (the f32 LUT) at 512, 1, 16 and 64 (adc_*);
+    and the hashes of their outputs' rows and values at (j)'s shapes on
+    seeded random codes, LUTs and rerank rows ((j)'s own codes differ from
+    run to run: the OPQ fit on the card is not deterministic)
 
     python3 compare_scans.py ROOT [ROOT ...]
 
@@ -184,6 +190,63 @@ def b7_int8(out) -> None:
     torch.cuda.empty_cache()
 
 
+def adc_calls(codes_p, i8_p, sc_p, n2_p, nt, q, lut3) -> dict:
+    """name -> a call of B8, B9, B10-int8 (512 queries) or B10-bf16 (512, 1,
+    16, 64) on the LUTs of ``lut3``, as chip_smoke.adc_kernel_checks makes
+    them."""
+    import erlvectordb_tpu_torch.ops.adc_pallas as ap
+
+    lut_s = ap.quantize_lut(lut3, shift=True)
+    lut_i = ap.quantize_lut(lut3, shift=False)
+    lut_f = lut3.reshape(q.shape[0], -1).contiguous()
+    n_slices = 8 * min(-(-nt // 8), codes_p.shape[0] // (8 * ap.ADC_TILE_N))
+    t9, t10 = ap.exact_t(nt), ap.exact_t(nt, 4, min(cs.J_C, 512))
+    rr = (q, i8_p, sc_p, n2_p)
+    calls = {
+        "adc_b8": lambda: ap.adc_pos_scan(codes_p, lut_s, *rr, n_slices),
+        "adc_b9": lambda: ap.adc_exact_scan(codes_p, lut_s, *rr, nt, t9),
+        "adc_b10_int8": lambda: ap.adc_pallas_scan(codes_p, lut_i, n_tiles=nt,
+                                                   t_per_tile=t10)}
+    for bq in (cs.J_BATCH, 1, 16, 64):
+        calls[f"adc_b10_bf16_bq{bq}"] = (
+            lambda lf=lut_f[:bq].contiguous(): ap.adc_pallas_scan(
+                codes_p, lf, n_tiles=nt, t_per_tile=t10))
+    return calls
+
+
+def adc_kernels(cb, codes_p, i8_p, sc_p, n2_p, nt, tq, out) -> None:
+    """The ADC kernels alone on (j)'s codes and the LUTs of its first
+    512-query batch, timed; then the hashes of their outputs on seeded
+    random inputs of the same shapes."""
+    import hashlib
+
+    import torch
+
+    from erlvectordb_tpu_torch.quant.pq import _adc_l2_tables
+
+    q = tq[:cs.J_BATCH].contiguous()
+    calls = adc_calls(codes_p, i8_p, sc_p, n2_p, nt, q,
+                      _adc_l2_tables(q, cb.codebooks))
+    for name, fn in calls.items():
+        timed_calls(fn, out, name)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 6)
+    n, d = codes_p.shape[0], q.shape[1]
+    codes = torch.randint(0, 256, codes_p.shape, generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    i8 = torch.randint(-127, 128, (n, d), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand(n, generator=gen, device="cuda") / 64
+    n2 = sc ** 2 * torch.sum(i8.float() ** 2, dim=1)
+    qr = torch.randn(q.shape, generator=gen, device="cuda")
+    lut3 = torch.rand((q.shape[0], *cb.codebooks.shape[:2]), generator=gen,
+                      device="cuda") * 4
+    for name, fn in adc_calls(codes, i8, sc, n2, nt, qr, lut3).items():
+        vals, rows = fn()
+        for part, x in (("rows", rows), ("vals", vals)):
+            out[f"{name}_{part}_sha256"] = hashlib.sha256(
+                x.cpu().numpy().tobytes()).hexdigest()
+
+
 def measure(root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -192,9 +255,9 @@ def measure(root: str) -> dict:
     from erlvectordb_tpu_torch.core.store import VectorStore
 
     dev = torch.device("cuda")
+    out = {"root": root, "package": os.path.dirname(erlvectordb_tpu_torch.__file__)}
     corpus = cs.make_corpus(cs.SEED, cs.N_ROWS)
     queries = cs.make_corpus(cs.SEED + 1, cs.BATCH)
-    out = {"root": root, "package": os.path.dirname(erlvectordb_tpu_torch.__file__)}
     for name, (rows, kw, paths) in STORES.items():
         data = (cs.make_corpus(cs.SEED + 2, rows) if name == "d"
                 else corpus[:rows])
@@ -218,11 +281,22 @@ def measure(root: str) -> dict:
     del rq, corpus
     torch.cuda.empty_cache()
     b7_int8(out)
+    adc(dev, out)
+    return out
+
+
+def adc(dev, out) -> None:
+    """(j): config 4 built as chip_smoke.py builds it, its three searches
+    on 512 queries, then the ADC kernels alone."""
+    import torch
+
     data, _ = cs.adc_corpus(cs.SEED + 4)
-    *_, tq, searches, _ = cs.adc_build(torch.from_numpy(data).to(dev))
+    cb, (codes_p, i8_p, sc_p, n2_p), nt, tq, searches, _ = cs.adc_build(
+        torch.from_numpy(data).to(dev))
+    del data
     for name, fn in searches.items():
         timed_calls(lambda: fn(tq[:cs.J_BATCH]), out, f"j_{name}_bq{cs.J_BATCH}")
-    return out
+    adc_kernels(cb, codes_p, i8_p, sc_p, n2_p, nt, tq, out)
 
 
 def main(argv: list[str]) -> int:

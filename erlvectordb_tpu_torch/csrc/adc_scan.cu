@@ -11,11 +11,13 @@
 //
 // The ADC distance of row n for query b is sum_m lut[b, m*K + code[n, m]]:
 // exact int32 for an int8 LUT; for B10's f32 LUT, each entry rounded to bf16
-// (round to nearest even) and the M values added in f32 in subspace order,
-// as the TPU kernel's bf16 one-hot contraction does (every product with a
-// one-hot entry is exact; only the order of the sum is the port's own).
-// The TPU contracts a [rows, M*K] one-hot matrix with the LUT on its matrix
-// unit (its way around gathers); these kernels look the LUT up directly.
+// (round to nearest even) and the M values added in f32, as the TPU kernel's
+// bf16 one-hot contraction does (every product with a one-hot entry is
+// exact).  The plain version (ops/adc_pallas.py::_lut_dists) adds them in
+// subspace order; this kernel in a canonical order of its own fixed by M
+// alone (canonical_lut_dists, below), within bf16_sum_bound of it.  The TPU
+// contracts a [rows, M*K] one-hot matrix with the LUT on its matrix unit
+// (its way around gathers); these kernels look the LUT up directly.
 //
 // ---- int8 LUT (B8, B9, B10-int8): adc_packed_kernel
 //
@@ -66,12 +68,53 @@
 // not the shared-memory words (~0.12 ms at 32 a clock an SM) or the codes'
 // bytes (~0.003 ms), is the limit.
 //
-// ---- f32 LUT rounded to bf16 (B10-bf16): adc_bf16_kernel
+// ---- f32 LUT rounded to bf16 (B10-bf16): adc_bf16_packed_kernel
 //
-// The first design, kept (no caller but tests): a block holds the LUTs of 8
-// queries, one warp a query, stages a 1024-row tile's codes, lane l scores
-// rows l, l + 32, ... (one LUT element per lookup), keys (order(dist) << 32)
-// | lane, and T rounds of a warp minimum pick the tile's winners.
+// What bounds it on an H100: the lookups again, now of 2-byte entries: at
+// (j)'s shapes 4.1e9 of them, at best 2 to a 32-bit shared-memory word,
+// 0.245 ms at 32 words a clock on each SM; the codes and the outputs take
+// ~0.01 ms of HBM.  The first design read one 16-bit entry per lookup at a
+// random bank, staged each code tile once per 8 queries and picked each
+// tile's winners in T rounds of a warp minimum (4.1 ms at (j)).  This one
+// is adc_packed_kernel's frame with two queries a word:
+//   * the block rounds the f32 LUT to bf16 as it stages a query group's
+//     tables (stage_bf16_lut) and packs them query-minor: one word holds 2
+//     queries' entries for one (subspace, code), and the S tables of
+//     subspaces pS .. pS + S - 1 are interleaved word by word, so lane (s,
+//     g) of a warp reads word s G + g of a row at any code: bank l, no
+//     conflicts, 2 lookups a load (ops/adc_pallas.py::pack_lut_bf16 is
+//     these words in plain PyTorch).  A block holds the LUTs of 2 H
+//     queries (H = G = 32 / S: 32 at S = 2, 128 KB at M 8, K 256; fewer,
+//     H < G, where those do not fit: lanes g >= H then repeat lane g % H's
+//     loads and keep nothing);
+//   * a word's halves are the two queries' f32 values as they stand (w <<
+//     16, w & 0xffff0000): a load, a shift, an and and two adds a word;
+//   * the sum order: S0 = 8 chains if M % 8 == 0 (else 4), chain r adding
+//     subspaces r, r + S0, ... from 0 (here: from its first term, the
+//     staged LUT holding no -0), then a halving tree adding chain r + d
+//     into chain r for d = S0/2 .. 1.  Lane s keeps the chains of the
+//     classes s, s + S, ..., runs the tree's levels of stride S0/2 .. S in
+//     registers and those of stride S/2 .. 1 as the int8 kernel's
+//     reduce-scatter over the S lanes of a pair (S - 1 shuffles a lane for
+//     S rows; addition commutes, so both partners get the same bits).
+//     Every add is __fadd_rn: the sums are those of
+//     ops/adc_pallas.py::canonical_lut_dists bit for bit for any S dividing
+//     S0 (the plain version adds in subspace order; the two differ by at
+//     most bf16_sum_bound);
+//   * keys are (f32_order(distance) << 32) | row-in-tile, unique, so the
+//     smallest key is the smallest distance, ties to the lower row (the TPU
+//     kernel's rule); each lane keeps a sorted list of TMAX (>= T) keys for
+//     each of its 2 queries (one in each of two passes for lists deeper
+//     than 8), merged at the end of a tile across the S lanes of a pair and
+//     then across the warps in shared memory, as in the int8 kernel.  A
+//     lane meets its rows in ascending order, so while it scores a tile a
+//     list compares the distance word alone (a tie goes after the listed
+//     rows);
+//   * one block an SM over runs of (query group, tile) items, code tiles
+//     double-buffered by cp.async (single where two do not fit beside the
+//     LUTs: M past ~100 at small K).
+// ops/adc_pallas.py::adc_bf16_layout picks S (2; 4 or 8 for batches of at
+// most 16 or 8 queries), H and the buffers, and mirrors bf16_smem.
 //
 // The entry points launch on the given stream, allocate nothing, and return
 // cudaGetLastError() (or the error of the shared-memory attribute call).
@@ -79,7 +122,6 @@
 #include <algorithm>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "scan_common.cuh"
@@ -93,16 +135,6 @@ using evdb::cp_async_wait;
 constexpr int kTileRows = 1024;   // ADC_TILE_N: rows per tile / slice
 constexpr int kSmemMax = 232448;  // shared memory a block may use
 constexpr int kMaxM = 256;        // 16-bit sums: M * 255 < 65,536
-
-template <typename T>
-__device__ __forceinline__ T warp_min_key(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const T w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
-  }
-  return v;
-}
 
 // butterfly sum: every lane ends with the same value (each pair adds the same
 // two operands)
@@ -132,6 +164,22 @@ __host__ __device__ constexpr size_t packed_smem(int M, int K, int S, int tmax) 
          4 * (size_t)(128 / S) * tmax + 4 * (size_t)(128 / S);
 }
 
+// the smaller and the larger of two keys: min/max for 32-bit keys (two
+// integer min/max instructions), one compare and selects for 64-bit ones
+template <typename Key>
+__device__ __forceinline__ void order2(Key& lo, Key& hi) {
+  if constexpr (sizeof(Key) == 4) {
+    const Key l = min(lo, hi);
+    hi = max(lo, hi);
+    lo = l;
+  } else {
+    const bool sw = hi < lo;
+    const Key l = sw ? hi : lo;
+    hi = sw ? lo : hi;
+    lo = l;
+  }
+}
+
 // insert v into an ascending list of TMAX keys (the largest falls off):
 // branch-free for short lists, past a compare with the last key for long
 // ones (a key of a long list is rarely inserted)
@@ -139,19 +187,34 @@ template <int TMAX>
 __device__ __forceinline__ void push_min(uint32_t (&top)[TMAX], uint32_t v) {
   if (TMAX > 4 && v >= top[TMAX - 1]) return;
 #pragma unroll
-  for (int i = 0; i < TMAX; ++i) {
-    const uint32_t lo = min(top[i], v);
-    v = max(top[i], v);
-    top[i] = lo;
+  for (int i = 0; i < TMAX; ++i) order2(top[i], v);
+}
+
+// insert the key (vh, vr) into an ascending list of TMAX keys (th[i],
+// tr[i]) whose rows all precede vr: a key that ties on vh then follows them,
+// so where it goes needs the compares of vh alone (lt[i]: it goes before
+// entry i), and entry i takes entry i - 1 or the key
+template <int TMAX>
+__device__ __forceinline__ void push_after(uint32_t (&th)[TMAX], uint32_t (&tr)[TMAX],
+                                           uint32_t vh, uint32_t vr) {
+  bool lt[TMAX];
+#pragma unroll
+  for (int i = 0; i < TMAX; ++i) lt[i] = vh < th[i];
+#pragma unroll
+  for (int i = TMAX - 1; i > 0; --i) {
+    th[i] = lt[i] ? (lt[i - 1] ? th[i - 1] : vh) : th[i];
+    tr[i] = lt[i] ? (lt[i - 1] ? tr[i - 1] : vr) : tr[i];
   }
+  th[0] = lt[0] ? vh : th[0];
+  tr[0] = lt[0] ? vr : tr[0];
 }
 
 // the ascending lists of lanes l and l ^ o -> the TMAX smallest of their
 // union in both lanes, in place: min(a[i], b[TMAX - 1 - i]) is a bitonic
 // sequence holding them, which log2(TMAX) half-cleaner stages sort
-template <int TMAX>
-__device__ __forceinline__ void merge_partner(uint32_t (&a)[TMAX], int o) {
-  uint32_t b[TMAX];
+template <int TMAX, typename Key>
+__device__ __forceinline__ void merge_partner(Key (&a)[TMAX], int o) {
+  Key b[TMAX];
 #pragma unroll
   for (int i = 0; i < TMAX; ++i) b[i] = __shfl_xor_sync(0xffffffffu, a[TMAX - 1 - i], o);
 #pragma unroll
@@ -160,11 +223,7 @@ __device__ __forceinline__ void merge_partner(uint32_t (&a)[TMAX], int o) {
   for (int d = TMAX / 2; d > 0; d >>= 1)
 #pragma unroll
     for (int i = 0; i < TMAX; ++i)
-      if ((i & d) == 0) {
-        const uint32_t lo = min(a[i], a[i + d]);
-        a[i + d] = max(a[i], a[i + d]);
-        a[i] = lo;
-      }
+      if ((i & d) == 0) order2(a[i], a[i + d]);
 }
 
 // ``lut``: [groups][M / S][K][32] words (ops/adc_pallas.py::pack_lut);
@@ -458,9 +517,15 @@ bool bad_packed(int B, int M, int K, int S, int n_tiles, int T) {
 
 // ----------------------------------------------------- f32 LUT as bf16
 
-constexpr int kBfWarps = 8;                 // queries per block, one warp each
-constexpr int kBfThreads = 32 * kBfWarps;
-constexpr int kLaneRows = kTileRows / 32;   // rows a lane scores per tile
+__host__ __device__ constexpr int bf16_warps(int tmax) { return tmax > 8 ? 8 : 16; }
+
+// the block's shared memory: the packed LUT words of 2 H queries, nbuf code
+// tiles, the warps' lists of 64-bit keys [2 H queries][TMAX + 1] (padded).
+// ops/adc_pallas.py::adc_bf16_smem mirrors it.
+__host__ __device__ constexpr size_t bf16_smem(int M, int K, int H, int nbuf, int tmax) {
+  return 4 * (size_t)M * K * H + (size_t)nbuf * kTileRows * M +
+         8 * (size_t)bf16_warps(tmax) * (2 * H * (tmax + 1) + 1);
+}
 
 // monotone f32 -> u32 (ascending floats give ascending words) and back
 __device__ __forceinline__ uint32_t f32_order(float f) {
@@ -471,79 +536,305 @@ __device__ __forceinline__ float f32_unorder(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
-__host__ __device__ constexpr size_t bf16_lut_bytes(int M, int K) {
-  return (2 * (size_t)kBfWarps * M * K + 15) & ~size_t(15);
+// f32 -> bf16 bits, rounded to nearest even as torch rounds (NaN ->
+// 0x7fc0), -0 as +0 (a sum from 0 never tells them apart)
+__device__ __forceinline__ uint32_t bf16_bits(float f) {
+  const uint32_t u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
+  const uint32_t h = (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+  return (h & 0x7fffu) ? h : 0u;
 }
 
-__global__ void __launch_bounds__(kBfThreads) adc_bf16_kernel(
-    const uint8_t* __restrict__ codes, const float* __restrict__ lut_in, int B,
-    int M, int K, int n_tiles, int tiles_per_block, int T,
-    float* __restrict__ vals, int* __restrict__ rows) {
-  using Key = unsigned long long;
-  constexpr Key kMax = ~0ull;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int mk = M * K;
-  uint8_t* codes_s = smem;                                              // [1024, M]
-  __nv_bfloat16* lut_s = reinterpret_cast<__nv_bfloat16*>(smem + kTileRows * M);  // [8, M*K]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = (int)blockIdx.y * kBfWarps;
-  const int qi = q0 + warp;
-  const bool live = qi < B;
-
-  for (int i = tid; i < kBfWarps * mk; i += kBfThreads) {   // rounded to bf16
-    const int w = i / mk;
-    lut_s[i] = __float2bfloat16_rn(
-        q0 + w < B ? lut_in[(long long)(q0 + w) * mk + (i - w * mk)] : 0.f);
-  }
-
-  const __nv_bfloat16* lut_w = lut_s + warp * mk;
-  const long long cols = (long long)n_tiles * T;
-  const int t_end = min(n_tiles, ((int)blockIdx.x + 1) * tiles_per_block);
-  for (int tile = (int)blockIdx.x * tiles_per_block; tile < t_end; ++tile) {
-    __syncthreads();  // every warp is done with the previous tile's codes
-    const uint4* src = reinterpret_cast<const uint4*>(
-        codes + (long long)tile * kTileRows * M);
-    for (int i = tid; i < kTileRows * M / 16; i += kBfThreads)
-      reinterpret_cast<uint4*>(codes_s)[i] = src[i];
-    __syncthreads();
-    if (!live) continue;
-
-    Key key[kLaneRows];
-    Key lmin = kMax;
-#pragma unroll
-    for (int i = 0; i < kLaneRows; ++i) {
-      const int r = lane + 32 * i;
-      const uint32_t* cw = reinterpret_cast<const uint32_t*>(codes_s + r * M);
-      float acc = 0.f;
-      for (int w = 0; w < M / 4; ++w) {
-        const uint32_t c = cw[w];
-        const __nv_bfloat16* l = lut_w + 4 * w * K;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc = __fadd_rn(acc, __bfloat162float(l[j * K + ((c >> (8 * j)) & 0xffu)]));
-      }
-      key[i] = ((Key)f32_order(acc) << 32) | (Key)r;
-      lmin = key[i] < lmin ? key[i] : lmin;
+// Query group q0 .. q0 + 2H - 1 of the f32 LUT [B, M*K] -> the packed words
+// [M / S][K][S * H] of ops/adc_pallas.py::pack_lut_bf16: word (p, c, l = s H
+// + j) holds the entries of queries q0 + 2j (low half) and q0 + 2j + 1 (high)
+// for subspace p S + s and code c, 0 past B.  A warp covers 32 / LW codes x
+// LW words of a row (LW = 4): a load reads LW queries' runs of 8 entries, a
+// store meets at most 8 lanes in a bank.
+template <int S>
+__device__ __forceinline__ void stage_bf16_lut(uint32_t* __restrict__ dst,
+                                               const float* __restrict__ lut, int B,
+                                               int M, int K, int H, int q0, int warp,
+                                               int lane, int nw) {
+  const int SH = S * H, LW = SH < 4 ? SH : 4, CW = 32 / LW;
+  const int lo = lane % LW, co = lane / LW;
+  const int ncb = (K + CW - 1) / CW, nlb = SH / LW;
+  const int n = (M / S) * ncb * nlb;
+  const size_t mk = (size_t)M * K;
+#pragma unroll 4
+  for (int ch = warp; ch < n; ch += nw) {
+    const int lb = ch % nlb, cb = (ch / nlb) % ncb, p = ch / (nlb * ncb);
+    const int l = lb * LW + lo, c = cb * CW + co;
+    if (c < K) {
+      const int q = q0 + 2 * (l % H);
+      const float* src = lut + (size_t)(p * S + l / H) * K + c;
+      const uint32_t a = q < B ? bf16_bits(__ldg(src + (size_t)q * mk)) : 0u;
+      const uint32_t b = q + 1 < B ? bf16_bits(__ldg(src + (size_t)(q + 1) * mk)) : 0u;
+      dst[((size_t)p * K + c) * SH + l] = a | (b << 16);
     }
+  }
+}
 
-    for (int t = 0; t < T; ++t) {
-      const Key wk = warp_min_key(lmin);
-      const int r = (int)(wk & 0xffffffffull);
-      if (lane == (r & 31)) {  // the lane that owns the winner drops it
-        lmin = kMax;
+// ``lut``: the f32 LUT [B, M*K], staged a query group at a time by
+// stage_bf16_lut; items = groups x n_tiles, item = group * n_tiles + tile.
+// S0 = 8 if M % 8 == 0 else 4: the chains of the canonical sum.
+template <int TMAX, int S, int S0>
+__global__ void __launch_bounds__(32 * bf16_warps(TMAX), 1) adc_bf16_packed_kernel(
+    const uint8_t* __restrict__ codes, const float* __restrict__ lut, int B,
+    int M, int K, int H, int nbuf, int n_tiles, int T, float* __restrict__ vals,
+    int* __restrict__ rows) {
+  using Key = unsigned long long;
+  constexpr int NW = bf16_warps(TMAX);
+  constexpr int G = 32 / S, C = S0 / S;   // C: the chains a lane keeps
+  constexpr int kRowsPerWarp = kTileRows / NW;
+  constexpr Key kNone = ~0ull;
+  static_assert(S0 % S == 0 && kRowsPerWarp % (2 * S) == 0, "layout");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = M / S, QG = 2 * H, WS = QG * (TMAX + 1) + 1;
+  const int tile_bytes = kTileRows * M;
+  uint8_t* codes_s = smem + 4 * M * K * H;                        // [nbuf][1024][M]
+  Key* lists = reinterpret_cast<Key*>(codes_s + nbuf * tile_bytes);  // [NW][WS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = lane / G, g = lane % G;
+  const int rs = 31 - __clz(4 * S * H);                  // log2(bytes of a LUT row)
+  const uint32_t lane_b = 4 * (s * H + (g & (H - 1)));   // the lane's word of a row
+  const long long n_items = (long long)((B + QG - 1) / QG) * n_tiles;
+  const long long i0 = n_items * blockIdx.x / gridDim.x;
+  const long long i1 = n_items * (blockIdx.x + 1) / gridDim.x;
+  const long long cols = (long long)n_tiles * T;
+
+  auto buf = [&](long long it) { return nbuf == 2 ? (int)(it & 1) : 0; };
+  auto issue = [&](long long it) {   // the item's code tile -> buffer buf(it)
+    if (it < i1) {
+      const uint8_t* src = codes + (it % n_tiles) * tile_bytes;
+      uint8_t* dst = codes_s + buf(it) * tile_bytes;
+      for (int i = 16 * tid; i < tile_bytes; i += 16 * 32 * NW)
+        cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
+
+  if (nbuf == 2) issue(i0);
+  int cur = -1;
+  for (long long it = i0; it < i1; ++it) {
+    const int grp = (int)(it / n_tiles), tile = (int)(it % n_tiles);
+    if (grp != cur) {   // the group's LUTs, rounded and packed
+      __syncthreads();  // every warp is done with the previous group's
+      stage_bf16_lut<S>(reinterpret_cast<uint32_t*>(smem), lut, B, M, K, H, grp * QG,
+                        warp, lane, NW);
+      cur = grp;
+    }
+    // two buffers: the next tile's copy overlaps this one's scoring; one:
+    // every warp left the buffer at the last item's middle barrier
+    if (nbuf == 2) {
+      issue(it + 1);
+      cp_async_wait<1>();
+    } else {
+      issue(it);
+      cp_async_wait<0>();
+    }
+    __syncthreads();    // everyone's copies, the LUTs, and the last item is done
+
+    // Score the warp's rows, 2 S at a time.  Lane (s, g) reads, for each
+    // row, the words of subspaces s, s + S, ... (two queries' entries
+    // each) and adds word p into chain p % C of its queries: chain i of
+    // lane s is class s + i S of the canonical sum.  The in-register
+    // levels (strides S0/2 .. S) leave class s; the reduce-scatter over
+    // the S lanes of a pair (strides S/2 .. 1) adds the classes as the
+    // halving tree does, so lane s ends with the whole sums of rows r0 + s
+    // and r0 + S + s for queries 2g, 2g + 1.  Slot u of a lane holds row
+    // u ^ s of its S.  Lists of TMAX keys for SL of the 2 queries: both in
+    // one pass, or one in each of two passes for lists deeper than 8.
+    constexpr int NH = TMAX > 8 ? 2 : 1, SL = 2 / NH;
+    const uint32_t cb = (uint32_t)(codes_s - smem) + (uint32_t)(buf(it) * tile_bytes) + s;
+#pragma unroll 1
+    for (int hf = 0; hf < NH; ++hf) {
+      uint32_t th[SL][TMAX], tr[SL][TMAX];   // the lists: distance words, rows
 #pragma unroll
-        for (int i = 0; i < kLaneRows; ++i) {
-          if (key[i] == wk) key[i] = kMax;
-          lmin = key[i] < lmin ? key[i] : lmin;
+      for (int j = 0; j < SL; ++j)
+#pragma unroll
+        for (int i = 0; i < TMAX; ++i) th[j][i] = tr[j][i] = 0xffffffffu;
+      for (int r0 = warp * kRowsPerWarp; r0 < (warp + 1) * kRowsPerWarp; r0 += 2 * S) {
+        float acc[2][S][2][C];
+        uint32_t crow[2][S];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int u = 0; u < S; ++u) crow[a][u] = cb + (r0 + a * S + (u ^ s)) * M;
+        // word p of row (a, u): the LUT word at the row's code of subspace p S + s
+        auto word = [&](int a, int u, int p) {
+          uint32_t lp = lane_b + ((uint32_t)(p * K) << rs);
+          asm("" : "+r"(lp));
+          const uint32_t code = smem[crow[a][u] + p * S];
+          return *reinterpret_cast<const uint32_t*>(smem + lp + (code << rs));
+        };
+        // a chain starts at its first term: 0 + x is x, as the packed LUT
+        // holds no -0 (pack_lut_bf16 stores it as +0, which no sum from 0
+        // tells apart)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int u = 0; u < S; ++u) {
+              const uint32_t w = word(a, u, c);
+              acc[a][u][0][c] = __uint_as_float(w << 16);
+              acc[a][u][1][c] = __uint_as_float(w & 0xffff0000u);
+            }
+#pragma unroll 2
+        for (int p0 = C; p0 < P; p0 += C) {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+#pragma unroll
+            for (int a = 0; a < 2; ++a)
+#pragma unroll
+              for (int u = 0; u < S; ++u) {
+                const uint32_t w = word(a, u, p0 + c);
+                acc[a][u][0][c] = __fadd_rn(acc[a][u][0][c], __uint_as_float(w << 16));
+                acc[a][u][1][c] = __fadd_rn(acc[a][u][1][c], __uint_as_float(w & 0xffff0000u));
+              }
+        }
+#pragma unroll
+        for (int d = C / 2; d >= 1; d >>= 1)   // strides S0/2 .. S
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int u = 0; u < S; ++u)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int i = 0; i < d; ++i)
+                  acc[a][u][j][i] = __fadd_rn(acc[a][u][j][i], acc[a][u][j][i + d]);
+#pragma unroll
+        for (int h = S / 2; h >= 1; h >>= 1)   // strides S/2 .. 1: keep the low half
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int i = 0; i < h; ++i)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                acc[a][i][j][0] = __fadd_rn(
+                    acc[a][i][j][0], __shfl_xor_sync(0xffffffffu, acc[a][h + i][j][0], h * G));
+#pragma unroll
+        for (int a = 0; a < 2; ++a)   // rows ascend: r0 + s, then r0 + S + s
+#pragma unroll
+          for (int j = 0; j < SL; ++j) {
+            const float d = NH == 1 ? acc[a][0][j][0] : (hf ? acc[a][0][1][0] : acc[a][0][0][0]);
+            push_after<TMAX>(th[j], tr[j], f32_order(d), (uint32_t)(r0 + a * S + s));
+          }
+      }
+      // keys (distance word << 32) | row; the S lanes of a pair merge their
+      // lists pairwise, log2(S) levels, and lane s = 0 of each working pair
+      // posts the warp's
+      Key top[SL][TMAX];
+#pragma unroll
+      for (int j = 0; j < SL; ++j)
+#pragma unroll
+        for (int i = 0; i < TMAX; ++i) top[j][i] = ((Key)th[j][i] << 32) | tr[j][i];
+#pragma unroll
+      for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+        for (int j = 0; j < SL; ++j) merge_partner<TMAX>(top[j], o);
+      if (s == 0 && g < H) {
+#pragma unroll
+        for (int j = 0; j < SL; ++j) {
+          Key* lt = lists + warp * WS + (2 * g + hf * SL + j) * (TMAX + 1);
+#pragma unroll
+          for (int i = 0; i < TMAX; ++i) lt[i] = top[j][i];
         }
       }
-      if (lane == 0) {
-        const long long o = (long long)qi * cols + (long long)tile * T + t;
-        vals[o] = -f32_unorder((uint32_t)(wk >> 32));
-        rows[o] = tile * kTileRows + r;
+    }
+    __syncthreads();
+
+    // warp w merges the NW lists of queries w QI .. w QI + QI - 1, then
+    // those NW QI further on, ...: lane L < NW loads list L (the rest hold
+    // none), log2(NW) levels of pair merges leave the top TMAX in lanes 0
+    // .. NW - 1 (five levels: in every lane, where TMAX > NW), and lane t <
+    // T writes pick t
+    constexpr int QI = TMAX <= 4 ? 2 : 1, kSpan = TMAX <= NW ? NW : 32;
+#pragma unroll 1
+    for (int q0 = warp * QI; q0 < QG; q0 += NW * QI) {
+      Key ml[QI][TMAX];
+#pragma unroll
+      for (int i = 0; i < QI; ++i) {
+        const Key* lt = lists + lane * WS + (q0 + i) * (TMAX + 1);
+#pragma unroll
+        for (int t = 0; t < TMAX; ++t) ml[i][t] = lane < NW ? lt[t] : kNone;
+      }
+#pragma unroll
+      for (int o = 1; o < kSpan; o <<= 1)
+#pragma unroll
+        for (int i = 0; i < QI; ++i) merge_partner<TMAX>(ml[i], o);
+#pragma unroll
+      for (int i = 0; i < QI; ++i) {
+        Key m = ml[i][0];
+#pragma unroll
+        for (int t = 1; t < TMAX; ++t) m = lane == t ? ml[i][t] : m;
+        const int qa = grp * QG + q0 + i;
+        if (qa < B && lane < T) {
+          const long long o = (long long)qa * cols + (long long)tile * T + lane;
+          vals[o] = -f32_unorder((uint32_t)(m >> 32));
+          rows[o] = tile * kTileRows + (int)(m & 1023u);
+        }
       }
     }
   }
+  cp_async_wait<0>();
+}
+
+template <int TMAX, int S, int S0>
+int launch_bf16(const void* codes, const void* lut, int B, int M, int K, int H,
+                int nbuf, int n_tiles, int T, void* vals, void* rows,
+                cudaStream_t st) {
+  auto kern = adc_bf16_packed_kernel<TMAX, S, S0>;
+  const int threads = 32 * bf16_warps(TMAX);
+  const int smem = (int)bf16_smem(M, K, H, nbuf, TMAX);
+  // the shared-memory opt-in (to the most a block may have, so no call
+  // lowers it under another's launch) and the blocks the card holds at
+  // this shared memory, asked once per host thread, device and size
+  static thread_local int memo_dev = -1, memo_smem = -1, memo_blocks = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != memo_dev || smem != memo_smem) {
+    if (dev != memo_dev) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      if (e != cudaSuccess) return (int)e;
+    }
+    int sms = 132, per_sm = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+    if (e != cudaSuccess) return (int)e;
+    memo_dev = dev;
+    memo_smem = smem;
+    memo_blocks = sms * std::max(per_sm, 1);
+  }
+  const long long items = (long long)((B + 2 * H - 1) / (2 * H)) * n_tiles;
+  const int blocks = (int)std::min<long long>(items, memo_blocks);
+  kern<<<blocks, threads, smem, st>>>((const uint8_t*)codes, (const float*)lut, B, M,
+                                      K, H, nbuf, n_tiles, T, (float*)vals,
+                                      (int*)rows);
+  return (int)cudaGetLastError();
+}
+
+using Bf16Launch = decltype(&launch_bf16<2, 2, 8>);
+
+// the instantiation for (T, S, S0): S divides S0
+template <int TMAX>
+Bf16Launch bf16_for_s(int S, int S0) {
+  if (S0 == 8)
+    return S == 2 ? &launch_bf16<TMAX, 2, 8>
+         : S == 4 ? &launch_bf16<TMAX, 4, 8>
+                  : &launch_bf16<TMAX, 8, 8>;
+  return S == 2 ? &launch_bf16<TMAX, 2, 4> : &launch_bf16<TMAX, 4, 4>;
+}
+
+Bf16Launch bf16_for(int T, int S, int S0) {
+  return T <= 2 ? bf16_for_s<2>(S, S0)
+       : T <= 4 ? bf16_for_s<4>(S, S0)
+       : T <= 8 ? bf16_for_s<8>(S, S0)
+                : bf16_for_s<32>(S, S0);
 }
 
 }  // namespace
@@ -556,7 +847,9 @@ __global__ void __launch_bounds__(kBfThreads) adc_bf16_kernel(
 // 16-bit sums) and layouts past the shared memory; the rerank scans add
 // ``q`` [B, D] f32 (16-byte aligned), ``i8`` [rows, D] int8 (D % 4 == 0,
 // 4-byte aligned), ``scales`` and ``norms2`` [rows] f32; their vals are
-// -d2 of the exact rerank.  The bf16 scan takes the f32 LUT [B, M*K].
+// -d2 of the exact rerank.  The bf16 scan takes the f32 LUT [B, M*K]
+// (4-byte aligned), the layout of ops/adc_pallas.py::adc_bf16_layout: ``S``
+// (dividing S0), ``H`` query pairs a phase, ``nbuf`` code buffers (1 or 2).
 
 extern "C" {
 
@@ -583,33 +876,17 @@ int evdb_adc_rerank_scan(const void* codes, const void* lut, const void* q,
 }
 
 int evdb_adc_scan_bf16(const void* codes, const void* lut, int B, int M, int K,
-                       int n_tiles, int T, void* vals, void* rows, void* stream) {
-  if (B < 1 || B > 65535 * kBfWarps || M < 4 || M % 4 || K < 1 || K > 256 ||
-      n_tiles < 1 || T < 1 || T > 32)
+                       int S, int H, int nbuf, int n_tiles, int T, void* vals,
+                       void* rows, void* stream) {
+  const int S0 = M % 8 == 0 ? 8 : 4;
+  const int tmax = T <= 2 ? 2 : T <= 4 ? 4 : T <= 8 ? 8 : 32;
+  if (B < 1 || M < 4 || M % 4 || K < 1 || K > 256 ||
+      !(S == 2 || S == 4 || S == 8) || S0 % S || H < 1 || H > 32 / S ||
+      (H & (H - 1)) || !(nbuf == 1 || nbuf == 2) || n_tiles < 1 || T < 1 ||
+      T > 32 || bf16_smem(M, K, H, nbuf, tmax) > (size_t)kSmemMax)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)kTileRows * M + bf16_lut_bytes(M, K);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        adc_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // about 8 blocks an SM; each walks a run of tiles, so a block loads its
-  // LUTs once per run instead of once per tile
-  const int groups = (B + kBfWarps - 1) / kBfWarps;
-  const long long want = 8LL * sms;
-  int chunks = (int)std::min<long long>(
-      n_tiles, std::max<long long>(1, (want + groups - 1) / groups));
-  const int per_block = (n_tiles + chunks - 1) / chunks;
-  chunks = (n_tiles + per_block - 1) / per_block;
-  adc_bf16_kernel<<<dim3(chunks, groups), kBfThreads, smem, st>>>(
-      (const uint8_t*)codes, (const float*)lut, B, M, K, n_tiles, per_block, T,
-      (float*)vals, (int*)rows);
-  return (int)cudaGetLastError();
+  return bf16_for(T, S, S0)(codes, lut, B, M, K, H, nbuf, n_tiles, T, vals, rows,
+                            (cudaStream_t)stream);
 }
 
 }  // extern "C"

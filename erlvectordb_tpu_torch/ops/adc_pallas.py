@@ -25,7 +25,13 @@ The int8-LUT kernels read the LUT packed by ``pack_lut``: 4 queries'
 entries of one (subspace, code) in a 32-bit word, +128 each, the tables of
 ``s`` subspaces interleaved so a warp's 32 lookups hit 32 banks;
 ``packed_lut_dists`` is that arithmetic in plain PyTorch, and ``adc_layout``
-sizes the launch.
+sizes the launch.  B10-bf16's kernel takes the f32 LUT and stages it in
+shared memory as the words of ``pack_lut_bf16``: 2 queries' bf16 entries a
+word, interleaved the same way, its launch sized by ``adc_bf16_layout``.  It
+adds each row's entries in the order of ``canonical_lut_dists``, not the
+plain version's subspace order: ``adc_bf16_model`` is its arithmetic in
+plain PyTorch (bit for bit), and ``bf16_agreement`` holds its result against
+the plain version within the bound of a reordered f32 sum.
 
 Each scan wrapper runs its plain version for tensors on the CPU and its CUDA
 kernel for tensors on a CUDA device (raising if the kernel cannot run), and
@@ -114,9 +120,46 @@ def _lut_dists(codes: torch.Tensor, lut_flat: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _tile_picks(codes, lut_flat, n_tiles, t, high_lane):
-    """The t smallest distances of every 1024-row tile and their rows, ties
-    to the lower row (or the higher one): (dists [B, n_tiles*t], rows)."""
+def bf16_chains(m: int) -> int:
+    """S0 of the canonical f32 sum of M bf16 lookups: 8 chains if M % 8 ==
+    0, else 4 (M % 4 == 0 always)."""
+    return 8 if m % 8 == 0 else 4
+
+
+def canonical_lut_dists(codes: torch.Tensor,
+                        lut_flat: torch.Tensor) -> torch.Tensor:
+    """B10-bf16's kernel's sums in plain PyTorch: [R, M] uint8 codes against
+    an f32 [B, M*K] LUT rounded to bf16 (round to nearest even) -> f32 [B,
+    R], added in the canonical order the kernel keeps for any subspace phase
+    count S dividing S0 = bf16_chains(M): chain r < S0 sums subspaces r, r +
+    S0, r + 2 S0, ... from 0 in increasing order, then a halving tree adds
+    chain r + d into chain r (r < d) for d = S0/2, S0/4, ..., 1.  It
+    differs from ``_lut_dists`` (subspace order) by at most
+    ``bf16_sum_bound``."""
+    m = codes.shape[1]
+    k = lut_flat.shape[1] // m
+    idx = codes.long()
+    shape = (lut_flat.shape[0], codes.shape[0])
+    lut = lut_flat.to(torch.bfloat16).float()
+    s0 = bf16_chains(m)
+    chains = []
+    for r in range(s0):
+        acc = torch.zeros(shape, dtype=torch.float32, device=lut.device)
+        for j in range(r, m, s0):
+            acc = acc + lut[:, j * k + idx[:, j]]
+        chains.append(acc)
+    d = s0 // 2
+    while d:
+        for r in range(d):
+            chains[r] = chains[r] + chains[r + d]
+        d //= 2
+    return chains[0]
+
+
+def _tile_picks(codes, lut_flat, n_tiles, t, high_lane, dist_fn=_lut_dists):
+    """The t smallest distances (by ``dist_fn``) of every 1024-row tile and
+    their rows, ties to the lower row (or the higher one): (dists [B,
+    n_tiles*t], rows)."""
     b = lut_flat.shape[0]
     n = n_tiles * ADC_TILE_N
     dists = torch.empty((b, n_tiles, t), dtype=(
@@ -126,7 +169,7 @@ def _tile_picks(codes, lut_flat, n_tiles, t, high_lane):
                        device=lut_flat.device)
     for r0 in range(0, n, _ROW_CHUNK):
         r1 = min(n, r0 + _ROW_CHUNK)
-        d = _lut_dists(codes[r0:r1], lut_flat)
+        d = dist_fn(codes[r0:r1], lut_flat)
         d = d.reshape(b, (r1 - r0) // ADC_TILE_N, ADC_TILE_N)
         if high_lane:
             d = d.flip(-1)
@@ -162,6 +205,77 @@ def adc_pallas_scan_ref(codes, lut_flat, n_tiles, t_per_tile):
     """Plain B10: (-dist [B, T*n_tiles] f32, rows int32)."""
     dists, rows = _tile_picks(codes, lut_flat, n_tiles, t_per_tile, False)
     return -dists.float(), rows.to(torch.int32)
+
+
+def adc_bf16_model(codes, lut_flat, n_tiles, t_per_tile):
+    """B10-bf16's kernel in plain PyTorch: B10 on an f32 LUT with each
+    row's sum in ``canonical_lut_dists``' order.  The kernel's picks and
+    values equal these bit for bit; the plain version is
+    ``adc_pallas_scan_ref``."""
+    dists, rows = _tile_picks(codes, lut_flat, n_tiles, t_per_tile, False,
+                              canonical_lut_dists)
+    return -dists, rows.to(torch.int32)
+
+
+def bf16_sum_bound(lut_flat: torch.Tensor, m: int) -> torch.Tensor:
+    """[B] f64: for each query, a bound on how far two f32 sums (from 0, in
+    any two orders) of one row's M entries of the bf16-rounded LUT lie
+    apart.  Each is within gamma_{M-1} sum|l| of the exact sum (M - 1
+    rounded adds on any path of the tree; gamma_n = n u / (1 - n u), u =
+    2^-24), and sum|l| <= the sum over subspaces of the largest |entry|."""
+    k = lut_flat.shape[1] // m
+    mags = lut_flat.to(torch.bfloat16).double().abs().reshape(-1, m, k)
+    nu = (m - 1) * 2.0 ** -24
+    return 2 * nu / (1 - nu) * mags.amax(-1).sum(-1)
+
+
+def lut_dists_at(codes, lut_flat, rows):
+    """The plain version's distance (``_lut_dists``: f32 sum in subspace
+    order of the bf16-rounded entries) of each row of ``rows`` [B, C] for
+    its query -> f32 [B, C]."""
+    m = codes.shape[1]
+    k = lut_flat.shape[1] // m
+    lut = lut_flat.to(torch.bfloat16).float()
+    picked = codes[rows.long()].long()                        # [B, C, M]
+    acc = torch.zeros(rows.shape, dtype=torch.float32, device=lut.device)
+    for j in range(m):
+        acc = acc + torch.gather(lut, 1, j * k + picked[..., j])
+    return acc
+
+
+def bf16_agreement(vals, rows, codes, lut_flat, n_tiles, t_per_tile,
+                   ref=None):
+    """How a B10-bf16 result (vals, rows) [B, n_tiles*T] agrees with the
+    plain version, which adds each row's entries in another order than the
+    kernel: with delta = bf16_sum_bound of the query, each value must lie
+    within delta of the plain version's value in its column (the t-th
+    smallest of a tile moves no further than any distance does), and each
+    picked row must be a distinct row of its tile whose plain distance lies
+    within 2 delta of the plain t-th value (the plain pick, or a near tie).
+    Returns dict(max_abs_err, max_err_over_bound, bound (the largest delta),
+    picks_differ (picks that are not the plain version's), bad_values,
+    bad_picks); the result agrees iff both bad counts are 0.  ``ref``: the
+    plain version's result, where the caller has it."""
+    b = lut_flat.shape[0]
+    m = codes.shape[1]
+    vr, rr = ref if ref is not None else adc_pallas_scan_ref(
+        codes, lut_flat, n_tiles, t_per_tile)
+    delta = bf16_sum_bound(lut_flat, m)[:, None]
+    err = (vals.double() - vr.double()).abs()
+    gap = (lut_dists_at(codes, lut_flat, rows).double() + vr.double()).abs()
+    tile = rows.long() // ADC_TILE_N
+    want = torch.arange(n_tiles, device=rows.device).repeat_interleave(
+        t_per_tile)
+    srt = rows.reshape(b, n_tiles, t_per_tile).sort(-1).values
+    dup = (srt[..., 1:] == srt[..., :-1]).any(-1).sum()
+    bad_picks = (gap > 2 * delta) | (tile != want[None, :])
+    return dict(max_abs_err=float(err.max()),
+                max_err_over_bound=float(torch.where(
+                    err == 0, 0.0, err / delta).max()),
+                bound=float(delta.max()),
+                picks_differ=int((rows != rr).sum()),
+                bad_values=int((err > delta).sum()),
+                bad_picks=int(bad_picks.sum() + dup))
 
 
 def adc_exact_scan_ref(codes, lut_q, q, i8_codes, i8_scales, i8_norms2,
@@ -282,6 +396,85 @@ def packed_lut_dists(codes: torch.Tensor, packed: torch.Tensor, m: int,
     return out
 
 
+# ------------------------------------------ the packed LUT of B10-bf16
+
+
+def adc_bf16_smem(m: int, k: int, s: int, h: int, nbuf: int,
+                  tmax: int) -> int:
+    """Shared memory of csrc/adc_scan.cu::adc_bf16_packed_kernel's block:
+    the packed LUT words of 2 h queries a subspace phase (4 M K h bytes),
+    ``nbuf`` 1024-row code tiles, the warps' lists of tmax 64-bit keys for
+    each of the 2 h queries (padded)."""
+    warps = 8 if tmax > 8 else 16
+    return (4 * m * k * h + nbuf * ADC_TILE_N * m
+            + 8 * warps * (2 * h * (tmax + 1) + 1))
+
+
+def adc_bf16_layout(b: int, m: int, k: int, t: int) -> dict:
+    """The launch of B10-bf16, the one place that sizes it.  Lane l of a
+    warp is (subspace phase ``s``, query pair ``g`` < 32 / s); a block holds
+    the packed LUTs of ``qg`` = 2 ``h`` queries, the pairs g < ``h`` (all
+    32 / s where the LUTs fit; fewer lanes work otherwise).  ``s`` divides
+    S0 = bf16_chains(M): 2 (32 queries a block) unless the batch is small
+    (<= 8 queries: 8; <= 16: 4) or the LUTs do not fit; ``nbuf`` code
+    tiles (2: the next one arrives while this one is scored; 1 where two do
+    not fit), ``threads`` (16 warps, 8 for lists deeper than 8), ``smem``
+    bytes.  Refuses exactly the shapes the first design refused: M % 4,
+    K past 256, T past 32, and 8 queries' bf16 LUTs plus one code tile past
+    the shared memory (every shape inside that has a layout)."""
+    if m < 4 or m % 4 or not 1 <= k <= 256:
+        raise ValueError(f"need M >= 4, M % 4 == 0 and 1 <= K <= 256 "
+                         f"(M={m}, K={k})")
+    if not 1 <= t <= 32 or b < 1:
+        raise ValueError(f"need 1 <= T <= 32 and B >= 1 (T={t}, B={b})")
+    if 2 * 8 * m * k + ADC_TILE_N * m > ADC_SMEM_MAX:
+        raise ValueError(f"adc_pallas_scan: bf16 LUTs of M*K={m * k} "
+                         "exceed the kernel's shared memory")
+    tmax = adc_t_max(t)
+    s0 = bf16_chains(m)
+    want = 8 if b <= 8 else 4 if b <= 16 else 2
+    full = [s for s in (2, 4, 8) if s0 % s == 0 and adc_bf16_smem(
+        m, k, s, 32 // s, 2, tmax) <= ADC_SMEM_MAX]
+    if full:
+        s = min(full, key=lambda x: (abs(x - want), x))
+        h, nbuf = 32 // s, 2
+    else:   # the most queries a block, then the most lanes at work
+        s, h, nbuf = max(
+            ((s, h, nbuf) for s in (2, 4, 8) if s0 % s == 0
+             for h in (16, 8, 4, 2, 1) if h <= 32 // s for nbuf in (2, 1)
+             if adc_bf16_smem(m, k, s, h, nbuf, tmax) <= ADC_SMEM_MAX),
+            key=lambda o: (o[1], o[0] * o[1], o[2]))
+    tpb = 256 if tmax > 8 else 512
+    return dict(s=s, s0=s0, g=32 // s, h=h, qg=2 * h, groups=-(-b // (2 * h)),
+                tmax=tmax, nbuf=nbuf, threads=tpb,
+                smem=adc_bf16_smem(m, k, s, h, nbuf, tmax))
+
+
+def pack_lut_bf16(lut_flat: torch.Tensor, m: int, s: int,
+                  h: int) -> torch.Tensor:
+    """The words B10-bf16's kernel stages in shared memory from the f32 LUT
+    (csrc/adc_scan.cu::stage_bf16_lut), in plain PyTorch: [B, M*K] f32 LUT
+    -> [groups, M/s, K, s*h] int32 (h <= 32 / s query pairs a phase),
+    groups of 2h queries.  Each entry is rounded to bf16 (round to nearest
+    even); word (p, c, i*h + j) of a group holds in its low half the entry
+    of query 2j, in its high half that of query 2j + 1, for subspace p*s + i
+    and code c.  With h = 32 / s
+    lane l = i*h + j of a warp reads word l of a row at any code: the 32
+    loads never share a bank, and each serves 2 lookups.  Queries past B
+    are zeros, and -0 is stored as +0 (a sum from 0 never tells them apart,
+    so the kernel starts each sum at its first term)."""
+    b, mk = lut_flat.shape
+    k = mk // m
+    groups = -(-b // (2 * h))
+    x = lut_flat.new_zeros((groups * 2 * h, mk), dtype=torch.bfloat16)
+    x[:b] = lut_flat
+    x += 0                                         # -0 + 0 is +0
+    # [groups, j, query of the pair, p, i, K] -> [groups, p, K, i, j, pair]
+    x = x.view(torch.int16).reshape(groups, h, 2, m // s, s, k)
+    x = x.permute(0, 3, 5, 4, 1, 2)
+    return x.contiguous().view(torch.int32).reshape(groups, m // s, k, s * h)
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -352,12 +545,11 @@ def adc_pallas_scan(codes, lut_flat, *, n_tiles: int, t_per_tile: int = 4
             codes.data_ptr(), pack_lut(lut_flat, m, s).data_ptr(), b, m, k, s,
             n_tiles, t_per_tile, vals.data_ptr(), rows.data_ptr(), _stream())
     else:
-        if 2 * 8 * m * k + ADC_TILE_N * m > ADC_SMEM_MAX:
-            raise ValueError(f"adc_pallas_scan: bf16 LUTs of M*K={m * k} "
-                             "exceed the kernel's shared memory")
+        lay = adc_bf16_layout(b, m, k, t_per_tile)
         rc = lib.evdb_adc_scan_bf16(
-            codes.data_ptr(), lut_flat.data_ptr(), b, m, k, n_tiles,
-            t_per_tile, vals.data_ptr(), rows.data_ptr(), _stream())
+            codes.data_ptr(), lut_flat.data_ptr(), b, m, k, lay["s"],
+            lay["h"], lay["nbuf"], n_tiles, t_per_tile, vals.data_ptr(),
+            rows.data_ptr(), _stream())
     cuda_lib.check(rc, "adc_pallas_scan")
     _count(adc_pallas_scan, variant)
     return vals, rows

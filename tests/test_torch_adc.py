@@ -452,3 +452,311 @@ def test_adc_layout_fits_and_covers(t):
                 assert s == 8
             if b > 32 and fits(2):
                 assert s == 2
+
+
+# ------------------------------------ the packed bf16 LUT of B10-bf16
+
+
+def _bf16_bits(x):
+    """Round-to-nearest-even f32 -> bf16 bits, in numpy (finite values)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint32)
+
+
+def _bf16_lut(rng, b, m, k):
+    """An f32 LUT whose entries are not bf16-exact, with a run of repeated
+    values (equal distances from distinct codes) and some -0."""
+    lut = (rng.standard_normal((b, m * k)) ** 2).astype(np.float32)
+    lut[:, ::7] = 0.5
+    lut[:, 5::11] = -0.0
+    return lut
+
+
+_PACK_CASES = [(s, m) for s in (2, 4, 8) for m in (4, 8, 12, 16) if m % s == 0]
+
+
+@pytest.mark.parametrize("k", [1, 64, 256])
+@pytest.mark.parametrize("s,m", _PACK_CASES)
+def test_pack_lut_bf16_words(s, m, k):
+    """pack_lut_bf16 read back word by word: word (p, c, i*h + j) of group
+    gr holds the bf16-rounded entries of queries 2j and 2j + 1 of the group
+    (low, high half) for subspace p*s + i and code c, zeros past B and -0
+    stored as +0; for h = 32 / s and for a narrower group (h = 1)."""
+    b = 37
+    lut = _bf16_lut(np.random.default_rng(s * 100 + m + k), b, m, k)
+    bits = _bf16_bits(lut)
+    bits[bits == 0x8000] = 0
+    for h in (32 // s, 1):
+        got = tap.pack_lut_bf16(torch.from_numpy(lut), m, s, h).numpy()
+        groups = -(-b // (2 * h))
+        assert got.shape == (groups, m // s, k, s * h) and got.dtype == np.int32
+        gr, p, c, w = np.indices(got.shape)
+        i, j = w // h, w % h
+        col = (p * s + i) * k + c
+
+        def entry(q):
+            return np.where(q < b, bits[np.minimum(q, b - 1), col], 0)
+
+        q0 = gr * 2 * h + 2 * j
+        words = got.view(np.uint32)
+        np.testing.assert_array_equal(words & 0xFFFF, entry(q0))
+        np.testing.assert_array_equal(words >> 16, entry(q0 + 1))
+
+
+def _lane_model(codes, packed, m, s, h, b):
+    """B10-bf16's arithmetic in numpy, lane by lane: lane (phase i, pair j)
+    adds word p of each row into chain p % (S0/s) of its two queries (a
+    chain starts at its first term, as the kernel's does), runs
+    the in-register levels of the halving tree (strides S0/2 .. s), and the
+    s lanes of a pair reduce-scatter (strides s/2 .. 1): slot u of lane i
+    holds row u ^ i of each run of s rows, and at stride d a lane keeps its
+    slots u < d, adding its partner's (lane i ^ d) slot d + u.  Returns the
+    f32 distances [b, R]."""
+    s0 = tap.bf16_chains(m)
+    nc, n_p = s0 // s, m // s
+    words = packed.numpy().view(np.uint32)
+    r = codes.shape[0]
+    run = codes.reshape(r // s, s, m)           # runs of s rows
+    out = np.empty((words.shape[0] * 2 * h, r), np.float32)
+    for gr in range(words.shape[0]):
+        for j in range(h):
+            # slots[i][u]: lane i's partial (class i) of row u ^ i, [2, runs]
+            slots = []
+            for i in range(s):
+                lane = []
+                for u in range(s):
+                    ch = np.empty((nc, 2, r // s), np.float32)
+                    for p in range(n_p):
+                        w = words[gr, p, run[:, u ^ i, p * s + i], i * h + j]
+                        v = np.stack([(w << 16).view(np.float32),
+                                      (w & 0xFFFF0000).view(np.float32)])
+                        ch[p % nc] = v if p < nc else ch[p % nc] + v
+                    d = nc // 2
+                    while d:
+                        ch[:d] = ch[:d] + ch[d:2 * d]
+                        d //= 2
+                    lane.append(ch[0])
+                slots.append(lane)
+            d = s // 2
+            while d:
+                slots = [[slots[i][u] + slots[i ^ d][d + u] if u < d
+                          else slots[i][u] for u in range(s)]
+                         for i in range(s)]
+                d //= 2
+            q = gr * 2 * h + 2 * j
+            for i in range(s):                  # lane i: row i of each run
+                out[q:q + 2, i::s] = slots[i][0]
+    return out[:b]
+
+
+_MODEL_CASES = [(m, s) for m in (4, 8, 12, 16, 20, 24, 36) for s in (2, 4, 8)
+                if tap.bf16_chains(m) % s == 0]
+
+
+@pytest.mark.parametrize("narrow", [False, True], ids=["h_full", "h_1"])
+@pytest.mark.parametrize("m,s", _MODEL_CASES)
+def test_bf16_lane_model_matches_plain_bit_for_bit(m, s, narrow):
+    """The kernel's lane decomposition (chains, in-lane levels, xor levels)
+    on pack_lut_bf16's words gives canonical_lut_dists' sums bit for bit,
+    for every subspace phase count S dividing S0 (the layout's choices) and
+    for narrow groups; and those lie within bf16_sum_bound of the plain
+    version's sums in subspace order."""
+    rng = np.random.default_rng(m * 10 + s)
+    k, b = 16, 5
+    codes = rng.integers(0, k, (1000, m)).astype(np.uint8)
+    lut = _bf16_lut(rng, b, m, k)
+    lut[:, 3] = -lut[:, 3]                      # mixed signs, and -0
+    h = 1 if narrow else 32 // s
+    packed = tap.pack_lut_bf16(torch.from_numpy(lut), m, s, h)
+    want = tap.canonical_lut_dists(torch.from_numpy(codes),
+                                   torch.from_numpy(lut))
+    got = _lane_model(codes, packed, m, s, h, b)
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  want.numpy().view(np.uint32))
+    plain = tap._lut_dists(torch.from_numpy(codes), torch.from_numpy(lut))
+    bound = tap.bf16_sum_bound(torch.from_numpy(lut), m).numpy()[:, None]
+    assert (np.abs(got.astype(np.float64) - plain.numpy()) <= bound).all()
+
+
+@pytest.mark.parametrize("b", [1, 3, 20])
+@pytest.mark.parametrize("t", [1, 4, 8])
+@pytest.mark.parametrize("k", [64, 256])
+@pytest.mark.parametrize("m", [4, 8, 12])
+def test_b10_bf16_plain_matches_jax(m, k, t, b):
+    """The port's plain B10-bf16 (canonical order of the f32 sum) against
+    the JAX kernel in interpret mode on one tile of random codes: >= 99%
+    equal picks, their values within rtol 1e-5 (the bar of
+    test_b10_bf16_lut: the same bf16 entries summed in another order)."""
+    rng = np.random.default_rng(m * 1000 + k * 10 + t + b)
+    codes = rng.integers(0, k, (TILE, m)).astype(np.uint8)
+    lut = (rng.standard_normal((b, m * k)) ** 2).astype(np.float32)
+    vj, rj = jap.adc_pallas_scan(jnp.asarray(codes), jnp.asarray(lut),
+                                 n_tiles=1, t_per_tile=t)
+    vt, rt = tap.adc_pallas_scan(_t(codes), _t(lut), n_tiles=1, t_per_tile=t)
+    same = rt.numpy() == np.asarray(rj)
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(vt.numpy()[same], np.asarray(vj)[same],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [1, 2, 4, 8, 32])
+def test_adc_bf16_layout_refuses_as_the_first_design(t):
+    """adc_bf16_layout over M 4-240 and K 1-256: it refuses exactly the
+    shapes the first design's wrapper refused (8 queries' bf16 LUTs and one
+    code tile past 232,448 B), and every other gets a layout that fits,
+    mirrors the kernel's carve-up, divides S0 and covers the batch; a
+    layout holds whole 32 / s pairs wherever those fit."""
+    for m in range(4, 244, 4):
+        for k in (1, 2, 3, 15, 16, 64, 100, 128, 200, 255, 256):
+            for b in (1, 9, 17, 512):
+                refused = 16 * m * k + 1024 * m > tap.ADC_SMEM_MAX
+                try:
+                    lay = tap.adc_bf16_layout(b, m, k, t)
+                except ValueError:
+                    assert refused, (m, k, b)
+                    continue
+                assert not refused, (m, k, b)
+                s, h = lay["s"], lay["h"]
+                assert lay["s0"] == tap.bf16_chains(m) and lay["s0"] % s == 0
+                assert lay["g"] == 32 // s and h & (h - 1) == 0 and h <= lay["g"]
+                assert lay["qg"] == 2 * h
+                assert lay["groups"] * lay["qg"] >= b > (lay["groups"] - 1) * lay["qg"]
+                assert lay["tmax"] == tap.adc_t_max(t) and lay["nbuf"] in (1, 2)
+                assert lay["threads"] == (256 if lay["tmax"] > 8 else 512)
+                assert lay["smem"] == (4 * m * k * h + lay["nbuf"] * 1024 * m
+                                       + 8 * (lay["threads"] // 32)
+                                       * (2 * h * (lay["tmax"] + 1) + 1))
+                assert lay["smem"] <= tap.ADC_SMEM_MAX
+                full = [x for x in (2, 4, 8) if lay["s0"] % x == 0
+                        and tap.adc_bf16_smem(m, k, x, 32 // x, 2,
+                                              lay["tmax"]) <= tap.ADC_SMEM_MAX]
+                assert (h == lay["g"] and lay["nbuf"] == 2) == bool(full)
+                if b > 16 and 2 in full:
+                    assert s == 2
+                if b <= 8 and 8 in full:
+                    assert s == 8
+    for bad in ((1, 6, 16, t), (1, 8, 0, t), (1, 8, 257, t), (0, 8, 16, t),
+                (1, 8, 16, 0), (1, 8, 16, 33)):
+        with pytest.raises(ValueError):
+            tap.adc_bf16_layout(*bad)
+
+
+def test_adc_bf16_layout_at_the_largest_shapes():
+    """M % 8 != 0 at K 256 (S0 = 4): M 36 keeps double-buffered tiles with
+    4 of 8 pairs a phase at work; M 44 (the largest the first design took)
+    keeps 4 pairs on one tile buffer, or 2 on two beside T 32's lists; M
+    220 at K 1 fills shared memory with its codes."""
+    lay = tap.adc_bf16_layout(512, 36, 256, 4)
+    assert (lay["s"], lay["h"], lay["nbuf"]) == (4, 4, 2) and lay["s0"] == 4
+    lay = tap.adc_bf16_layout(512, 44, 256, 4)
+    assert (lay["s"], lay["h"], lay["nbuf"]) == (4, 4, 1)
+    lay = tap.adc_bf16_layout(512, 44, 256, 32)
+    assert (lay["s"], lay["h"], lay["nbuf"]) == (4, 2, 2)
+    lay = tap.adc_bf16_layout(3, 220, 1, 32)
+    assert lay["nbuf"] == 1 and lay["smem"] <= tap.ADC_SMEM_MAX
+    with pytest.raises(ValueError):
+        tap.adc_bf16_layout(1, 48, 256, 4)
+
+
+def _stage_model(lut, b, m, k, s, h, q0, nw):
+    """csrc/adc_scan.cu::stage_bf16_lut's loop in numpy: every (warp, chunk,
+    lane) it runs, the word it writes and the two f32 entries it reads.
+    Returns (the words [M/s, K, s*h] as uint32, how often each was
+    written)."""
+    sh = s * h
+    lw = min(sh, 4)
+    cw = 32 // lw
+    ncb, nlb = -(-k // cw), sh // lw
+    n = (m // s) * ncb * nlb
+    ch = np.concatenate([np.arange(w, n, nw) for w in range(nw)])[:, None]
+    lane = np.arange(32)[None, :]
+    lb, cb, p = ch % nlb, (ch // nlb) % ncb, ch // (nlb * ncb)
+    l, c = lb * lw + lane % lw, cb * cw + lane // lw
+    live = np.broadcast_to(c < k, (ch.shape[0], 32))
+    q = q0 + 2 * (l % h)
+    col = (p * s + l // h) * k + c
+    bits = _bf16_bits(lut)
+    bits[(bits & 0x7FFF) == 0] = 0
+
+    def entry(qq):
+        return np.where(qq < b, bits[np.minimum(qq, b - 1), np.minimum(col, m * k - 1)], 0)
+
+    word = (entry(q) | (entry(q + 1) << 16)).astype(np.uint32)
+    dst = (p * k + c) * sh + l
+    out = np.zeros(m // s * k * sh, np.uint32)
+    hits = np.zeros(m // s * k * sh, np.int64)
+    out[dst[live]] = word[live]
+    np.add.at(hits, dst[live], 1)
+    return out.reshape(m // s, k, sh), hits
+
+
+_STAGE_CASES = [(s, h) for s in (2, 4, 8) for h in (1, 2, 4, 8, 16)
+                if h <= 32 // s]
+
+
+@pytest.mark.parametrize("k", [1, 3, 64, 100, 256])
+@pytest.mark.parametrize("s,h", _STAGE_CASES)
+def test_stage_bf16_lut_writes_pack_lut_bf16s_words(s, h, k):
+    """The kernel's in-block staging of the f32 LUT (chunks of 32 / LW
+    codes x LW words a warp, 8 or 16 warps) writes every word of a query
+    group exactly once, and the words are pack_lut_bf16's: the first group,
+    a middle one, and the last one, partly past B."""
+    m, b = 8, 4 * h + 1
+    lut = _bf16_lut(np.random.default_rng(s * 1000 + h * 10 + k), b, m, k)
+    lut[:, 2::9] *= -1
+    want = tap.pack_lut_bf16(torch.from_numpy(lut), m, s, h).numpy()
+    for nw in (8, 16):
+        for gr in range(want.shape[0]):
+            got, hits = _stage_model(lut, b, m, k, s, h, gr * 2 * h, nw)
+            assert (hits == 1).all()
+            np.testing.assert_array_equal(got, want[gr].view(np.uint32))
+
+
+@pytest.mark.parametrize("t", [1, 4, 32])
+@pytest.mark.parametrize("m,k", [(4, 256), (8, 16), (12, 64), (16, 256),
+                                 (36, 16)])
+def test_bf16_agreement_holds_the_kernel_order_to_plain(m, k, t):
+    """adc_bf16_model (the kernel's order of the f32 sums) against the
+    plain version (subspace order) on 2 tiles with duplicated code rows and
+    repeated entries: every value within bf16_sum_bound, every pick the
+    plain one or a near tie; and the orders really differ somewhere."""
+    rng = np.random.default_rng(m * 100 + k + t)
+    codes = rng.integers(0, k, (2 * TILE, m)).astype(np.uint8)
+    codes[TILE // 2:TILE // 2 + 64] = codes[:64]
+    lut = _bf16_lut(rng, 5, m, k)
+    lut[:, 1::5] *= -1
+    c, l = torch.from_numpy(codes), torch.from_numpy(lut)
+    vals, rows = tap.adc_bf16_model(c, l, 2, t)
+    agree = tap.bf16_agreement(vals, rows, c, l, 2, t)
+    assert agree["bad_values"] == 0 and agree["bad_picks"] == 0, agree
+    assert agree["max_err_over_bound"] <= 1
+    diff = tap.canonical_lut_dists(c, l) != tap._lut_dists(c, l)
+    assert bool(diff.any())
+
+
+@pytest.mark.parametrize("fault", ["value", "far_row", "order", "repeat",
+                                   "other_tile"])
+def test_bf16_agreement_fails_a_wrong_result(fault):
+    """bf16_agreement refuses a result a wrong kernel could give: a value
+    moved past the bound, a pick swapped for the tile's farthest row, two
+    picks out of order, a row picked twice, a row of another tile."""
+    m, k, t = 8, 64, 4
+    rng = np.random.default_rng(7)
+    codes = torch.from_numpy(rng.integers(0, k, (2 * TILE, m)).astype(np.uint8))
+    lut = torch.from_numpy(_bf16_lut(rng, 3, m, k))
+    vals, rows = tap.adc_bf16_model(codes, lut, 2, t)
+    vals, rows = vals.clone(), rows.clone()
+    bound = tap.bf16_sum_bound(lut, m)
+    if fault == "value":
+        vals[1, 2] += 4 * float(bound[1])
+    elif fault == "far_row":
+        d = tap._lut_dists(codes[:TILE], lut)[0]
+        rows[0, 1] = int(torch.argmax(d))
+    elif fault == "order":
+        rows[2, [0, t - 1]] = rows[2, [t - 1, 0]]
+    elif fault == "repeat":
+        rows[0, t + 1] = rows[0, t]
+    else:
+        rows[1, 0] = rows[1, t]
+    agree = tap.bf16_agreement(vals, rows, codes, lut, 2, t)
+    assert agree["bad_values"] + agree["bad_picks"] > 0, agree

@@ -888,9 +888,11 @@ def _on_cpu(*ts):
 @pytest.mark.parametrize("k", [64, 256])
 @pytest.mark.parametrize("t", [2, 4, 8])
 def test_adc_pallas_scan_matches_plain(dev, k, t):
-    """B10: the int8 and the bf16 LUT give the plain version's picks and
-    values bit for bit (integer sums; bf16 values added in the same
-    subspace order)."""
+    """B10: the int8 LUT gives the plain version's picks and values bit
+    for bit (integer sums).  The bf16 LUT gives, bit for bit, those of the
+    kernel's order of the f32 sums (adc_bf16_model, on the CPU), and
+    agrees with the plain version (subspace order, on the CPU) within the
+    bound of that reordering (adc_pallas.bf16_agreement)."""
     from erlvectordb_tpu_torch.ops import adc_pallas as ap
 
     c = _adc_case(dev, k=k)
@@ -900,8 +902,14 @@ def test_adc_pallas_scan_matches_plain(dev, k, t):
                                     t_per_tile=t)
         torch.cuda.synchronize()
         assert ap.adc_pallas_scan.launches_by == {variant: 1}
-        vr, rr = ap.adc_pallas_scan(*_on_cpu(c["codes"], lut),
-                                    n_tiles=c["n_tiles"], t_per_tile=t)
+        codes_c, lut_c = _on_cpu(c["codes"], lut)
+        vr, rr = ap.adc_pallas_scan(codes_c, lut_c, n_tiles=c["n_tiles"],
+                                    t_per_tile=t)
+        if variant == "bf16":
+            agree = ap.bf16_agreement(vk.cpu(), rk.cpu(), codes_c, lut_c,
+                                      c["n_tiles"], t, ref=(vr, rr))
+            assert agree["bad_values"] == 0 and agree["bad_picks"] == 0, agree
+            vr, rr = ap.adc_bf16_model(codes_c, lut_c, c["n_tiles"], t)
         np.testing.assert_array_equal(rk.cpu().numpy(), rr.numpy())
         np.testing.assert_array_equal(vk.cpu().numpy(), vr.numpy())
 
@@ -1180,3 +1188,68 @@ def test_adc_packed_kernel_at_the_largest_m(dev):
     wide = torch.zeros((codes.shape[0], m + 4), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         ap.adc_pallas_scan(wide, big, n_tiles=3, t_per_tile=2)
+
+
+# --------------------- B10-bf16 on the packed two-queries-a-word LUT
+
+
+def _bf16_lut(dev, b, m, k, seed):
+    """An f32 LUT that is not bf16-exact, every 7th entry 0.5 (equal
+    distances from distinct codes besides those of duplicated rows), some
+    entries -0 and some negative."""
+    rng = np.random.default_rng(seed)
+    lut = (rng.standard_normal((b, m * k)) ** 2).astype(np.float32)
+    lut[:, ::7] = 0.5
+    lut[:, 5::11] = -0.0
+    lut[:, 3::13] *= -1
+    return torch.from_numpy(lut).to(dev)
+
+
+def _check_bf16(kern, codes, lut, t):
+    """B10-bf16 on 3 tiles: the picks and values of its arithmetic in plain
+    PyTorch (adc_bf16_model: the kernel's order of the f32 sums) bit for
+    bit, and the plain version's (sums in subspace order) within the bound
+    of a reordered f32 sum: values within it, picks the plain ones or near
+    ties (adc_pallas.bf16_agreement)."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    _check_adc(kern, ap.adc_bf16_model(codes, lut, 3, t), False, None, None,
+               None, None)
+    agree = ap.bf16_agreement(*kern, codes, lut, 3, t)
+    assert agree["bad_values"] == 0 and agree["bad_picks"] == 0, agree
+
+
+@pytest.mark.parametrize("t", [1, 2, 4, 8, 32])
+@pytest.mark.parametrize("k", [64, 256])
+@pytest.mark.parametrize("m", [4, 8, 12, 16])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 16, 17, 33, 512])
+def test_adc_bf16_kernel_matches_plain(dev, b, m, k, t):
+    """B10-bf16 at 1-512 queries (the layout's 8-, 4- and 2-phase warps,
+    S0 4 and 8), K 64 and 256, every list depth, ties from duplicated code
+    rows inside a warp's rows, across warps and across tiles, in one
+    launch: its order of sums bit for bit, the plain version within the
+    bound of that order (_check_bf16)."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    codes = _adc_dup_case(dev, 1, m, k, b + m + k + t)[0]
+    lut = _bf16_lut(dev, b, m, k, 3 * b + m + k + t)
+    ap.reset_launches()
+    kern = ap.adc_pallas_scan(codes, lut, n_tiles=3, t_per_tile=t)
+    torch.cuda.synchronize()
+    assert ap.adc_pallas_scan.launches_by == {"bf16": 1}
+    _check_bf16(kern, codes, lut, t)
+
+
+@pytest.mark.parametrize("t", [1, 4, 13, 32])
+@pytest.mark.parametrize("m,k", [(36, 256), (44, 256), (220, 1), (24, 100)])
+def test_adc_bf16_kernel_at_the_largest_shapes(dev, m, k, t):
+    """The layouts past a full group of pairs or two code buffers: M 36 and
+    44 at K 256 (S0 4; 4 or 2 of 8 pairs a phase at work; one tile buffer
+    where two do not fit), M 220 at K 1 (one buffer), M 24 at K 100
+    (S0 8: chains of 3 subspaces): as _check_bf16."""
+    from erlvectordb_tpu_torch.ops import adc_pallas as ap
+
+    codes = _adc_dup_case(dev, 1, m, k, m + k + t)[0]
+    lut = _bf16_lut(dev, 37, m, k, m * k + t)
+    _check_bf16(ap.adc_pallas_scan(codes, lut, n_tiles=3, t_per_tile=t),
+                codes, lut, t)
