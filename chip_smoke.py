@@ -65,6 +65,22 @@ Phases, each printing one JSON line of its own numbers:
               indexes created, built, listed and searched through the MCP
               tools (256 search_index calls each, every answer the same as a
               direct IndexManager.search) -> B7 gather_dots int8 (cellprobe);
+              then (l) every index saved (save_all), loaded into a fresh
+              IndexManager (load_indexes) and searched again: the same
+              answers;
+  8. durability (l), after (f-rq): stores (a), (h) (after its 1,000 MCP
+              inserts) and the rq_m = 9 store of (f-rq), each adopted by a
+              Database with the default configuration (persistence on):
+              a full base, 1,000 inserts and 1,000 deletes through its verbs,
+              a second sync (a delta on (a)), a stop, and a new Database
+              started on the same directory: the time to recover, bytes on
+              disk, the same ids for the 1024-query batch (store (a): and
+              distances, bit for bit), inserted rows read back, deleted rows
+              absent; (a) also recall@10 and a backup restored under a new
+              name -> B1 at (a), B6/B5 at (h), B7 gather_dots int4 at (f-rq),
+              through the recovered stores; (l-c) compress_batch /
+              decompress_batch on the card over 65,536 rows of the corpus
+              (8bit, 4bit, pca, product): rows/s, ratio, error;
 
 then the kernels summary line, the nvidia-smi line and, last, the contract
 line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -78,13 +94,17 @@ the card.
 from __future__ import annotations
 
 import base64
+import gc
 import json
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -115,6 +135,14 @@ J_ROWS, J_DIM, J_LATENT, J_BATCH, J_RECALL = 1_000_000, 128, 20, 512, 256
 J_OPQ = dict(m=8, k=256, iters=15, opq_iters=4, max_train=200_000)
 J_C, J_BATCHES = 2048, 4   # adc_search_fused's pool; timed batches
 K_TYPES = ("pq", "opq", "int8", "ivf", "cellprobe")   # (k)'s index types
+# (l): rows inserted into and deleted from (a), (h) and (f-rq) between their
+# full base and the sync after it; (l-c): the rows compressed on the card
+L_NEW = L_DELETE = 1_000
+L_PROBE = {"a": {}, "h": {}, "f-rq": {"nprobe": 64}}
+L_KERNELS = {"a": (("intkey_scan", "int8"),),
+             "h": (("cell_scan", "int4"), ("pos_residual_scan", "int4")),
+             "f-rq": (("gather_dots", "int4"),)}
+C_ROWS, C_ALGS = 65_536, ("8bit", "4bit", "pca", "product")
 DEVICE = "cuda"
 CSRC = "erlvectordb_tpu_torch/csrc/"
 JAX_FT = "erlvectordb_tpu/ops/fused_topk.py:"
@@ -988,7 +1016,8 @@ def rq_phase(corpus, queries, stores, stage1, launches):
     stage (bench.py:1008), driven with the launch counts zeroed: the
     multiprobe recall@10 at nprobe 512 for each rescore pool, and one
     64-query dispatch at nprobe 64 beside store (f)'s (bench.py:1020-1031).
-    ``stage1``: (f)'s recall@10 at nprobe 512, stage 1 alone."""
+    ``stage1``: (f)'s recall@10 at nprobe 512, stage 1 alone.  Returns the
+    store, for path (l)."""
     import torch
 
     from erlvectordb_tpu_torch.core.store import VectorStore
@@ -1039,6 +1068,240 @@ def rq_phase(corpus, queries, stores, stage1, launches):
     if best < 0.88 or ratio["c"] > 0.5 or best - stage1 < 0.02:
         raise AssertionError(f"(f-rq): recall {curve} (stage 1 {stage1}), "
                              f"bytes over int8 {ratio}")
+    return store
+
+
+# --------------------------------------------------------------- durability
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def raw_search(store, qs, **probe):
+    """(ids [nq, K] object, distances [nq, K] f32) of one store batch."""
+    dists, _rows, ids = store.search_batch_complete_raw(
+        store.search_batch_submit(qs, k=K, **probe))
+    return ids, dists
+
+
+def launch_diff(after, before) -> dict:
+    out = {}
+    for kname, by in after.items():
+        d = {v: n - before.get(kname, {}).get(v, 0) for v, n in by.items()}
+        d = {v: n for v, n in d.items() if n}
+        if d:
+            out[kname] = d
+    return out
+
+
+def exact_ids_after(corpus, deleted, new_rows, new_ids, qs):
+    """Exact f32 cosine top-K ids over the corpus with ``deleted`` rows
+    removed and ``new_rows`` added (the recall reference after (l)'s
+    mutations)."""
+    import torch
+
+    from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
+
+    q = torch.from_numpy(qs).to(DEVICE)
+    scores = []
+    for rows in (corpus, new_rows):
+        x = torch.from_numpy(rows).to(DEVICE)
+        with full_f32_matmul():
+            scores.append((q @ x.T) / x.norm(dim=1)[None, :])
+        del x
+    scores[0][:, torch.from_numpy(deleted).to(DEVICE)] = -torch.inf
+    top = torch.topk(torch.cat(scores, dim=1), K, dim=1).indices.cpu().numpy()
+    n = len(corpus)
+    return [[str(i) if i < n else new_ids[i - n] for i in row] for row in top]
+
+
+def durable_path(name, store, root, corpus, queries, n_base, launches):
+    """Path (l) on one store built on the card: a Database with the default
+    configuration (persistence on; only the directories and a long sync
+    interval set) adopts it, syncs a full base, takes L_NEW inserts and
+    L_DELETE deletes through its verbs and syncs again (a delta where the
+    store did not grow), then stops; the store is freed and a new Database
+    starts on the same directory.  Gates: the same ids (store (a): and
+    distances, bit for bit) for the 1024-query batch (with L_PROBE) as just
+    before the stop, each inserted row its own top-1 through the full scan
+    (>= 0.99), no deleted id returned for the deleted rows' own vectors, the
+    recovered store's batch served by its kernel.  Store (a) also: the second sync a delta, recall@10 >= 0.95
+    against exact f32 over the mutated corpus, and a backup restored under a
+    new name answering the batch the same.  Returns the step numbers."""
+    import torch
+
+    from erlvectordb_tpu_torch.api import Database
+    from erlvectordb_tpu_torch.infra.config import load_config
+
+    probe = L_PROBE[name]
+    cfg = load_config(overrides={"persistence_dir": f"{root}/{name}/data",
+                                 "backup_dir": f"{root}/{name}/backups",
+                                 "sync_interval": 3600.0}, env={})
+    sdir = Path(cfg.persistence_dir) / name
+    qs = queries[:BATCH]
+    new_rows = make_corpus(SEED + 10, L_NEW)   # config 3's recipe, new seed
+    new_ids = [f"l{j}" for j in range(L_NEW)]
+    deleted = np.sort(np.random.default_rng(SEED + 11).choice(
+        n_base, L_DELETE, replace=False))
+    del_ids = [str(r) for r in deleted]
+    out = {"store": name, "rows": store.count, "probe": probe}
+
+    reset_launches()
+    db = Database(cfg, device=torch.device(DEVICE)).start()
+    # the store was built on the card before this phase: the Database
+    # adopts it and tracks it, as restore_store and import_store do
+    db.registry.adopt(store)
+    db.persistence.track(store)
+    _, out["full_sync_s"] = timed(lambda: db.sync(name))
+    if list(sdir.glob("delta_*")):
+        raise AssertionError(f"(l) {name}: the first sync wrote a delta")
+    out["full_bytes"] = dir_bytes(sdir)
+    _, out["insert_s"] = timed(lambda: db.insert_batch(name, new_ids, new_rows))
+    _, out["delete_s"] = timed(lambda: [db.delete(name, v) for v in del_ids])
+    mid_ids, mid_d = raw_search(store, qs, **probe)
+    count = store.count
+    _, out["second_sync_s"] = timed(lambda: db.sync(name))
+    deltas = sorted(sdir.glob("delta_*"))
+    out["second_sync"] = "delta" if deltas else "full"
+    out["second_sync_bytes"] = (sum(p.stat().st_size for p in deltas)
+                                if deltas else dir_bytes(sdir))
+    db.stop()
+    db = store = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pre = read_launches()
+    t0 = time.perf_counter()
+    db = Database(cfg, device=torch.device(DEVICE)).start()
+    back = db.get_store(name)
+    ids, dists = raw_search(back, qs, **probe)
+    torch.cuda.synchronize()
+    out["time_to_recover_s"] = time.perf_counter() - t0
+    out["recovered_launches"] = launch_diff(read_launches(), pre)
+    # the read-back runs through the full scan: multiprobe misses rows that
+    # an insert batch parks in cells spawned for its overflow (k-means of
+    # rows of unrelated directions, as in the JAX package), so at nprobe 64
+    # it is recorded, not gated
+    top1, _ = raw_search(back, new_rows)
+    out["inserted_top1"] = float(np.mean(top1[:, 0] == np.asarray(new_ids)))
+    if probe:
+        top1, _ = raw_search(back, new_rows, **probe)
+        out["inserted_top1_probe"] = float(np.mean(
+            top1[:, 0] == np.asarray(new_ids)))
+    gone, _ = raw_search(back, corpus[deleted], **probe)
+    out["deleted_returned"] = int(np.isin(np.concatenate(
+        [gone.ravel(), ids.ravel()]).astype(str), del_ids).sum())
+    out["same_ids"] = bool(np.array_equal(ids, mid_ids))
+    out["same_distances"] = bool(np.array_equal(dists, mid_d))
+    out["max_abs_distance_change"] = float(np.abs(dists - mid_d).max())
+    out["count_after"] = back.count
+    if name == "a":
+        gt = exact_ids_after(corpus, deleted, new_rows, new_ids, qs[:N_RECALL])
+        out["recall_at_10"] = overlap(ids[:N_RECALL].tolist(), gt)
+        path, out["backup_s"] = timed(lambda: db.backup_store(name, "l"))
+        out["backup_bytes"] = os.path.getsize(path)
+        _, out["restore_s"] = timed(lambda: db.restore_store(
+            os.path.basename(path), new_name="a-restored"))
+        r_ids, r_d = raw_search(db.get_store("a-restored"), qs, **probe)
+        out["restored_same_ids"] = bool(np.array_equal(r_ids, mid_ids))
+        out["restored_same_distances"] = bool(np.array_equal(r_d, mid_d))
+        db.delete_store("a-restored")
+        db.delete_backup(os.path.basename(path))
+    db.stop()
+    torch.cuda.synchronize()
+    launches[f"l-{name}"] = read_launches()
+    del db, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bad = []
+    if not out["same_ids"] or out["count_after"] != count:
+        bad.append("ids or count changed over the restart")
+    if name == "a" and not (out["same_distances"] and out["second_sync"] == "delta"
+                            and out["recall_at_10"] >= 0.95
+                            and out["restored_same_ids"]
+                            and out["restored_same_distances"]):
+        bad.append("store (a): distances, delta path, recall or backup")
+    if out["inserted_top1"] < 0.99 or out["deleted_returned"]:
+        bad.append("inserted rows not read back, or deleted rows returned")
+    if not any(out["recovered_launches"].get(k, {}).get(v)
+               for k, v in L_KERNELS[name]):
+        bad.append(f"the recovered store's batch launched none of "
+                   f"{L_KERNELS[name]}")
+    emit("durability", **out, launches=launches[f"l-{name}"])
+    if bad:
+        raise AssertionError(f"(l) {name}: {bad}: {out}")
+    return out
+
+
+def durability_phase(corpus, queries, stores, launches) -> None:
+    """(l): durable_path on store (a) (B1), store (h) after its 1,000 MCP
+    inserts (B6, or B5 where rows spawned cells) and the rq_m = 9 store of
+    (f-rq) (B7-int4 and the pooled rescore), each in a directory of its own
+    under a temporary root that the phase removes."""
+    root = tempfile.mkdtemp(prefix="evdb_durability_")
+    try:
+        for name, n_base in (("a", N_ROWS), ("h", SMALL_ROWS),
+                             ("f-rq", N_ROWS)):
+            durable_path(name, stores.pop(name), root, corpus, queries,
+                         n_base, launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def compression_phase(corpus) -> None:
+    """(l-c): compress_batch / decompress_batch on the card over C_ROWS rows
+    of config 3's corpus for 8bit, 4bit, pca (fit on those rows) and product
+    (fit): rows/s each way, the payload ratio (and with the side arrays),
+    and the reconstruction error beside the bounds of
+    tests/test_compression.py (8bit: range/255, 4bit: range/15 per row,
+    gated; pca: 1e-3 relative on rank-8 data, product: MSE < 0.05 of the
+    variance on 32-cluster data — those hold for their tests' data and are
+    recorded here, where the gate is an MSE below the variance)."""
+    import torch
+
+    from erlvectordb_tpu_torch.quant.compression import (
+        compress_batch,
+        decompress_batch,
+    )
+
+    x = corpus[:C_ROWS]
+    rng = x.max(axis=1) - x.min(axis=1)
+    res = {}
+    for alg in C_ALGS:
+        cvs, c_s = timed(lambda: compress_batch(x, alg, device=DEVICE))
+        rec, d_s = timed(lambda: np.stack(decompress_batch(cvs,
+                                                           device=DEVICE)))
+        payload = sum(len(cv.payload) for cv in cvs)
+        side = sum(a.nbytes for a in cvs[0].arrays.values())
+        err = rec - x
+        mse = float(np.mean(err ** 2))
+        row = dict(compress_rows_per_s=len(x) / c_s, compress_s=c_s,
+                   decompress_rows_per_s=len(x) / d_s, decompress_s=d_s,
+                   ratio_payload=x.nbytes / payload,
+                   ratio_with_side_arrays=x.nbytes / (payload + side),
+                   mse=mse, mse_over_variance=mse / float(np.var(x)),
+                   relative_error=float(np.linalg.norm(err) / np.linalg.norm(x)),
+                   max_abs_err=float(np.abs(err).max()),
+                   finite=bool(np.isfinite(rec).all()),
+                   shape_ok=rec.shape == x.shape)
+        if alg in ("8bit", "4bit"):
+            levels = 255 if alg == "8bit" else 15
+            row["within_test_bound"] = bool(np.all(
+                np.abs(err).max(axis=1) <= rng / levels + 1e-6))
+        res[alg] = row
+    torch.cuda.synchronize()
+    emit("compression", rows=C_ROWS, dim=DIM, by_algorithm=res,
+         test_bounds={"8bit": "max |err| <= range/255 + 1e-6 per row",
+                      "4bit": "max |err| <= range/15 + 1e-6 per row",
+                      "pca": "relative error < 1e-3 on rank-8 data",
+                      "product": "MSE < 0.05 variance on 32-cluster data"})
+    bad = {a: r for a, r in res.items()
+           if not (r["finite"] and r["shape_ok"] and r["mse_over_variance"] < 1.0
+                   and r.get("within_test_bound", True))}
+    if bad:
+        raise AssertionError(f"(l-c) compression: {bad}")
 
 
 # -------------------------------------------------------------------- index
@@ -1409,10 +1672,14 @@ def index_manager_phase(data, held, gt, launches):
     built and searched through the MCP tools (256 search_index calls of the
     held-out points), each answer checked against a direct
     IndexManager.search of the same query; recall@10 against (j)'s exact
-    ground truth, the median search_index latency, build seconds."""
+    ground truth, the median search_index latency, build seconds.  Then
+    (path l) every index saved with save_all, loaded into a fresh
+    IndexManager with load_indexes, and searched again: each answer must
+    equal the one before the save."""
     import torch
 
     from erlvectordb_tpu_torch.api import Database
+    from erlvectordb_tpu_torch.core.index_manager import IndexManager
     from erlvectordb_tpu_torch.core.store import VectorStore
     from erlvectordb_tpu_torch.infra.config import load_config
     from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
@@ -1430,6 +1697,7 @@ def index_manager_phase(data, held, gt, launches):
             "erlvectordb_client", "erlvectordb_secret")["access_token"]
         cl = Client(port, token)
         qs = held[:J_RECALL]
+        answers = {}
 
         def run():
             res = {}
@@ -1446,8 +1714,9 @@ def index_manager_phase(data, held, gt, launches):
                                 k=K)
                     lat.append(time.perf_counter() - t0)
                     ids = [h["id"] for h in r["results"]]
-                    direct = [h[0] for h in db.indexes.search(name, q, k=K)]
-                    same += ids == direct
+                    hits = db.indexes.search(name, q, k=K)
+                    answers.setdefault(itype, []).append(hits)
+                    same += ids == [h[0] for h in hits]
                     got.append(ids)
                 res[itype] = dict(build_s=info["build_seconds"],
                                   stats=info["stats"],
@@ -1462,12 +1731,37 @@ def index_manager_phase(data, held, gt, launches):
         torch.cuda.synchronize()
         launches["k"] = read_launches()
         cl.sock.close()
+
+        def reload(idx_root):
+            saved, save_s = timed(lambda: db.indexes.save_all(idx_root))
+            fresh = IndexManager(db.registry)
+            loaded, load_s = timed(lambda: fresh.load_indexes(idx_root))
+            same = {t: float(np.mean([fresh.search(f"k_{t}", q, k=K) == a
+                                      for q, a in zip(qs, answers[t])]))
+                    for t in K_TYPES}
+            return dict(saved=saved, loaded=sorted(loaded), save_s=save_s,
+                        load_s=load_s, bytes=dir_bytes(idx_root),
+                        same_answers=same)
+
+        idx_root = tempfile.mkdtemp(prefix="evdb_indexes_")
+        try:
+            reset_launches()
+            reloaded = reload(idx_root)
+            torch.cuda.synchronize()
+            launches["l-k"] = read_launches()
+        finally:
+            shutil.rmtree(idx_root, ignore_errors=True)
     finally:
         if server is not None:
             server.stop()
         db.stop()
     emit("indexes", rows=J_ROWS, store_build_s=store_s, by_type=res,
-         listed=[i["name"] for i in listed["indexes"]], launches=launches["k"])
+         listed=[i["name"] for i in listed["indexes"]], launches=launches["k"],
+         reloaded=reloaded, reload_launches=launches["l-k"])
+    if (reloaded["loaded"] != sorted(f"k_{t}" for t in K_TYPES)
+            or min(reloaded["same_answers"].values()) < 1.0):
+        raise AssertionError(f"(l) indexes saved and loaded again answer "
+                             f"otherwise: {reloaded}")
     if any(r["same_as_direct"] < 1.0 for r in res.values()):
         raise AssertionError(f"(k) search_index differs from a direct "
                              f"IndexManager.search: {res}")
@@ -1609,9 +1903,13 @@ def main() -> int:
         launches, mp_curve = slice_phase(db, corpus, queries, f32_rows)
     finally:
         db.stop()
-    rq_phase(corpus, queries, stores, mp_curve[RQ_NPROBE], launches)
+    del db
+    stores["f-rq"] = rq_phase(corpus, queries, stores, mp_curve[RQ_NPROBE],
+                              launches)
+    durability_phase(corpus, queries, stores, launches)
+    compression_phase(corpus)
     stores.clear()
-    del db, corpus
+    del corpus
     torch.cuda.empty_cache()
     index_phase(kernels, launches)
     torch.cuda.empty_cache()

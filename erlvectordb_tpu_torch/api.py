@@ -1,16 +1,20 @@
-"""Public API facade — the store verbs of the JAX package's ``Database``.
+"""Public API facade — the verbs of the JAX package's ``Database``.
 
-One :class:`Database` wires the store registry, the OAuth server and the
-query batcher and the index manager together on one ``torch.device``; the
-MCP server calls through it.  Persistence (of stores and of indexes),
-backup, the cluster layer and compression are not ported yet: a
-configuration that enables persistence is refused with ``ConfigError``
-rather than silently run without durability.
+One :class:`Database` wires the store registry, persistence (snapshots,
+deltas and index artifacts under ``persistence_dir``), backup, compression,
+the OAuth server, the query batcher and the index manager together on one
+``torch.device``; the MCP server calls through it.  ``start()`` reloads the
+persisted stores and indexes onto that device and starts the sync loop;
+``stop()`` syncs and saves the indexes.  The cluster layer (distributed and
+dim-sharded stores) is not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
+import shutil
 import threading
+from pathlib import Path
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
@@ -22,9 +26,18 @@ from erlvectordb_tpu_torch.core.registry import (
     StoreRegistry,
 )
 from erlvectordb_tpu_torch.core.store import VectorStore, default_device
-from erlvectordb_tpu_torch.infra.config import Config, ConfigError, load_config
+from erlvectordb_tpu_torch.infra.config import Config, load_config
+from erlvectordb_tpu_torch.persist import backup as backup_mod
+from erlvectordb_tpu_torch.persist.snapshot import (
+    PersistenceManager,
+    list_persisted,
+)
+from erlvectordb_tpu_torch.quant import compression as compression_mod
 from erlvectordb_tpu_torch.serve.batcher import QueryBatcher
 from erlvectordb_tpu_torch.serve.oauth import OAuthServer
+from erlvectordb_tpu_torch.utils.metrics import metrics
+
+LOG = logging.getLogger(__name__)
 
 
 class Database:
@@ -34,14 +47,19 @@ class Database:
     def __init__(self, config: Optional[Config] = None,
                  device: Optional[torch.device] = None):
         self.config = config or load_config()
-        if self.config.persistence_enabled:
-            raise ConfigError(
-                "persistence_enabled=True needs the snapshot layer "
-                "(erlvectordb_tpu/persist/snapshot.py), which is not yet "
-                "ported to erlvectordb_tpu_torch; set persistence_enabled="
-                "False")
         self.device = torch.device(device) if device is not None else default_device()
         self.registry = StoreRegistry(self.device)
+        self.persistence: Optional[PersistenceManager] = None
+        if self.config.persistence_enabled:
+            self.persistence = PersistenceManager(
+                self.config.persistence_dir,
+                sync_interval=self.config.sync_interval,
+                compression=(self.config.compression_algorithm
+                             if self.config.compression_enabled else None),
+                device=self.device)
+            # maintenance tick: staleness-driven cell refits and the
+            # persistence of lazily computed calibration curves
+            self.persistence.maintenance_cb = self._maintenance_tick
         self.oauth = OAuthServer(
             enabled=self.config.oauth_enabled,
             access_lifetime=self.config.access_token_lifetime,
@@ -60,9 +78,19 @@ class Database:
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> "Database":
+        """Load the persisted stores and indexes onto this Database's device
+        and start the sync loop and the batcher."""
         with self._lock:
             if self._started:
                 return self
+            if self.persistence is not None:
+                for name in list_persisted(self.config.persistence_dir):
+                    if not self.registry.exists(name):
+                        store = self.persistence.open_store(name)
+                        if store is not None:
+                            self.registry.adopt(store)
+                self.persistence.start()
+                self.indexes.load_indexes(self._index_dir())
             self.batcher.start()
             if self.config.warmup_on_start:
                 self.warmup()
@@ -70,9 +98,21 @@ class Database:
             return self
 
     def stop(self) -> None:
+        """Stop the batcher, sync every changed store and save the built
+        indexes."""
         with self._lock:
             self.batcher.stop()
+            if self.persistence is not None:
+                self.persistence.close()
+                self.indexes.save_all(self._index_dir())
             self._started = False
+
+    def _index_dir(self) -> Path:
+        return Path(self.config.persistence_dir) / "indexes"
+
+    def _track(self, store: VectorStore) -> None:
+        if self.persistence is not None:
+            self.persistence.track(store)
 
     # ------------------------------------------------------------ store ops
 
@@ -81,6 +121,7 @@ class Database:
                      intkey: bool = False) -> dict:
         store = self.registry.create(name, dim=dim, metric=metric,
                                      dtype=dtype, intkey=intkey)
+        self._track(store)
         return store.get_stats()
 
     def create_store_streaming(self, name: str, chunks, *, n: int,
@@ -97,10 +138,19 @@ class Database:
                                         metric=metric, device=self.device,
                                         **build_kw)
         self.registry.adopt(store)
+        self._track(store)
         return store.get_stats()
 
     def delete_store(self, name: str) -> bool:
-        self.indexes.drop_for_store(name)
+        """Drop a store and its indexes, with their snapshot and artifacts
+        (the JAX package keeps the snapshot, so its next start reloads a
+        deleted store)."""
+        doomed = self.indexes.drop_for_store(name)
+        if self.persistence is not None:
+            self.persistence.forget(name)
+            for idx in doomed:
+                shutil.rmtree(self._index_dir() / f"idx_{idx}",
+                              ignore_errors=True)
         return self.registry.drop(name)
 
     def list_stores(self) -> List[str]:
@@ -193,6 +243,86 @@ class Database:
             raise StoreNotFound(f"store {name!r} not found")
         return local
 
+    def sync(self, store: str) -> bool:
+        """Force a persistence sync of one store (False when persistence is
+        off)."""
+        self.any_store(store)  # raises StoreNotFound if absent
+        if self.persistence is None:
+            return False
+        return self.persistence.sync(store)
+
+    # --------------------------------------------------------------- backup
+
+    def backup_store(self, store: str, backup_name: str) -> str:
+        return backup_mod.backup_store(self.any_store(store), backup_name,
+                                       self.config.backup_dir)
+
+    def restore_store(self, backup_file: str,
+                      new_name: Optional[str] = None) -> dict:
+        path = Path(self.config.backup_dir) / Path(backup_file).name
+        if not path.exists():
+            path = Path(backup_file)
+        store = backup_mod.restore_store(path, new_name=new_name,
+                                         device=self.device)
+        self.registry.adopt(store)
+        self._track(store)
+        return store.get_stats()
+
+    def list_backups(self) -> List[dict]:
+        return backup_mod.list_backups(self.config.backup_dir)
+
+    def delete_backup(self, backup_file: str) -> bool:
+        return backup_mod.delete_backup(backup_file, self.config.backup_dir)
+
+    def export_store(self, store: str, path: str) -> str:
+        return backup_mod.export_store(self.any_store(store), path)
+
+    def import_store(self, path: str, new_name: Optional[str] = None) -> dict:
+        store = backup_mod.import_store(path, new_name=new_name,
+                                        device=self.device)
+        self.registry.adopt(store)
+        self._track(store)
+        return store.get_stats()
+
+    # ---------------------------------------------------------- maintenance
+
+    def _maintenance_tick(self) -> None:
+        """Runs on the persistence thread every sync interval."""
+        self._refit_stale_stores()
+        self._persist_dirty_calibrations()
+
+    def _persist_dirty_calibrations(self) -> int:
+        """Re-save index artifacts whose recall_target curves were lazily
+        computed since the last write, so a restart keeps them."""
+        if self.persistence is None:
+            return 0
+        n = 0
+        for name in self.indexes.dirty_calibrations():
+            try:
+                self.indexes.save_index(name, self._index_dir())
+                n += 1
+            except Exception:  # noqa: BLE001 — keep the tick alive
+                LOG.exception("persisting calibration for index %r", name)
+        return n
+
+    def _refit_stale_stores(self) -> int:
+        """Refit an int4r store whose cell-layout churn crossed
+        ``refit_threshold`` (VectorStore.is_stale); one store a tick bounds
+        the pause."""
+        threshold = getattr(self.config, "refit_threshold", 0.0)
+        if not threshold:
+            return 0
+        for name in self.registry.list():
+            store = self.registry.get_or_none(name)
+            if isinstance(store, VectorStore) and store.is_stale(threshold):
+                drift = store.drift()
+                store.rebuild_cells()
+                metrics.inc("store.cell_refit_total")
+                LOG.info("refit stale int4r store %r (churn %.0f%%)",
+                         store.name, 100 * drift["fraction"])
+                return 1
+        return 0
+
     # --------------------------------------------------------------- indexes
 
     def create_index(self, name: str, store: str, index_type: str,
@@ -200,7 +330,11 @@ class Database:
         return self.indexes.create_index(name, store, index_type, parameters)
 
     def build_index(self, name: str, wait: bool = True) -> dict:
-        return self.indexes.build_index(name, wait=wait)
+        info = self.indexes.build_index(name, wait=wait)
+        if (self.persistence is not None and info.get("built")
+                and info.get("type") != "flat"):
+            self.indexes.save_index(name, self._index_dir())
+        return info
 
     def list_indexes(self) -> List[dict]:
         return self.indexes.list_indexes()
@@ -209,7 +343,10 @@ class Database:
         return self.indexes.get_index_info(name)
 
     def drop_index(self, name: str) -> bool:
-        return self.indexes.drop_index(name)
+        hit = self.indexes.drop_index(name)
+        if hit and self.persistence is not None:
+            shutil.rmtree(self._index_dir() / f"idx_{name}", ignore_errors=True)
+        return hit
 
     def search_index(self, name: str, query, k: int = 10,
                      nprobe: Optional[int] = None,
@@ -228,10 +365,31 @@ class Database:
         ``mode="exact"`` (default) measures absolute recall@k against exact
         f32 ground truth from the backing store and enforces the
         quantization ceiling; ``mode="ceiling"`` is the cheap self-relative
-        curve (IndexManager.calibrate_index)."""
-        return self.indexes.calibrate_index(
+        curve (IndexManager.calibrate_index).  The curve persists with the
+        index artifact."""
+        out = self.indexes.calibrate_index(
             name, queries=queries, n_sample=n_sample, k=k, mode=mode,
             metric=metric)
+        if self.persistence is not None:
+            self.indexes.save_index(name, self._index_dir())
+        return out
+
+    # ----------------------------------------------------------- compression
+
+    def compress_vector(self, vector, algorithm: str, **kw):
+        return compression_mod.compress_vector(vector, algorithm,
+                                               device=self.device, **kw)
+
+    def decompress_vector(self, compressed, **kw):
+        return compression_mod.decompress_vector(compressed,
+                                                 device=self.device, **kw)
+
+    def get_supported_algorithms(self):
+        return compression_mod.get_supported_algorithms()
+
+    def benchmark_compression(self, vector, algorithm: str, **kw):
+        return compression_mod.benchmark_compression(
+            vector, algorithm, device=self.device, **kw)
 
     # ---------------------------------------------------------------- oauth
 

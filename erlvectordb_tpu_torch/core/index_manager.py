@@ -16,8 +16,15 @@ Counterpart of ``erlvectordb_tpu/core/index_manager.py``:
 ``ep_ivf`` and ``ep_cellprobe`` (cells sharded over a device mesh) are
 accepted as descriptors; their build fails with an ``IndexError_`` recorded
 in ``info.error``, as any failed build is, until the distribution layer is
-ported.  Index persistence (``save_index``/``load_indexes``) is not ported
-yet either.
+ported.
+
+Built indexes persist under ``root/idx_<name>/`` (``save_index``,
+``save_all``, ``load_indexes``) as a generation pair, ``arrays_<gen>.npz`` +
+``meta_<gen>.json`` with the store snapshots' ``__saved_at__`` echo
+(persist/snapshot.py): a crash mid-save leaves the previous pair.  The JAX
+package writes ``arrays.npz`` and ``meta.json`` by two sequential renames, so
+a crash between them pairs new arrays with old meta; its layout still loads
+here.
 
 Builds run on a background thread, record build time and memory stats and
 are stamped with the store version, so staleness is detectable
@@ -27,6 +34,7 @@ lives on its store's device.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -37,6 +45,8 @@ import torch
 
 from erlvectordb_tpu_torch.core.store import VectorStore
 from erlvectordb_tpu_torch.ops import fused_topk as ft
+
+LOG = logging.getLogger(__name__)
 
 INDEX_TYPES = ("flat", "int8", "pq", "opq", "ivf", "ep_ivf", "hnsw",
                "cellprobe", "ep_cellprobe")
@@ -360,6 +370,17 @@ class IndexManager:
         out["curve"] = {str(p): r for p, r in sorted(curve.items())}
         return out
 
+    def dirty_calibrations(self) -> List[str]:
+        """Built cellprobe-family indexes whose calibration curves were
+        (lazily) computed since their artifact was last persisted."""
+        with self._lock:
+            out = []
+            for info in self._indexes.values():
+                calib = getattr(info.probe_artifact(), "_calib", None)
+                if info.built and calib is not None and calib.dirty:
+                    out.append(info.name)
+            return out
+
     # --------------------------------------------------------------- search
 
     def is_stale(self, name: str) -> bool:
@@ -446,6 +467,139 @@ class IndexManager:
         dists = np.sqrt(np.maximum(dists[0].cpu().numpy(), 0.0))
         return self._rows_to_hits(store, dists,
                                   a["rows"][idx[0].cpu().numpy()])
+
+    # ----------------------------------------------------------- persistence
+
+    def save_index(self, name: str, root) -> str:
+        """Persist one built index under ``root/idx_<name>/`` as a new
+        generation pair."""
+        from pathlib import Path
+
+        from erlvectordb_tpu_torch.persist.snapshot import write_pair
+
+        with self._lock:
+            info = self._indexes.get(name)
+            if info is None or not info.built:
+                raise IndexError_(f"index {name!r} not found or not built")
+            meta = info.to_dict()
+            a = info.artifact
+        arrays = {}
+        if info.type == "int8" and a is not None:
+            arrays = {k: a[k].cpu().numpy()
+                      for k in ("codes", "scales", "norms", "valid")}
+        elif info.type in ("pq", "opq") and a is not None:
+            arrays = dict(a["codebook"].to_arrays())
+            arrays["codes"] = a["codes"].cpu().numpy()
+            arrays["rows"] = np.asarray(a["rows"])
+            meta["pad_dim"] = int(a["pad_dim"])
+        elif info.type == "ivf" and a is not None:
+            arrays = a["ivf"].to_arrays()
+            meta["nprobe"] = int(a["nprobe"])
+        elif info.type in ("hnsw", "cellprobe") and a is not None:
+            arrays = a["cell_probe"].to_arrays()
+            meta["nprobe"] = int(a["nprobe"])
+        idir = Path(root) / f"idx_{name}"
+        write_pair(idir, "arrays", arrays, meta)
+        return str(idir)
+
+    def save_all(self, root) -> int:
+        with self._lock:
+            names = [i.name for i in self._indexes.values()
+                     if i.built and i.type != "flat"]
+        for name in names:
+            self.save_index(name, root)
+        return len(names)
+
+    def load_indexes(self, root) -> List[str]:
+        """Re-hydrate every persisted index whose store exists; an
+        unreadable artifact is logged and skipped."""
+        from pathlib import Path
+
+        root = Path(root)
+        loaded = []
+        if not root.exists():
+            return loaded
+        for idir in sorted(root.glob("idx_*")):
+            try:
+                name = self._load_one_index(idir)
+            except Exception:  # noqa: BLE001 — one bad artifact must not
+                LOG.exception("skipping corrupt index artifact %s", idir)
+                continue  # abort Database.start()
+            if name is not None:
+                loaded.append(name)
+        return loaded
+
+    def _load_one_index(self, idir):
+        """Re-hydrate one persisted index dir (this package's generation
+        pairs or the JAX package's arrays.npz + meta.json); returns its name,
+        or None when it has no meta or its store is absent."""
+        from erlvectordb_tpu_torch.persist.snapshot import (
+            read_state,
+            resolve_pair,
+        )
+
+        resolved = resolve_pair(idir, "arrays")
+        if resolved is None:
+            return None
+        meta = resolved[2]
+        if meta["type"] in ("ep_ivf", "ep_cellprobe"):
+            raise IndexError_(
+                f"index {meta['name']!r} ({meta['type']}) shards cells over a "
+                "device mesh: the distribution layer is not yet ported")
+        store = self._registry.get_or_none(meta["store"])
+        if store is None:
+            return None
+        arrays = read_state(resolved[1], {})
+        dev = store.device
+        info = IndexInfo(meta["name"], meta["store"], meta["type"],
+                         meta.get("parameters") or {})
+        info.built = bool(meta.get("built"))
+        info.built_at = meta.get("built_at")
+        info.build_seconds = meta.get("build_seconds")
+        info.stats = meta.get("stats") or {}
+        if info.type == "int8" and arrays:
+            # artifacts saved before norms/valid were persisted take the
+            # live store's
+            norms = arrays.get("norms")
+            valid = arrays.get("valid")
+            info.artifact = {
+                "codes": torch.as_tensor(arrays["codes"], device=dev),
+                "scales": torch.as_tensor(arrays["scales"], device=dev),
+                "norms": (store._norms.clone() if norms is None
+                          else torch.as_tensor(norms, device=dev)),
+                "valid": (store._valid.clone() if valid is None
+                          else torch.as_tensor(valid, device=dev)),
+            }
+        elif info.type in ("pq", "opq") and arrays:
+            if info.type == "opq":
+                from erlvectordb_tpu_torch.quant.opq import OPQCodebook
+
+                cb = OPQCodebook.from_arrays(arrays, device=dev)
+            else:
+                from erlvectordb_tpu_torch.quant.pq import PQCodebook
+
+                cb = PQCodebook.from_arrays(arrays, device=dev)
+            info.artifact = {
+                "codebook": cb,
+                "codes": torch.as_tensor(arrays["codes"], device=dev),
+                "rows": np.asarray(arrays["rows"]),
+                "pad_dim": int(meta["pad_dim"]),
+            }
+        elif info.type == "ivf" and arrays:
+            from erlvectordb_tpu_torch.core.ivf import IVFIndex
+
+            info.artifact = {"ivf": IVFIndex.from_arrays(arrays, device=dev),
+                             "nprobe": int(meta.get("nprobe", 8))}
+        elif info.type in ("hnsw", "cellprobe") and arrays:
+            from erlvectordb_tpu_torch.core.cell_probe import CellProbeIndex
+
+            info.artifact = {
+                "cell_probe": CellProbeIndex.from_arrays(arrays, device=dev),
+                "nprobe": int(meta.get("nprobe", 32)),
+            }
+        with self._lock:
+            self._indexes.setdefault(meta["name"], info)
+        return meta["name"]
 
     @staticmethod
     def _rows_to_hits(store: VectorStore, dists, rows):

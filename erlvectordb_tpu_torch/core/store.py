@@ -484,8 +484,18 @@ class VectorStore:
         self._perm_dev: Optional[torch.Tensor] = None
         self._perm_count = 0
 
+        # Change tracking for persistence (persist/snapshot.py): ``dirty``
+        # and ``version`` say a sync is due; ``_touched_rows`` holds the rows
+        # written since the last snapshot, so the sync loop can write an
+        # O(delta) incremental snapshot.  ``_touched_reliable`` is False
+        # until a full snapshot anchors the delta chain: bulk builds,
+        # capacity growth, refits, restores and a rebuilt key plane force
+        # the next sync to write a full base.
         self.version = 0
+        self.dirty = False
         self.created_at = time.time()
+        self._touched_rows: set = set()
+        self._touched_reliable = False
 
     # ---------------------------------------------------------------- props
 
@@ -637,6 +647,8 @@ class VectorStore:
             newcol[: self._capacity] = col
             self._tag_cols[k] = newcol
         self._capacity = new_cap
+        # array shapes changed: the delta chain no longer applies cleanly
+        self._touched_reliable = False
 
     # ------------------------------------------------- int4r cell machinery
 
@@ -855,6 +867,8 @@ class VectorStore:
                         if self._plane_scale is None or mx > self._plane_scale:
                             self._codes_unit = None
                             self._plane_scale = None
+                            # the saved plane no longer matches: full base
+                            self._touched_reliable = False
                         else:
                             _scatter_insert_mag(self._codes_unit, rows_t, vecs_t,
                                                 127.0 / self._plane_scale)
@@ -877,7 +891,9 @@ class VectorStore:
                     self._metadata[vid] = md if md is not None else {}
             self._ids_np[rows] = sids
             self._update_tags(rows, metadatas)
+            self._touched_rows.update(row_list)
             self.version += 1
+            self.dirty = True
 
     def _place_int4r(self, ids, arr) -> np.ndarray:
         """Target rows of an int4r insert batch.  Overwrites RE-PLACE: the
@@ -905,6 +921,7 @@ class VectorStore:
             if dead:
                 _scatter_delete(self._valid,
                                 self._put(np.asarray(dead, np.int64)))
+                self._touched_rows.update(dead)
         return rows
 
     # ---------------------------------------------------------------- delete
@@ -948,7 +965,9 @@ class VectorStore:
                 self._ids_np[row] = None
             for col in self._tag_cols.values():
                 col[rows] = 0
+            self._touched_rows.update(rows)
             self.version += 1
+            self.dirty = True
             return len(rows)
 
     # ---------------------------------------------------------------- search
@@ -1397,11 +1416,14 @@ class VectorStore:
     def _ensure_unit_plane(self):
         """The intkey key plane (unit for cosine stores, magnitude for
         euclidean/dot), derived from the absmax plane when missing.
-        Idempotent cache fill, safe under the read lock."""
+        Idempotent cache fill, safe under the read lock.  A plane derived
+        here differs from the one a snapshot holds, so the next sync writes
+        a full base."""
         if self._vectors is None:
             return None
         if (self._codes_unit is None
                 or self._codes_unit.shape[0] != self._capacity):
+            self._touched_reliable = False
             if _plane_kind(self.metric) == "unit":
                 self._codes_unit = ft.requantize_unit(
                     self._vectors, self._scales, self._norms, self._valid)
@@ -1566,6 +1588,13 @@ class VectorStore:
                 state["valid"] = self._valid.cpu().numpy()
                 if self._scales is not None:
                     state["scales"] = self._scales.cpu().numpy()
+                if (self._codes_unit is not None
+                        and self._codes_unit.shape[0] == self._capacity):
+                    # the key plane as built (from the f32 rows): a plane
+                    # re-derived from the absmax codes keys some rows one
+                    # step apart, so a restore keeps this one
+                    state["codes_unit"] = self._codes_unit.cpu().numpy()
+                    state["plane_scale"] = self._plane_scale
             if self.dtype == "int4r" and self._centroids is not None:
                 state["centroids"] = self._centroids.cpu().numpy()
                 state["cell_cap"] = self._cell_cap
@@ -1593,7 +1622,9 @@ class VectorStore:
                    ) -> "VectorStore":
         """A store from an exported state dict — this package's or the JAX
         package's ``VectorStore.export_state()`` (numpy arrays).  An intkey
-        store's key plane is re-derived from the absmax plane."""
+        store takes the key plane the state carries (``codes_unit``, which
+        this package writes and the JAX package ignores), else re-derives
+        it from the absmax plane."""
         store = cls(
             state["name"],
             dim=state.get("dim"),
@@ -1657,6 +1688,10 @@ class VectorStore:
         store._next_row = int(state.get("next_row", store.count))
         store._free_rows = [int(r) for r in state.get("free_rows", [])]
         if store.intkey:
+            plane = state.get("codes_unit")
+            if plane is not None and plane.shape[0] == store._capacity:
+                store._codes_unit = store._put(np.asarray(plane, np.int8))
+                store._plane_scale = state.get("plane_scale")
             store._ensure_unit_plane()
         return store
 
@@ -1729,7 +1764,10 @@ class VectorStore:
             self._build_int4r(vecs.cpu().numpy(), list(ids), rq_m=self._rq_m)
             self._tag_cols = {}
             self._dmask_cache = {}
+            self._touched_rows = set()
             self.version += 1
+            self.dirty = True
+            self._touched_reliable = False
             return self.drift()
 
     # ------------------------------------------------------------ bulk build
@@ -1948,6 +1986,7 @@ class VectorStore:
         store._ids_np = None   # allocated on materialization only
         store._built_rows = n
         store.version = 1
+        store.dirty = True
         return store
 
     @classmethod
@@ -1988,6 +2027,7 @@ class VectorStore:
                 store._metadata = {str(v): (m or {})
                                    for v, m in zip(eff, metadatas)}
             store.version = 1
+            store.dirty = True
             return store
         if isinstance(matrix, torch.Tensor):
             arr = matrix.to(device=store.device, dtype=torch.float32)
@@ -2038,4 +2078,5 @@ class VectorStore:
                 raise ValueError("duplicate ids in bulk build")
             store._ids_np[:n] = [str(v) for v in ids]
         store.version = 1
+        store.dirty = True
         return store

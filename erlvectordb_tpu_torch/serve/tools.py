@@ -7,16 +7,15 @@ dispatcher is broken: the ``create_store`` clause actually performs an
 tool" (:398-399; independently documented in INTEGRATION_TEST_RESULTS.md
 "Parameter Schema Mismatch").  Here each tool does what its schema says.
 
-The table lists only the tools this package serves (persistence and backup
-are not ported yet); the schemas and the JSON shapes of the answers are the
-JAX package's.
+The table holds the JAX server's 19 tools, with their schemas and the JSON
+shapes of their answers.
 
 Scope matrix (reference check_tool_permission :414-427):
   read  — search_vectors, search_vectors_batch, get_store_stats, list_stores,
           list_indexes, search_index
-  write — create_store, insert_vector, delete_vector, calibrate_store,
-          create_index, build_index, calibrate_index
-  admin — drop_index
+  write — create_store, insert_vector, delete_vector, sync_store,
+          calibrate_store, create_index, build_index, calibrate_index
+  admin — backup_store, restore_store, list_backups, delete_store, drop_index
 """
 
 from __future__ import annotations
@@ -273,16 +272,23 @@ TOOLS: Dict[str, dict] = {
             [],
         ),
         _schema(
+            "sync_store",
+            "Force a persistence sync of a store",
+            "write",
+            {"store": {"type": "string"}},
+            ["store"],
+        ),
+        _schema(
             "calibrate_store",
             "Measure an int4r store's recall-vs-nprobe curve so "
             "recall_target searches answer without a lazy first-use "
-            "calibration; returns the {nprobe: recall} curve.  NOTE: this "
-            "self-calibration is CEILING mode — recall relative to the "
-            "store's own deep probe, quantization loss not counted; "
-            "absolute (exact-mode) calibration needs the original f32 data "
-            "and is available through the Python API "
-            "(Database.calibrate_store with ground_truth) or "
-            "calibrate_index for cellprobe indexes",
+            "calibration; returns the {nprobe: recall} curve (persisted "
+            "with snapshots).  NOTE: this self-calibration is CEILING "
+            "mode — recall relative to the store's own deep probe, "
+            "quantization loss not counted; absolute (exact-mode) "
+            "calibration needs the original f32 data and is available "
+            "through the Python API (Database.calibrate_store with "
+            "ground_truth) or calibrate_index for cellprobe indexes",
             "write",
             {
                 "store": {"type": "string"},
@@ -290,6 +296,34 @@ TOOLS: Dict[str, dict] = {
                 "k": {"type": "integer", "default": 10},
                 "metric": {"type": "string"},
             },
+            ["store"],
+        ),
+        _schema(
+            "backup_store",
+            "Write a point-in-time backup",
+            "admin",
+            {"store": {"type": "string"}, "backup_name": {"type": "string"}},
+            ["store", "backup_name"],
+        ),
+        _schema(
+            "restore_store",
+            "Restore a store from a backup file",
+            "admin",
+            {"backup_file": {"type": "string"}, "new_name": {"type": "string"}},
+            ["backup_file"],
+        ),
+        _schema(
+            "list_backups",
+            "List available backups",
+            "admin",
+            {},
+            [],
+        ),
+        _schema(
+            "delete_store",
+            "Delete an entire store",
+            "admin",
+            {"store": {"type": "string"}},
             ["store"],
         ),
         _schema(
@@ -354,7 +388,8 @@ TOOLS: Dict[str, dict] = {
             "exact float32 ground truth from the backing store (one brute "
             "device scan) and records the quantization ceiling, which "
             "recall_target searches then refuse to exceed; "
-            "mode='ceiling' is the cheap self-relative curve",
+            "mode='ceiling' is the cheap self-relative curve. The curve "
+            "persists with the index artifact",
             "write",
             {
                 "name": {"type": "string"},
@@ -484,6 +519,8 @@ def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
         return db.any_store(args["store"]).get_stats()
     if name == "list_stores":
         return {"stores": db.list_stores()}
+    if name == "sync_store":
+        return {"synced": db.sync(args["store"])}
     if name == "calibrate_store":
         curve = db.calibrate_store(
             args["store"], n_sample=int(args.get("n_sample", 256)),
@@ -495,6 +532,17 @@ def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
             args["name"], n_sample=int(args.get("n_sample", 256)),
             k=int(args.get("k", 10)), mode=args.get("mode", "exact"),
             metric=args.get("metric"))
+    if name == "backup_store":
+        path = db.backup_store(args["store"], args["backup_name"])
+        return {"status": "ok", "backup_file": path.rsplit("/", 1)[-1]}
+    if name == "restore_store":
+        return db.restore_store(args["backup_file"], args.get("new_name"))
+    if name == "list_backups":
+        return {"backups": db.list_backups()}
+    if name == "delete_store":
+        if not db.delete_store(args["store"]):
+            raise ToolError(f"store {args['store']!r} not found")
+        return {"status": "ok"}
     if name == "create_index":
         return db.create_index(args["name"], args["store"], args["type"],
                                args.get("parameters"))

@@ -36,3 +36,12 @@ def test_no_jax_import_in_source(path):
         words = line.split()
         if len(words) > 1 and words[0] in ("import", "from"):
             assert words[1].split(".")[0] not in ("jax", "erlvectordb_tpu"), line
+
+
+def test_walk_covers_the_durability_modules():
+    """The compression and persistence modules are among those loaded with
+    jax blocked and scanned for jax imports above."""
+    for name in ("quant.codecs", "quant.affine", "quant.pca",
+                 "quant.compression", "persist", "persist.snapshot",
+                 "persist.backup"):
+        assert f"erlvectordb_tpu_torch.{name}" in MODULES, name

@@ -1,8 +1,10 @@
 """The port's index manager (core/index_manager.py) and IVF index
 (core/ivf.py), on the CPU.
 
-The JAX package's tests/test_index_manager.py (minus index persistence, not
-ported), tests/test_ivf.py and the index-manager cases of
+The JAX package's tests/test_index_manager.py (index persistence too: the
+port writes each artifact as a generation pair, arrays_<gen>.npz +
+meta_<gen>.json, and still reads the JAX package's arrays.npz + meta.json),
+tests/test_ivf.py and the index-manager cases of
 tests/test_cell_probe.py and tests/test_calibration.py, re-pointed at
 erlvectordb_tpu_torch with every store, index and registry on the CPU.  Then
 the manager's searches are held to the JAX package's on shared state: the
@@ -207,6 +209,142 @@ class TestOPQIndex:
         assert info["stats"]["kind"] == "opq"
         hits = im.search("opq1", data[7], k=10)
         assert "v7" in [h[0] for h in hits[:3]]
+
+
+class TestIndexPersistence:
+    def test_save_load_roundtrip(self, setup, tmp_path):
+        registry, im, data = setup
+        im.create_index("p8", "s", "int8")
+        im.build_index("p8")
+        im.create_index("ppq", "s", "pq", {"m": 8, "iters": 6})
+        im.build_index("ppq")
+        im.save_all(tmp_path)
+        im2 = IndexManager(registry)
+        loaded = im2.load_indexes(tmp_path)
+        assert set(loaded) == {"p8", "ppq"}
+        assert im2.search("p8", data[42], k=1)[0][0] == "v42"
+        hits = im2.search("ppq", data[7], k=5)
+        assert "v7" in [h[0] for h in hits]
+
+    def test_load_skips_missing_store(self, setup, tmp_path):
+        registry, im, _ = setup
+        im.create_index("p8", "s", "int8")
+        im.build_index("p8")
+        im.save_all(tmp_path)
+        im2 = IndexManager(StoreRegistry(CPU))  # store 's' absent
+        assert im2.load_indexes(tmp_path) == []
+
+    def test_load_pre_norms_artifact(self, setup, tmp_path):
+        """int8 artifacts saved before norms/valid were persisted
+        re-hydrate from the live store instead of raising KeyError and
+        aborting Database.start().  (The arrays are rewritten in place
+        with their __saved_at__ echo, so the pair stays consistent.)"""
+        registry, im, data = setup
+        im.create_index("old8", "s", "int8")
+        im.build_index("old8")
+        im.save_all(tmp_path)
+        [npz] = (tmp_path / "idx_old8").glob("arrays_*.npz")
+        with np.load(npz) as z:
+            arrays = {k: z[k] for k in z.files}
+        arrays.pop("norms")
+        arrays.pop("valid")
+        np.savez(npz, **arrays)
+        im2 = IndexManager(registry)
+        assert im2.load_indexes(tmp_path) == ["old8"]
+        assert im2.search("old8", data[42], k=1)[0][0] == "v42"
+
+    def test_load_skips_corrupt_artifact(self, setup, tmp_path):
+        """One unreadable artifact must not abort loading the others."""
+        registry, im, data = setup
+        im.create_index("good8", "s", "int8")
+        im.build_index("good8")
+        im.save_all(tmp_path)
+        bad = tmp_path / "idx_bad"
+        bad.mkdir()
+        (bad / "meta.json").write_text('{"name": "bad", "store": "s", ')
+        im2 = IndexManager(registry)
+        assert im2.load_indexes(tmp_path) == ["good8"]
+
+    def test_database_persists_indexes(self, rng, tmp_path):
+        cfg = load_config(overrides={
+            "persistence_dir": str(tmp_path / "data"),
+            "backup_dir": str(tmp_path / "backups"),
+            "sync_interval": 9999,
+        }, env={})
+        db = Database(cfg, device=CPU).start()
+        db.create_store("ps")
+        data = rng.standard_normal((200, 16)).astype(np.float32)
+        db.insert_batch("ps", [f"v{i}" for i in range(200)], data)
+        db.sync("ps")
+        db.create_index("pidx", "ps", "int8")
+        db.build_index("pidx")  # saved automatically
+        db.stop()
+        db2 = Database(cfg, device=CPU).start()
+        try:
+            assert db2.get_index_info("pidx")["built"]
+            assert db2.search_index("pidx", data[3], k=1)[0][0] == "v3"
+        finally:
+            db2.stop()
+
+    @pytest.mark.parametrize("itype", ["int8", "pq", "opq", "ivf", "cellprobe"])
+    def test_every_type_answers_the_same_after_reload(self, setup, tmp_path,
+                                                      itype):
+        registry, im, data = setup
+        params = {"pq": {"m": 8, "iters": 4}, "opq": {"m": 8, "iters": 4,
+                                                       "opq_iters": 2},
+                  "ivf": {"n_cells": 8}, "cellprobe": {"cell_rows": 32,
+                                                        "cell_cap": 48}}
+        im.create_index("x", "s", itype, params.get(itype))
+        assert im.build_index("x")["built"]
+        before = [im.search("x", q, k=5) for q in data[:20]]
+        im.save_index("x", tmp_path)
+        im2 = IndexManager(registry)
+        assert im2.load_indexes(tmp_path) == ["x"]
+        assert [im2.search("x", q, k=5) for q in data[:20]] == before
+
+    def test_generation_pair_survives_a_torn_save(self, setup, tmp_path):
+        """A newer generation whose meta landed without its arrays (or with
+        a truncated npz) is skipped: the previous pair loads.  Each save
+        leaves exactly one pair."""
+        registry, im, data = setup
+        im.create_index("g8", "s", "int8")
+        im.build_index("g8")
+        im.save_index("g8", tmp_path)
+        im.save_index("g8", tmp_path)
+        idir = tmp_path / "idx_g8"
+        [meta] = idir.glob("meta_*.json")
+        [npz] = idir.glob("arrays_*.npz")
+        assert meta.name == "meta_00000002.json"
+        (idir / "meta_00000003.json").write_text(meta.read_text())
+        (idir / "arrays_00000004.npz").write_bytes(npz.read_bytes()[:100])
+        (idir / "meta_00000004.json").write_text(meta.read_text())
+        im2 = IndexManager(registry)
+        assert im2.load_indexes(tmp_path) == ["g8"]
+        assert im2.search("g8", data[9], k=1)[0][0] == "v9"
+
+    @pytest.mark.parametrize("itype", ["int8", "pq", "ivf", "cellprobe"])
+    def test_jax_written_artifact_loads(self, rng, tmp_path, itype):
+        """An artifact the JAX package saved (arrays.npz + meta.json) loads
+        in the port over the same store rows and answers as the JAX
+        manager does."""
+        data = rng.standard_normal((600, 32)).astype(np.float32)
+        ids = [f"v{i}" for i in range(600)]
+        jreg = JaxRegistry()
+        jreg.create("s", metric="euclidean").insert_batch(ids, data)
+        jm = JaxManager(jreg)
+        params = {"pq": {"m": 8, "iters": 4}, "ivf": {"n_cells": 8},
+                  "cellprobe": {"cell_rows": 32, "cell_cap": 48}}
+        jm.create_index("j", "s", itype, params.get(itype))
+        assert jm.build_index("j")["built"]
+        jm.save_all(tmp_path)
+        assert (tmp_path / "idx_j" / "arrays.npz").exists()
+        reg = StoreRegistry(CPU)
+        reg.create("s", metric="euclidean").insert_batch(ids, data)
+        tm = IndexManager(reg)
+        assert tm.load_indexes(tmp_path) == ["j"]
+        for q in data[:12]:
+            assert ([h[0] for h in tm.search("j", q, k=5)]
+                    == [h[0] for h in jm.search("j", q, k=5)])
 
 
 class TestIndexHardening:

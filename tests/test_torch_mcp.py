@@ -23,7 +23,7 @@ from erlvectordb_tpu.api import Database as JaxDatabase
 from erlvectordb_tpu.infra.config import load_config as jax_load_config
 from erlvectordb_tpu.serve.mcp_server import MCPServer as JaxMCPServer
 from erlvectordb_tpu_torch.api import Database
-from erlvectordb_tpu_torch.infra.config import ConfigError, load_config
+from erlvectordb_tpu_torch.infra.config import load_config
 from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
 
 torch.set_num_threads(2)
@@ -31,6 +31,8 @@ torch.set_num_threads(2)
 DIM = 48
 INDEX_TOOLS = ["create_index", "build_index", "list_indexes", "search_index",
                "calibrate_index", "drop_index"]
+PERSIST_TOOLS = ["sync_store", "backup_store", "restore_store", "list_backups",
+                 "delete_store"]
 
 
 class Client:
@@ -242,22 +244,21 @@ def test_garbage_line_keeps_connection(pair, filled):
 
 
 def test_tools_list_is_the_ported_subset(pair):
-    """The port lists the tools it serves, each with the JAX package's
-    schema; multiprobe on a store without cells is the JAX package's
-    error."""
+    """The port lists the JAX server's 19 tools, each with the JAX package's
+    schema (create_store adds the port's intkey flag); multiprobe on a store
+    without cells is the JAX package's error."""
     tools = pair[0].call("tools/list")["result"]["tools"]
-    assert sorted(t["name"] for t in tools) == sorted([
-        "create_store", "insert_vector", "search_vectors",
-        "search_vectors_batch", "delete_vector", "get_store_stats",
-        "list_stores", "calibrate_store"] + INDEX_TOOLS)
     jax_tools = {t["name"]: t for t in pair[1].call("tools/list")["result"]["tools"]}
+    assert len(tools) == 19
+    assert sorted(t["name"] for t in tools) == sorted(jax_tools)
+    assert set(INDEX_TOOLS + PERSIST_TOOLS) <= set(jax_tools)
     for t in tools:
-        if t["name"] in ("search_vectors", "search_vectors_batch",
-                         "calibrate_store", "calibrate_index"):
-            # descriptions differ where they speak of persistence
-            assert t["inputSchema"] == jax_tools[t["name"]]["inputSchema"]
-        elif t["name"] in INDEX_TOOLS:
-            assert t == jax_tools[t["name"]]
+        if t["name"] == "create_store":
+            props = dict(t["inputSchema"]["properties"])
+            assert props.pop("intkey")["type"] == "boolean"
+            assert props == jax_tools[t["name"]]["inputSchema"]["properties"]
+        else:
+            assert t == jax_tools[t["name"]], t["name"]
     got, want = _both(pair, lambda c: c.tool(
         "search_vectors", store="s", vector=[0.0] * DIM, nprobe=4))
     # the JAX message goes on to name its index types, not ported yet
@@ -265,9 +266,24 @@ def test_tools_list_is_the_ported_subset(pair):
     assert got["message"] == want["message"].split(";")[0]
 
 
-def test_persistence_is_refused():
-    with pytest.raises(ConfigError, match="not yet ported"):
-        Database(load_config(overrides={"persistence_enabled": True}, env={}))
+def test_persistence_is_refused(tmp_path):
+    """Persistence runs with the default configuration; what it still
+    refuses is a snapshot of a store sharded over a device mesh, with an
+    error that names the distribution layer, instead of a single-device
+    load."""
+    from erlvectordb_tpu_torch.persist.snapshot import (
+        UnsupportedSnapshot,
+        write_pair,
+    )
+
+    cfg = load_config(overrides={"persistence_dir": str(tmp_path / "data"),
+                                 "backup_dir": str(tmp_path / "backups"),
+                                 "sync_interval": 9999}, env={})
+    Database(cfg, device=torch.device("cpu")).start().stop()
+    write_pair(tmp_path / "data" / "sh", "state", {},
+               {"name": "sh", "dim": DIM, "sharded": True, "shards": 8})
+    with pytest.raises(UnsupportedSnapshot, match="Queue A, distribution"):
+        Database(cfg, device=torch.device("cpu")).start()
 
 
 def test_int4_store_over_mcp(pair, data):
