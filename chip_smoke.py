@@ -81,6 +81,24 @@ Phases, each printing one JSON line of its own numbers:
               through the recovered stores; (l-c) compress_batch /
               decompress_batch on the card over 65,536 rows of the corpus
               (8bit, 4bit, pca, product): rows/s, ratio, error;
+  9. app      (m), after (l): the port's server through its entry points.
+              An Application with the default configuration (a config file
+              sets the directories, a sync interval of 3600 s and ports from
+              28000; container mode, so the health endpoint starts) on the
+              card; /health, /ready, /health/detailed over REST and the
+              health endpoint, naming the card; a token over OAuth HTTP;
+              store m (int8 cosine) created over REST and filled with the
+              1.2M rows over gRPC InsertBatch (REST without grpcio); the
+              MCP b64 batch and gRPC SearchBatch (1024 queries) equal to the
+              in-process batch bit for bit, StreamSearch, REST (8 threads)
+              and MCP search_vectors (256 single queries) equal to it within
+              1e-6 relative, recall@10 >= 0.95; /metrics, the ports status
+              and app.status(); app.stop() (a full base, every port free);
+              then `python -m erlvectordb_tpu_torch.cli serve` from the same
+              file: the time to recover to the same batch bit for bit,
+              `cli check`, the stdio bridge (`cli bridge`), and SIGTERM to
+              exit 0 within the graceful-shutdown timeout, every port free
+              -> B3 pos_scan int8;
 
 then the kernels summary line, the nvidia-smi line and, last, the contract
 line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -98,12 +116,18 @@ import gc
 import json
 import math
 import os
+import queue
 import shutil
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -143,6 +167,15 @@ L_KERNELS = {"a": (("intkey_scan", "int8"),),
              "h": (("cell_scan", "int4"), ("pos_residual_scan", "int4")),
              "f-rq": (("gather_dots", "int4"),)}
 C_ROWS, C_ALGS = 65_536, ("8bit", "4bit", "pca", "product")
+# (m): the server through its entry points, on ports no other path and no
+# test uses; fill messages of 8,192 rows over gRPC (3.3 MB, under gRPC's 4 MB
+# default) or 32,768 rows over REST (under its 256 MB body cap); 256 single
+# queries over REST from 8 threads, over MCP pipelined and over StreamSearch
+M_BASE = 28000
+M_SERVICES = ("mcp_server", "oauth_server", "rest_api", "grpc_server",
+              "health_check")
+M_GRPC_ROWS, M_REST_ROWS = 8_192, 32_768
+M_SINGLES, M_THREADS, M_REPS = 256, 8, 5
 DEVICE = "cuda"
 CSRC = "erlvectordb_tpu_torch/csrc/"
 JAX_FT = "erlvectordb_tpu/ops/fused_topk.py:"
@@ -668,16 +701,20 @@ def b64(a) -> str:
     return base64.b64encode(np.ascontiguousarray(a, "<f4").tobytes()).decode()
 
 
-def batch_rows(client, store, qs, k=K):
-    """Rows (== ids of the bulk-built and in-order filled stores) of one
-    b64 search_vectors_batch."""
+def batch_answer(client, store, qs, k=K):
+    """(rows, distances) of one b64 search_vectors_batch; rows are the ids
+    of the bulk-built and in-order filled stores."""
     r = client.tool("search_vectors_batch", store=store, vectors_b64=b64(qs),
                     dim=DIM, k=k, encoding="b64")
     rows = np.frombuffer(base64.b64decode(r["rows_b64"]), "<i4").reshape(len(qs), k)
     dists = np.frombuffer(base64.b64decode(r["distances_b64"]), "<f4").reshape(len(qs), k)
     if not np.all(np.isfinite(dists)):
         raise AssertionError(f"{store}: non-finite distances")
-    return rows
+    return rows, dists
+
+
+def batch_rows(client, store, qs, k=K):
+    return batch_answer(client, store, qs, k)[0]
 
 
 def batch_ids(client, store, qs, **probe):
@@ -1008,7 +1045,7 @@ def slice_phase(db, corpus, queries, f32_rows):
          h_capacity_after_inserts=db.get_store("h").capacity,
          torch_memory_allocated=int(torch.cuda.memory_allocated()),
          torch_max_memory_allocated=int(torch.cuda.max_memory_allocated()))
-    return launches, mp_curve
+    return launches, mp_curve, got["c"]
 
 
 def rq_phase(corpus, queries, stores, stage1, launches):
@@ -1302,6 +1339,446 @@ def compression_phase(corpus) -> None:
                    and r.get("within_test_bound", True))}
     if bad:
         raise AssertionError(f"(l-c) compression: {bad}")
+
+
+# ---------------------------------------------------------------------- app
+
+
+def http(url, body=None, token=None, form=False, timeout=600):
+    """(status, body bytes) of one HTTP request; an error status is
+    returned, not raised."""
+    headers, data = {}, None
+    if body is not None:
+        if form:
+            data = urllib.parse.urlencode(body).encode()
+            headers["Content-Type"] = "application/x-www-form-urlencoded"
+        else:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(url, data=data, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def get_token(oauth_port: int) -> str:
+    status, body = http(f"http://127.0.0.1:{oauth_port}/oauth/token", {
+        "grant_type": "client_credentials", "client_id": "erlvectordb_client",
+        "client_secret": "erlvectordb_secret"}, form=True)
+    if status != 200:
+        raise AssertionError(f"(m) token: {status} {body[:200]}")
+    return json.loads(body)["access_token"]
+
+
+def health_of(port: int, device_name: str) -> dict:
+    """/health, /ready and /health/detailed on one port; each must answer
+    healthy, the devices check naming the card."""
+    base = f"http://127.0.0.1:{port}"
+    out = {}
+    for path in ("/health", "/ready", "/health/detailed"):
+        status, body = http(base + path)
+        out[path] = (status, json.loads(body))
+    dev = out["/health/detailed"][1]["checks"]["devices"]
+    if not (out["/health"] == (200, {"status": "healthy"})
+            and out["/ready"] == (200, {"ready": True})
+            and out["/health/detailed"][1]["status"] == "healthy"
+            and dev["status"] == "healthy"
+            and dev["details"]["platform"] == "gpu"
+            and dev["details"]["device"] == device_name):
+        raise AssertionError(f"(m) health on port {port}: {out}")
+    return dev["details"]
+
+
+def ms_stats(seconds) -> dict:
+    ms = 1e3 * np.asarray(seconds)
+    return {"median_ms": float(np.median(ms)),
+            "p99_ms": float(np.percentile(ms, 99)), "n": int(ms.size)}
+
+
+def same_row(name, ids, dists, ref_ids, ref_d, exact):
+    """A frontend's answer against the in-process batch: ids equal and the
+    distances bit for bit (exact) or within 1e-6 relative."""
+    ids = np.asarray(ids).astype(str)
+    dists = np.asarray(dists, np.float32)
+    if not np.array_equal(ids, ref_ids):
+        raise AssertionError(f"(m) {name}: ids differ from the in-process batch")
+    if exact and not np.array_equal(dists, ref_d):
+        raise AssertionError(f"(m) {name}: distances not bit-identical")
+    if not np.allclose(dists, ref_d, rtol=1e-6, atol=0):
+        raise AssertionError(f"(m) {name}: distances beyond 1e-6 relative")
+    return bool(np.array_equal(dists, ref_d))
+
+
+def grpc_calls(port: int, token: str):
+    """(channel, {method: callable}) of the ErlVectorDB service."""
+    import grpc
+
+    from erlvectordb_tpu_torch.serve import evdb_pb2 as pb
+
+    ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+    md = [("authorization", f"Bearer {token}")]
+
+    def unary(name, req, rep):
+        fn = ch.unary_unary(f"/evdb.ErlVectorDB/{name}",
+                            request_serializer=req.SerializeToString,
+                            response_deserializer=rep.FromString)
+        return lambda msg: fn(msg, timeout=600, metadata=md)
+
+    stream = ch.stream_stream("/evdb.ErlVectorDB/StreamSearch",
+                              request_serializer=pb.SearchRequest.SerializeToString,
+                              response_deserializer=pb.SearchReply.FromString)
+    return ch, pb, {
+        "InsertBatch": unary("InsertBatch", pb.InsertBatchRequest, pb.StatusReply),
+        "SearchBatch": unary("SearchBatch", pb.SearchBatchRequest, pb.SearchBatchReply),
+        "StreamSearch": lambda reqs: stream(reqs, timeout=600, metadata=md)}
+
+
+def fill_store(corpus, ports, token, use_grpc):
+    """All of corpus into store m, ids "0".."n-1", over gRPC InsertBatch
+    where grpcio imports, else REST batched inserts."""
+    n = len(corpus)
+    t0 = time.perf_counter()
+    if use_grpc:
+        ch, pb, calls = grpc_calls(ports["grpc_server"], token)
+        with ch:
+            for lo in range(0, n, M_GRPC_ROWS):
+                rows = corpus[lo:lo + M_GRPC_ROWS]
+                r = calls["InsertBatch"](pb.InsertBatchRequest(
+                    store="m", ids=[str(i) for i in range(lo, lo + len(rows))],
+                    vectors_f32=np.ascontiguousarray(rows, "<f4").tobytes(),
+                    dim=DIM))
+                if not (r.ok and r.message == str(len(rows))):
+                    raise AssertionError(f"(m) InsertBatch at {lo}: {r}")
+    else:
+        url = f"http://127.0.0.1:{ports['rest_api']}/api/v1/stores/m/vectors"
+        for lo in range(0, n, M_REST_ROWS):
+            rows = corpus[lo:lo + M_REST_ROWS]
+            status, body = http(url, {"vectors": [
+                {"id": str(lo + j), "vector": v.tolist()}
+                for j, v in enumerate(rows)]}, token)
+            if status != 201 or json.loads(body)["inserted"] != len(rows):
+                raise AssertionError(f"(m) REST insert at {lo}: {status} {body[:200]}")
+    secs = time.perf_counter() - t0
+    return {"frontend": "grpc" if use_grpc else "rest", "rows": n,
+            "message_rows": M_GRPC_ROWS if use_grpc else M_REST_ROWS,
+            "seconds": secs, "rows_per_s": n / secs}
+
+
+def rest_singles(port, token, qs):
+    """One REST /search per query from M_THREADS client threads (the
+    batcher coalesces them): ([ids], [distances], [seconds])."""
+    url = f"http://127.0.0.1:{port}/api/v1/stores/m/search"
+    ids, dists, lat = [None] * len(qs), [None] * len(qs), [0.0] * len(qs)
+    errors = []
+
+    def run(lo):
+        for i in range(lo, len(qs), M_THREADS):
+            t0 = time.perf_counter()
+            status, body = http(url, {"vector": qs[i].tolist(), "k": K}, token)
+            lat[i] = time.perf_counter() - t0
+            if status != 200:
+                errors.append((i, status, body[:200]))
+                return
+            hits = json.loads(body)["results"]
+            ids[i] = [h["id"] for h in hits]
+            dists[i] = [h["distance"] for h in hits]
+
+    threads = [threading.Thread(target=run, args=(lo,)) for lo in range(M_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"(m) REST singles: {errors[:3]}")
+    return ids, dists, lat
+
+
+def mcp_singles(cl, qs):
+    """search_vectors for every query, pipelined in chunks of <= 500 (a
+    larger pipeline fills the server's send buffer and deadlocks):
+    ([ids], [distances], [seconds from the chunk's send to the answer])."""
+    ids, dists, lat = [], [], []
+    for lo in range(0, len(qs), 500):
+        chunk = qs[lo:lo + 500]
+        first = cl.next_id + 1
+        reqs = []
+        for q in chunk:
+            cl.next_id += 1
+            reqs.append(json.dumps({
+                "jsonrpc": "2.0", "id": cl.next_id, "method": "tools/call",
+                "params": {"name": "search_vectors",
+                           "arguments": {"store": "m", "vector": q.tolist(), "k": K}},
+                "auth": {"token": cl.token}}))
+        t0 = time.perf_counter()
+        cl.sock.sendall(("\n".join(reqs) + "\n").encode())
+        got = {}
+        while len(got) < len(chunk):
+            resp = cl._line()
+            got[resp["id"]] = (resp, time.perf_counter() - t0)
+        for i in range(first, first + len(chunk)):
+            resp, secs = got[i]
+            if "error" in resp:
+                raise AssertionError(f"(m) MCP search_vectors: {resp['error']}")
+            hits = json.loads(resp["result"]["content"][0]["text"])["results"]
+            ids.append([h["id"] for h in hits])
+            dists.append([h["distance"] for h in hits])
+            lat.append(secs)
+    return ids, dists, lat
+
+
+def grpc_serve(ports, token, qs):
+    """SearchBatch over qs (M_REPS times) and StreamSearch over the first
+    M_SINGLES queries, pipelined: the answers and their seconds."""
+    ch, pb, calls = grpc_calls(ports["grpc_server"], token)
+    with ch:
+        req = pb.SearchBatchRequest(store="m", dim=DIM, k=K,
+                                    vectors_f32=np.ascontiguousarray(qs, "<f4").tobytes())
+        lat = []
+        for _ in range(M_REPS):
+            t0 = time.perf_counter()
+            r = calls["SearchBatch"](req)
+            lat.append(time.perf_counter() - t0)
+        batch = (np.asarray(r.ids).reshape(r.count, r.k),
+                 np.frombuffer(r.distances_f32, "<f4").reshape(r.count, r.k))
+        reqs = [pb.SearchRequest(store="m", vector=q.tolist(), k=K, seq=i)
+                for i, q in enumerate(qs[:M_SINGLES])]
+        got = {}
+        t0 = time.perf_counter()
+        for rep in calls["StreamSearch"](iter(reqs)):
+            if rep.error:
+                raise AssertionError(f"(m) StreamSearch seq {rep.seq}: {rep.error}")
+            got[rep.seq] = ([h.id for h in rep.hits], [h.distance for h in rep.hits],
+                            time.perf_counter() - t0)
+        stream_s = time.perf_counter() - t0
+    if sorted(got) != list(range(M_SINGLES)):
+        raise AssertionError(f"(m) StreamSearch answered {len(got)} of {M_SINGLES}")
+    order = range(M_SINGLES)
+    return (batch, lat, [got[i][0] for i in order], [got[i][1] for i in order],
+            [got[i][2] for i in order], stream_s)
+
+
+def line_reader(stream):
+    """A queue fed with the lines of a child's stdout by a daemon thread."""
+    lines = queue.Queue()
+
+    def pump():
+        for ln in iter(stream.readline, ""):
+            lines.put(ln)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return lines
+
+
+def app_phase(corpus, queries, launches, c_rows, smi) -> None:
+    """(m): the port's server through its entry points.  An Application
+    with the default configuration (a config file sets only the
+    directories, a sync interval of 3600 s and the ports; container mode on,
+    so the health endpoint starts) starts on the card; store m (int8
+    cosine, dimension 100) is created over REST and filled with the whole
+    corpus over gRPC (REST without grpcio); MCP, gRPC and REST answer the
+    queries as the in-process batch does; app.stop() syncs a full base and
+    frees every port; then `python -m erlvectordb_tpu_torch.cli serve`
+    restarts from the same file, answers the same batch, passes `cli check`
+    and the stdio bridge, and exits 0 on SIGTERM with every port free.
+    Launches: B3-int8 (pos_scan) over steps 1-5."""
+    import torch
+
+    from erlvectordb_tpu_torch.app import Application
+    from erlvectordb_tpu_torch.infra.config import load_config
+    from erlvectordb_tpu_torch.infra.ports import probe_port
+    from erlvectordb_tpu_torch.serve.grpc_server import GRPC_AVAILABLE
+
+    card = torch.cuda.get_device_name(0)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="evdb_app_")
+    cfg_path = os.path.join(tmp, "evdb.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"persistence_dir": os.path.join(tmp, "data"),
+                   "backup_dir": os.path.join(tmp, "backups"),
+                   "sync_interval": 3600,
+                   "services": {n: {"preferred_port": M_BASE + 10 * i,
+                                    "port_range": [M_BASE + 10 * i, M_BASE + 10 * i + 9]}
+                                for i, n in enumerate(M_SERVICES)}}, f)
+    # container mode is read from the environment, not from the file
+    env = dict(os.environ, EVDB_CONFIG_FILE=cfg_path, CONTAINER="1")
+    qs, nq = queries[:BATCH], queries[:N_RECALL]
+    proc = app = err = None
+    try:
+        # 1. start
+        reset_launches()
+        cfg = load_config(config_file=cfg_path, env=env)
+        app, start_s = timed(lambda: Application(cfg).start())
+        ports = {n: app.service_port(n) for n in M_SERVICES}
+        if app.db.device != torch.device(DEVICE) or None in (
+                ports["mcp_server"], ports["oauth_server"], ports["rest_api"],
+                ports["health_check"]) or (GRPC_AVAILABLE and ports["grpc_server"] is None):
+            raise AssertionError(f"(m) start: {app.db.device} {ports}")
+        devices = health_of(ports["rest_api"], card)
+        health_of(ports["health_check"], card)
+        emit("app", step="start", nvidia_smi=smi, start_s=start_s, ports=ports,
+             grpc=GRPC_AVAILABLE, devices_check=devices,
+             container_mode=cfg.container_mode)
+        # 2. token, 3. create and fill
+        token = get_token(ports["oauth_server"])
+        status, body = http(f"http://127.0.0.1:{ports['rest_api']}/api/v1/stores",
+                            {"name": "m", "dimension": DIM, "metric": "cosine",
+                             "dtype": "int8"}, token)
+        if status != 201:
+            raise AssertionError(f"(m) create: {status} {body[:200]}")
+        fill = fill_store(corpus, ports, token, GRPC_AVAILABLE)
+        store = app.db.get_store("m")
+        if store.count != len(corpus):
+            raise AssertionError(f"(m) filled {store.count} of {len(corpus)} rows")
+        emit("app", step="fill", nvidia_smi=smi, **fill,
+             device_bytes=store.device_memory_bytes(), capacity=store.capacity)
+
+        # 4. serve: every frontend against the in-process batch
+        torch.cuda.synchronize()
+        ref = app.db.search_batch("m", qs, k=K)
+        ref_ids = np.array([[h[0] for h in row] for row in ref]).astype(str)
+        ref_d = np.array([[h[2] for h in row] for row in ref], np.float32)
+        cl = Client(ports["mcp_server"], token)
+        lat, bit = {}, {}
+        mcp_s = []
+        for _ in range(M_REPS):
+            t0 = time.perf_counter()
+            rows, d = batch_answer(cl, "m", qs)
+            mcp_s.append(time.perf_counter() - t0)
+        lat["mcp_batch_1024"] = ms_stats(mcp_s)
+        bit["mcp_batch_1024"] = same_row("MCP batch", rows, d, ref_ids, ref_d, True)
+        mcp_ids, mcp_d = rows.astype(str), d
+        if GRPC_AVAILABLE:
+            batch, g_s, s_ids, s_d, s_lat, stream_s = grpc_serve(ports, token, qs)
+            lat["grpc_search_batch_1024"] = ms_stats(g_s)
+            bit["grpc_search_batch_1024"] = same_row("gRPC SearchBatch", *batch,
+                                                     ref_ids, ref_d, True)
+            lat["grpc_stream_256"] = dict(ms_stats(s_lat), total_s=stream_s)
+            bit["grpc_stream_256"] = same_row("gRPC StreamSearch", s_ids, s_d,
+                                              ref_ids[:M_SINGLES], ref_d[:M_SINGLES],
+                                              False)
+        r_ids, r_d, r_lat = rest_singles(ports["rest_api"], token, qs[:M_SINGLES])
+        lat["rest_single"] = ms_stats(r_lat)
+        bit["rest_single"] = same_row("REST search", r_ids, r_d, ref_ids[:M_SINGLES],
+                                      ref_d[:M_SINGLES], False)
+        m_ids, m_d, m_lat = mcp_singles(cl, qs[:M_SINGLES])
+        lat["mcp_single_pipelined"] = ms_stats(m_lat)
+        bit["mcp_single"] = same_row("MCP search_vectors", m_ids, m_d,
+                                     ref_ids[:M_SINGLES], ref_d[:M_SINGLES], False)
+        corpus_dev = torch.from_numpy(corpus).to(DEVICE)
+        gt = exact_rows(corpus_dev, nq, "cosine")
+        del corpus_dev
+        recall = overlap(mcp_ids[:N_RECALL].tolist(), gt)
+        if recall < 0.95:
+            raise AssertionError(f"(m) recall@10 of the MCP batch: {recall}")
+        # 5. inspect
+        rest = f"http://127.0.0.1:{ports['rest_api']}"
+        _, prom = http(rest + "/metrics")
+        status, pstat = http(rest + "/api/v1/ports/status", token=token)
+        pstat = json.loads(pstat)
+        st = app.status()
+        torch.cuda.synchronize()
+        launches["m"] = read_launches()
+        if not launches["m"].get("pos_scan", {}).get("int8"):
+            raise AssertionError(f"(m) never launched pos_scan[int8]: {launches['m']}")
+        emit("app", step="serve", nvidia_smi=smi, latency=lat, bit_identical=bit,
+             recall_at_10=recall, overlap_at_10_with_c=overlap(
+                 mcp_ids[:N_RECALL].tolist(), c_rows.tolist()),
+             launches=launches["m"],
+             metrics_bytes=len(prom), metrics_lines=prom.count(b"\n"),
+             ports_status={n: v["allocated_port"] for n, v in pstat.items()},
+             app_status={"running": st["running"], "stores": st["stores"],
+                         "services": {n: v["running"] for n, v in st["services"].items()},
+                         "health": st["health"]["status"],
+                         "oauth": st["oauth"]})
+
+        # 6. graceful stop: a full base on disk, every port free
+        cl.sock.close()
+        held = {n: p for n, p in ports.items() if p is not None}
+        _, stop_s = timed(app.stop)
+        sdir = Path(cfg.persistence_dir) / "m"
+        bases, deltas = list(sdir.glob("state_*.npz")), list(sdir.glob("delta_*"))
+        busy = {n: p for n, p in held.items() if not probe_port(p)}
+        if len(bases) != 1 or deltas or busy:
+            raise AssertionError(f"(m) stop: bases {bases}, deltas {deltas}, busy {busy}")
+        emit("app", step="stop", nvidia_smi=smi, stop_s=stop_s,
+             full_base_bytes=dir_bytes(sdir), ports_free=True)
+        app = store = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        emit("app", step="mem_before_restart", nvidia_smi=smi, free_bytes=free,
+             total_bytes=total)
+
+        # 7. restart through `cli serve`
+        cli = [sys.executable, "-m", "erlvectordb_tpu_torch.cli"]
+        err = open(os.path.join(tmp, "serve.err"), "w")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cli + ["serve"], cwd=repo, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=err)
+        lines = line_reader(proc.stdout)
+        line = lines.get(timeout=600)
+        if line is None:
+            raise AssertionError(f"(m) cli serve exited {proc.wait()}: "
+                                 f"{Path(err.name).read_text()[-2000:]}")
+        status_line = json.loads(line)
+        rports = status_line["ports"]
+        if status_line["status"] != "running" or any(
+                rports[n] != p for n, p in ports.items() if p is not None):
+            raise AssertionError(f"(m) cli serve: {status_line} (before: {ports})")
+        cl = Client(rports["mcp_server"], get_token(rports["oauth_server"]))
+        rows, d = batch_answer(cl, "m", qs)
+        recover_s = time.perf_counter() - t0
+        cl.sock.close()
+        if not (np.array_equal(rows.astype(str), mcp_ids) and np.array_equal(d, mcp_d)):
+            raise AssertionError("(m) the batch after the restart differs")
+        check = subprocess.run(cli + ["check"], cwd=repo, env=env, text=True,
+                               capture_output=True, timeout=300)
+        if check.returncode != 0:
+            raise AssertionError(f"(m) cli check: {check.stdout} {check.stderr[-2000:]}")
+        bridge_in = "".join(json.dumps({"jsonrpc": "2.0", "id": i, "method": m,
+                                        "params": p}) + "\n" for i, (m, p) in enumerate((
+            ("initialize", {}), ("tools/list", {}),
+            ("tools/call", {"name": "search_vectors", "arguments": {
+                "store": "m", "vector": qs[0].tolist(), "k": K}})), 1))
+        bridge = subprocess.run(cli + ["bridge"], cwd=repo, text=True, input=bridge_in,
+                                capture_output=True, timeout=300, env=dict(
+                                    env, EVDB_HOST="127.0.0.1",
+                                    EVDB_MCP_PORT=str(rports["mcp_server"]),
+                                    EVDB_OAUTH_URL=f"http://127.0.0.1:{rports['oauth_server']}/oauth/token"))
+        out = [json.loads(ln) for ln in bridge.stdout.splitlines()]
+        if bridge.returncode != 0 or [o.get("id") for o in out] != [1, 2, 3] or any(
+                "error" in o for o in out):
+            raise AssertionError(f"(m) bridge: {bridge.returncode} {out} {bridge.stderr[-2000:]}")
+        hits = json.loads(out[2]["result"]["content"][0]["text"])["results"]
+        same_row("bridge search_vectors", [[h["id"] for h in hits]],
+                 [[h["distance"] for h in hits]], ref_ids[:1], ref_d[:1], False)
+        tools = {t["name"] for t in out[1]["result"]["tools"]}
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=cfg.graceful_shutdown_timeout)
+        sigterm_s = time.perf_counter() - t0
+        busy = {n: p for n, p in rports.items() if p is not None and not probe_port(p)}
+        if rc != 0 or busy:
+            raise AssertionError(f"(m) SIGTERM: exit {rc}, busy {busy}")
+        emit("app", step="restart", nvidia_smi=smi, time_to_recover_s=recover_s,
+             same_ids=True, same_distances=True, cli_check_rc=check.returncode,
+             bridge_protocol=out[0]["result"]["protocolVersion"],
+             bridge_tools=len(tools), sigterm_exit_s=sigterm_s, sigterm_rc=rc,
+             ports_free=True)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+        if err is not None:
+            err.close()
+        if app is not None:
+            app.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # -------------------------------------------------------------------- index
@@ -1900,7 +2377,7 @@ def main() -> int:
         for s in stores.values():
             db.registry.adopt(s)
         f32_rows = make_corpus(SEED + 2, F32_ROWS)
-        launches, mp_curve = slice_phase(db, corpus, queries, f32_rows)
+        launches, mp_curve, c_rows = slice_phase(db, corpus, queries, f32_rows)
     finally:
         db.stop()
     del db
@@ -1909,6 +2386,8 @@ def main() -> int:
     durability_phase(corpus, queries, stores, launches)
     compression_phase(corpus)
     stores.clear()
+    torch.cuda.empty_cache()
+    app_phase(corpus, queries, launches, c_rows, smi)
     del corpus
     torch.cuda.empty_cache()
     index_phase(kernels, launches)

@@ -39,6 +39,10 @@ from erlvectordb_tpu_torch.utils.metrics import metrics
 
 LOG = logging.getLogger(__name__)
 
+# what the frontends answer to the cluster verbs (REST 501, gRPC UNIMPLEMENTED)
+CLUSTER_NOT_PORTED = ("the cluster layer is not ported to erlvectordb_tpu_torch "
+                      "yet (ROADMAP Queue A item 2, distribution)")
+
 
 class Database:
     """A running erlvectordb instance on one device: the CUDA card unless

@@ -104,18 +104,23 @@ class MCPServer:
 
     def stop(self) -> None:
         self._stop.set()
+        # shutdown before close: closing a socket under a thread blocked in
+        # accept() or recv() on it wakes nothing, and the kernel keeps the
+        # port listening until that call returns
+        with self._lock:
+            socks = list(self._clients)
+            self._clients.clear()
         if self._sock is not None:
+            socks.append(self._sock)
+        for s in socks:
             try:
-                self._sock.close()
+                s.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
-        with self._lock:
-            for c in list(self._clients):
-                try:
-                    c.close()
-                except OSError:
-                    pass
-            self._clients.clear()
+            try:
+                s.close()
+            except OSError:
+                pass
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=2)
             self._accept_thread = None

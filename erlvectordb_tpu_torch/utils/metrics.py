@@ -152,7 +152,8 @@ def profile_trace(log_dir: str, enabled: bool = True) -> Iterator[None]:
 
 
 def device_stats() -> dict:
-    """Name and allocated bytes of the CUDA device (or the CPU fallback)."""
+    """Name and allocated bytes of the CUDA device.  With no card visible
+    it reports the CPU; the port computes nothing there unless asked."""
     import torch
 
     if not torch.cuda.is_available():
