@@ -61,10 +61,13 @@ Phases, each printing one JSON line of its own numbers:
               B10 adc_pallas_scan int8, with recall@10 against exact f32
               ground truth;
   7. indexes  (k) the index manager over MCP: a 1M x 128 float32 euclidean
-              store of (j)'s corpus, pq / opq / int8 / ivf / cellprobe
-              indexes created, built, listed and searched through the MCP
-              tools (256 search_index calls each, every answer the same as a
-              direct IndexManager.search) -> B7 gather_dots int8 (cellprobe);
+              store of (j)'s corpus, pq / opq / int8 / ivf / cellprobe and
+              (n-ep) ep_ivf / ep_cellprobe (cells sharded over a mesh of
+              every card) indexes created, built, listed and searched
+              through the MCP tools (256 search_index calls each, every
+              answer the same as a direct IndexManager.search; ep_ivf
+              recall@10 >= 0.95, ep_cellprobe's at least cellprobe's less
+              0.01) -> B7 gather_dots int8 (cellprobe);
               then (l) every index saved (save_all), loaded into a fresh
               IndexManager (load_indexes) and searched again: the same
               answers;
@@ -99,6 +102,38 @@ Phases, each printing one JSON line of its own numbers:
               `cli check`, the stdio bridge (`cli bridge`), and SIGTERM to
               exit 0 within the graceful-shutdown timeout, every port free
               -> B3 pos_scan int8;
+ 10. distribution (n), after (m): the sharded stores (parallel/), each step
+              with the launch counts zeroed just before it and read after:
+                (n5) config 5 at full scale (bench.py:478-560): 10M x 768
+                    int8 cosine rows drawn on the card in 262,144-row chunks
+                    and streamed into ShardedVectorStore.from_chunks on
+                    make_mesh() (1 x 1); 64 dequantized rows find themselves;
+                    codes, scales and norms equal to a local int8 VectorStore
+                    filled from the same chunk stream, and its 1024-query
+                    batch equal bit for bit; sequential and pipelined batch
+                    times; recall@10 of 256 held-out points against exact f32
+                    -> B3 pos_scan int8 at W 768;
+                (n3) config 3's corpus through Database.distribute_store on a
+                    card Database (1 x 1), then on ClusterManagers over
+                    cuda:0 x 4: 2 replica groups x 2 shards (the batch split
+                    across the groups; fail_device(1) moves the store to the
+                    surviving group and the batch stays bit for bit;
+                    recover_device(1)) and 4 x 1; the 1 x 1 batch equal bit
+                    for bit to a local store of the rows it was given
+                    (get_all_vectors: dequantized, so its overlap@10 with
+                    (c)'s batch is recorded), the others' overlap@10 with it
+                    >= 0.99, recall@10 >= 0.95 on every mesh
+                    -> B3 pos_scan int8 (1 x 1, 2 x 2), B4 fused_scan int8 at
+                    T 8 (4 x 1);
+                (n-dur) the 1 x 1 store synced by its Database (persistence
+                    on), stopped and recovered by a new Database, then backed
+                    up and restored under a new name: the batch bit for bit;
+                (n-dim) config 3 as a DimShardedVectorStore over cuda:0 x 4,
+                    f32: overlap@10 >= 0.99 with the exact f32 top-10;
+              and the two kernel checks at (n)'s shapes: B3-int8 over the
+              first 1,048,576 rows of (n5)'s shard and B4-int8 at T 8 over
+              one 300,000-row shard of the 4 x 1 store, bit for bit;
+              (n-ep) the ep_ivf and ep_cellprobe indexes ride path (k);
 
 then the kernels summary line, the nvidia-smi line and, last, the contract
 line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -158,7 +193,8 @@ RQ_M, RQ_POOLS, RQ_NPROBE = 9, (64, 128, 256), 512   # (f-rq), bench.py:1008
 J_ROWS, J_DIM, J_LATENT, J_BATCH, J_RECALL = 1_000_000, 128, 20, 512, 256
 J_OPQ = dict(m=8, k=256, iters=15, opq_iters=4, max_train=200_000)
 J_C, J_BATCHES = 2048, 4   # adc_search_fused's pool; timed batches
-K_TYPES = ("pq", "opq", "int8", "ivf", "cellprobe")   # (k)'s index types
+K_TYPES = ("pq", "opq", "int8", "ivf", "cellprobe", "ep_ivf",
+           "ep_cellprobe")   # (k)'s index types; the last two are (n-ep)
 # (l): rows inserted into and deleted from (a), (h) and (f-rq) between their
 # full base and the sync after it; (l-c): the rows compressed on the card
 L_NEW = L_DELETE = 1_000
@@ -176,6 +212,14 @@ M_SERVICES = ("mcp_server", "oauth_server", "rest_api", "grpc_server",
               "health_check")
 M_GRPC_ROWS, M_REST_ROWS = 8_192, 32_768
 M_SINGLES, M_THREADS, M_REPS = 256, 8, 5
+# (n): config 5 (bench.py:478-560): 10M x 768 int8 cosine, 1024 Gaussian
+# centres, noise 0.35, 262,144-row chunks drawn on the card, 1024 standard
+# normal queries from np.random.default_rng(9), T = 4 pipelined tickets;
+# 64 probe rows, 256 held-out points for recall; the B3 check's rows
+N5_ROWS, N5_DIM, N5_CHUNK, N5_SEED = 10_000_000, 768, 262_144, 5
+N5_PROBES, N5_PIPE, N5_CHECK_ROWS = 64, 4, 1_048_576
+# (n3): the cluster over one card, cuda:0 repeated
+N3_DEVICES = 4
 DEVICE = "cuda"
 CSRC = "erlvectordb_tpu_torch/csrc/"
 JAX_FT = "erlvectordb_tpu/ops/fused_topk.py:"
@@ -1781,6 +1825,432 @@ def app_phase(corpus, queries, launches, c_rows, smi) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------- distribution
+
+
+def n5_centres(seed: int):
+    import torch
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    return torch.randn((N_CENTRES, N5_DIM), generator=g, device=DEVICE)
+
+
+def n5_chunks(centres, seed: int):
+    """Config 5's corpus drawn on the card chunk by chunk (centres[a] +
+    noise * N(0, 1)); the same seed gives the same stream."""
+    import torch
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    for i in range(0, N5_ROWS, N5_CHUNK):
+        c = min(N5_CHUNK, N5_ROWS - i)
+        a = torch.randint(0, N_CENTRES, (c,), generator=g, device=DEVICE)
+        yield centres[a] + NOISE * torch.randn((c, N5_DIM), generator=g,
+                                               device=DEVICE)
+
+
+def local_from_chunks(chunks):
+    """A local int8 VectorStore filled from a chunk stream with the store's
+    own encoder (VectorStore.from_chunks builds int4r stores only)."""
+    import torch
+
+    from erlvectordb_tpu_torch.core.store import (
+        VectorStore,
+        _quantize_int8,
+        _row_norms,
+    )
+
+    st = VectorStore("c5-local", dim=N5_DIM, metric="cosine", dtype="int8",
+                     device=torch.device(DEVICE))
+    st._ensure_allocated(N5_DIM)
+    st._grow_to(N5_ROWS)
+    off = 0
+    for x in chunks:
+        m = x.shape[0]
+        q, sc = _quantize_int8(x)
+        st._vectors[off:off + m] = q
+        st._scales[off:off + m] = sc
+        st._norms[off:off + m] = _row_norms(x)
+        st._valid[off:off + m] = True
+        off += m
+    st._next_row = st._contig = off
+    st.version = 1
+    return st
+
+
+def store_batch(store, qs, k=K):
+    """(dists, ids) of one batch through submit/complete_raw."""
+    d, _rows, ids = store.search_batch_complete_raw(
+        store.search_batch_submit(qs, k=k))
+    return d, ids
+
+
+def raw_rows(store, qs, k=K):
+    """(dists, rows) of one batch read back without the id mapping."""
+    d, r = store._readback(store.search_batch_submit(qs, k=k))
+    return d[:, :k], r[:, :k]
+
+
+def same_batch(name, got, want):
+    """Ids equal and distances bit for bit."""
+    if not (np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])):
+        bad = int((got[1] != want[1]).any(axis=1).sum())
+        raise AssertionError(f"{name}: {bad} queries differ from the reference "
+                             "batch (ids or distance bits)")
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of fn() (each ends in a readback)."""
+    lat = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        fn()
+        lat.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(lat[1:]))
+
+
+def dist_kernel_checks(kernels, shard5, q5, shard41):
+    """B3-int8 over the first N5_CHECK_ROWS rows of (n5)'s shard at W 768 and
+    B4-int8 at T 8 over one 300,000-row shard of the 4 x 1 store, each
+    against its plain version on the same inputs (bit for bit), timed by
+    CUDA events, beside its bound."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.fused_topk as ft
+
+    def record(key, variant, kern_fn, ref_fn, check, rows, width, batch,
+               nbytes, extra):
+        kern, ref = kern_fn(), ref_fn()
+        torch.cuda.synchronize()
+        err, frac = check(f"{key[0]}[{key[1]}]", kern, ref, True)
+        ms, plain_ms = cuda_ms(kern_fn), cuda_ms(ref_fn, reps=3)
+        b_ms, b_by = bound(variant, 2.0 * batch * rows * width, nbytes)
+        rec = dict(max_abs_err=err, mismatch=frac, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, rows=rows,
+                   launch_variant=variant,
+                   extra=dict(batch=batch, width=width, **extra))
+        kernels[key] = rec
+        emit("kernel", name=key[0], variant=key[1],
+             **{k: v for k, v in rec.items() if k != "extra"}, **rec["extra"])
+
+    # B3 at config 5's shape: the factors the store's search hands it
+    codes, scales, norms, valid = (shard5[k] for k in
+                                   ("vectors", "scales", "norms", "valid"))
+    width = codes.shape[1]
+    q8, qmult, rowmult, rowbias, _ = ft._affine_factors(
+        "cosine", scales, norms, valid, q5)
+    f, g, m, b = ft._pos_window(codes, scales, norms, valid, q8, qmult,
+                                rowmult, rowbias, "cosine")
+    nt = N5_CHECK_ROWS // ft.TILE_N
+    bq = q5.shape[0]
+    keys = bq * N5_CHECK_ROWS // ft.POS_SLICE
+    record(("pos_scan", "int8_c5_w768"), "int8",
+           lambda: ft.pos_scan(codes, q8, qmult, f, g, m, b, nt, False),
+           lambda: ft.pos_scan_ref(codes, q8, qmult, f, g, m, b, nt, False),
+           check_keys, N5_CHECK_ROWS, width, bq,
+           N5_CHECK_ROWS * (width + 8) + bq * (width + 12) + 4 * keys,
+           dict(store_rows=N5_ROWS, full_store_bound_ms=bound(
+               "int8", 2.0 * bq * N5_ROWS * width, N5_ROWS * (width + 8))[0]))
+    # B4 at T 8 over one shard of the 4 x 1 store
+    codes, scales, norms, valid = (shard41[k] for k in
+                                   ("vectors", "scales", "norms", "valid"))
+    width = codes.shape[1]
+    qp = torch.zeros((BATCH, width), dtype=torch.float32, device=DEVICE)
+    qp[:, :DIM] = q5.new_tensor(shard41["queries"])
+    q8, qmult, rowmult, rowbias, _ = ft._affine_factors(
+        "cosine", scales, norms, valid, qp)
+    nt = ft.n_tiles_for(shard41["rows"], codes.shape[0])
+    t = ft.t_per_tile_for(nt, 16)
+    rows = nt * ft.TILE_N
+    record(("fused_scan", "int8_t8_shard"), "int8",
+           lambda: ft.fused_scan(codes, q8, qmult, rowmult, rowbias, nt, t),
+           lambda: ft.fused_scan_ref(codes, q8, qmult, rowmult, rowbias, nt, t),
+           check_tile, rows, width, BATCH,
+           rows * (width + 8) + BATCH * (width + 4) + 8 * BATCH * t * nt,
+           dict(t_per_tile=t, shard_rows=shard41["rows"]))
+
+
+def n5_phase(kernels, launches, smi):
+    """(n5): config 5 at full scale through the port's sharded store."""
+    import torch
+
+    from erlvectordb_tpu_torch.parallel import ShardedVectorStore, make_mesh
+
+    centres = n5_centres(N5_SEED)
+    qs = np.random.default_rng(9).standard_normal((BATCH, N5_DIM)).astype(np.float32)
+    mesh = make_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    store, build_s = timed(lambda: ShardedVectorStore.from_chunks(
+        "c5", mesh, n5_chunks(centres, N5_SEED + 1), n=N5_ROWS, dim=N5_DIM,
+        metric="cosine", dtype="int8"))
+    shard = store._primary(0)
+    probe_rows = np.linspace(0, N5_ROWS - 1, N5_PROBES).astype(np.int64)
+    pr = torch.from_numpy(probe_rows).to(DEVICE)
+    probes = (shard["vectors"][pr].float() * shard["scales"][pr][:, None]
+              ).cpu().numpy()
+
+    def drive():
+        hits = store.search_batch(probes, k=1)
+        bad = [int(r) for r, h in zip(probe_rows, hits) if h[0][0] != str(r)]
+        if bad:
+            raise AssertionError(f"(n5) dequantized rows not their own top-1: {bad}")
+        got = raw_rows(store, qs)
+        seq_ms = host_ms(lambda: store_batch(store, qs))
+
+        def pipelined():
+            tickets = [store.search_batch_submit(qs, k=K) for _ in range(N5_PIPE)]
+            for t in tickets:
+                store.search_batch_complete_raw(t)
+
+        pipe_ms = host_ms(pipelined, reps=3) / N5_PIPE
+        return got, seq_ms, pipe_ms
+
+    reset_launches()
+    (got, seq_ms, pipe_ms), _ = timed(drive)
+    launches["n5"] = read_launches()
+    if not launches["n5"].get("pos_scan", {}).get("int8"):
+        raise AssertionError(f"(n5) never launched pos_scan[int8]: {launches['n5']}")
+
+    # parity with a local store of the same chunk stream
+    local, local_s = timed(lambda: local_from_chunks(
+        n5_chunks(centres, N5_SEED + 1)))
+    for key in ("vectors", "scales", "norms", "valid"):
+        a, b = shard[key], getattr(local, "_" + key)
+        for r0 in range(0, N5_ROWS, 1 << 20):
+            r1 = min(N5_ROWS, r0 + (1 << 20))
+            if not torch.equal(a[r0:r1], b[r0:r1]):
+                raise AssertionError(f"(n5) {key} differ from the local store's "
+                                     f"in rows [{r0}, {r1})")
+    same_batch("(n5) sharded vs local store", got, raw_rows(local, qs))
+    del local
+    torch.cuda.empty_cache()
+
+    # recall@10 of held-out points against exact f32, streamed over the
+    # regenerated chunks
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(N5_SEED + 2)
+    a = torch.randint(0, N_CENTRES, (N_RECALL,), generator=g, device=DEVICE)
+    held = centres[a] + NOISE * torch.randn((N_RECALL, N5_DIM), generator=g,
+                                            device=DEVICE)
+    from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
+
+    hn = held / held.norm(dim=1, keepdim=True)
+    best_s = best_i = None
+    off = 0
+    with full_f32_matmul():
+        for x in n5_chunks(centres, N5_SEED + 1):
+            s = hn @ (x / x.norm(dim=1, keepdim=True)).T
+            i = torch.arange(off, off + x.shape[0], device=DEVICE).expand_as(s)
+            if best_s is not None:
+                s, i = torch.cat([best_s, s], 1), torch.cat([best_i, i], 1)
+            best_s, sel = torch.topk(s, K, dim=1)
+            best_i = torch.gather(i, 1, sel)
+            off += x.shape[0]
+    _, ids = store_batch(store, held.cpu().numpy())
+    recall = overlap(ids.tolist(), best_i.cpu().numpy().tolist())
+    shard_bytes = {k: v.numel() * v.element_size() for k, v in shard.items()
+                   if v is not None}
+    emit("distribution", step="n5", nvidia_smi=smi, rows=N5_ROWS, dim=N5_DIM,
+         build_s=build_s, build_rows_per_s=N5_ROWS / build_s,
+         device_bytes=store.device_memory_bytes(), shard_bytes=shard_bytes,
+         capacity=store.capacity, n_tiles=(store._cap // 4096),
+         peak_memory_allocated=int(torch.cuda.max_memory_allocated()),
+         probes_top1=N5_PROBES, local_parity="codes, scales, norms, batch",
+         local_fill_s=local_s, batch_ms_sequential=seq_ms,
+         qps_sequential=BATCH / (seq_ms / 1e3), batch_ms_pipelined=pipe_ms,
+         qps_pipelined=BATCH / (pipe_ms / 1e3), pipelined_tickets=N5_PIPE,
+         recall_at_10_heldout=recall, launches=launches["n5"])
+    q5 = torch.from_numpy(qs).to(DEVICE)
+    return store, q5
+
+
+def n3_phase(corpus, queries, launches, c_rows, smi, tmp):
+    """(n3) and (n-dur): config 3 distributed on the card: the 1 x 1 store
+    of a card Database with persistence on, the 2 x 2 cluster with a
+    failover, the 4 x 1 cluster; then a restart and a backup of the 1 x 1
+    store.  Returns the 4 x 1 store's first shard for the kernel check."""
+    import torch
+
+    from erlvectordb_tpu_torch.api import Database
+    from erlvectordb_tpu_torch.core.store import VectorStore
+    from erlvectordb_tpu_torch.infra.config import load_config
+    from erlvectordb_tpu_torch.parallel import ClusterManager
+
+    dev = torch.device(DEVICE)
+    nq = queries[:N_RECALL]
+    corpus_dev = torch.from_numpy(corpus).to(DEVICE)
+    gt = exact_rows(corpus_dev, nq, "cosine")
+    del corpus_dev
+    cfg = load_config(overrides={"persistence_dir": os.path.join(tmp, "data"),
+                                 "backup_dir": os.path.join(tmp, "backups"),
+                                 "sync_interval": 3600}, env={})
+    db = Database(cfg, device=dev).start()
+    out, ms = {}, {}
+    db2 = None
+    try:
+        c = VectorStore.from_matrix("c", corpus, dtype="int8",
+                                    metric="cosine", device=dev)
+        # distribute_store re-inserts the rows get_all_vectors returns
+        # (dequantized, so the norms are the dequantized rows', as in the
+        # JAX package): a local store of the same rows answers alike
+        allv = c.get_all_vectors()
+        local = VectorStore("c-local", dim=DIM, metric="cosine", dtype="int8",
+                            device=dev)
+        local.insert_batch([v[0] for v in allv], np.stack([v[1] for v in allv]))
+        del allv
+        db.registry.adopt(c)
+        _, out["distribute_s"] = timed(lambda: db.distribute_store("c"))
+        sh11 = db.any_store("c")
+
+        def rows_of(store):
+            return np.array([[int(v) for v in row]
+                             for row in store_batch(store, nq)[1]])
+
+        reset_launches()
+        r11 = rows_of(sh11)
+        before = store_batch(sh11, queries[:BATCH])
+        torch.cuda.synchronize()
+        launches["n3-1x1"] = read_launches()
+        ms["1x1"] = host_ms(lambda: store_batch(sh11, queries[:BATCH]))
+        same_batch("(n3) 1 x 1 against a local store of the same rows",
+                   before, store_batch(local, queries[:BATCH]))
+        del local
+        out["1x1"] = dict(overlap_with_c=overlap(r11.tolist(), c_rows.tolist()),
+                          recall_at_10=overlap(r11.tolist(), gt.tolist()),
+                          same_as_local_store_of_the_rows=True)
+
+        cm = ClusterManager(devices=[DEVICE] * N3_DEVICES, replication_factor=2)
+        sh22, out["distribute_2x2_s"] = timed(lambda: cm.distribute_store(sh11))
+        reset_launches()
+        r22 = rows_of(sh22)
+        b22 = store_batch(sh22, queries[:BATCH])
+        torch.cuda.synchronize()
+        launches["n3-2x2"] = read_launches()
+        ms["2x2"] = host_ms(lambda: store_batch(sh22, queries[:BATCH]))
+        out["2x2"] = dict(overlap_with_1x1=overlap(r22.tolist(), r11.tolist()),
+                          recall_at_10=overlap(r22.tolist(), gt.tolist()),
+                          replica_groups=sh22.n_replicas, shards=sh22.n_shards)
+        failed = cm.fail_device(1)
+        if (cm.get_store("c").n_replicas != 1
+                or failed["replica_groups"] != 1):
+            raise AssertionError(f"(n3) fail_device(1): {failed}")
+        same_batch("(n3) after fail_device(1)",
+                   store_batch(cm.get_store("c"), queries[:BATCH]), b22)
+        ms["2x2_after_failover"] = host_ms(
+            lambda: store_batch(cm.get_store("c"), queries[:BATCH]))
+        recovered = cm.recover_device(1)
+        probes = cm.probe_devices()
+        if not all(probes.values()) or recovered["replica_groups"] != 2:
+            raise AssertionError(f"(n3) recover_device(1): {recovered} {probes}")
+        out["cluster_stats"] = cm.get_cluster_stats()
+        out["store_location"] = cm.get_store_location("c")
+        del cm, sh22
+
+        cm4 = ClusterManager(devices=[DEVICE] * N3_DEVICES, replication_factor=1)
+        sh41, out["distribute_4x1_s"] = timed(lambda: cm4.distribute_store(sh11))
+        reset_launches()
+        r41 = rows_of(sh41)
+        store_batch(sh41, queries[:BATCH])
+        torch.cuda.synchronize()
+        launches["n3-4x1"] = read_launches()
+        ms["4x1"] = host_ms(lambda: store_batch(sh41, queries[:BATCH]))
+        out["4x1"] = dict(overlap_with_1x1=overlap(r41.tolist(), r11.tolist()),
+                          recall_at_10=overlap(r41.tolist(), gt.tolist()),
+                          per_shard_counts=sh41.get_stats()["per_shard_counts"],
+                          shard_capacity=sh41._cap)
+        shard41 = dict(sh41._primary(0), queries=queries[:BATCH],
+                       rows=sh41._next_local[0])
+        del cm4, sh41
+
+        # (n-dur): sync, stop, recover; backup, restore under a new name
+        reset_launches()
+        _, out["sync_s"] = timed(lambda: db.sync("c"))
+        out["bytes_on_disk"] = dir_bytes(cfg.persistence_dir)
+        db.stop()
+        db = None
+        db2, out["recover_s"] = timed(lambda: Database(cfg, device=dev).start())
+        same_batch("(n-dur) after the restart",
+                   store_batch(db2.any_store("c"), queries[:BATCH]), before)
+        bpath, out["backup_s"] = timed(lambda: db2.backup_store("c", "n"))
+        _, out["restore_s"] = timed(lambda: db2.restore_store(
+            bpath.rsplit("/", 1)[-1], new_name="c-restored"))
+        same_batch("(n-dur) restored backup",
+                   store_batch(db2.any_store("c-restored"), queries[:BATCH]),
+                   before)
+        out["backup_bytes"] = os.path.getsize(bpath)
+        torch.cuda.synchronize()
+        launches["n-dur"] = read_launches()
+    finally:
+        for d in (db, db2):
+            if d is not None:
+                d.stop()
+    emit("distribution", step="n3", nvidia_smi=smi, rows=len(corpus),
+         batch_ms=ms, **out,
+         launches={k: launches[k] for k in ("n3-1x1", "n3-2x2", "n3-4x1",
+                                            "n-dur")})
+    for step in ("n3-1x1", "n3-2x2", "n-dur"):
+        if not launches[step].get("pos_scan", {}).get("int8"):
+            raise AssertionError(f"({step}) never launched pos_scan[int8]: "
+                                 f"{launches[step]}")
+    if not launches["n3-4x1"].get("fused_scan", {}).get("int8"):
+        raise AssertionError(f"(n3-4x1) never launched fused_scan[int8]: "
+                             f"{launches['n3-4x1']}")
+    # the 1 x 1 store is held bit for bit to a local store of its rows
+    # above; its overlap with (c), whose norms are the f32 rows', is
+    # recorded (the re-quantized norms move near-ties)
+    bars = {"2x2": out["2x2"]["overlap_with_1x1"],
+            "4x1": out["4x1"]["overlap_with_1x1"]}
+    recalls = {m: out[m]["recall_at_10"] for m in ("1x1", "2x2", "4x1")}
+    if min(bars.values()) < 0.99 or min(recalls.values()) < 0.95:
+        raise AssertionError(f"(n3) overlap@10 {bars}, recall@10 {recalls}")
+    return shard41
+
+
+def dim_phase(corpus, queries, smi):
+    """(n-dim): config 3 as a DimShardedVectorStore over cuda:0 x 4, f32."""
+    import torch
+
+    from erlvectordb_tpu_torch.parallel.dim_sharded import (
+        DimShardedVectorStore,
+        make_dim_mesh,
+    )
+
+    nq = queries[:N_RECALL]
+    corpus_dev = torch.from_numpy(corpus).to(DEVICE)
+    gt = exact_rows(corpus_dev, nq, "cosine")
+    del corpus_dev
+    st, build_s = timed(lambda: DimShardedVectorStore.from_matrix(
+        "dim", corpus, mesh=make_dim_mesh(N3_DEVICES, devices=[DEVICE] * N3_DEVICES),
+        metric="cosine"))
+    rows = [[int(v) for v in row] for row in store_batch(st, nq)[1]]
+    ovl = overlap(rows, gt.tolist())
+    batch_ms = host_ms(lambda: store_batch(st, queries[:BATCH]), reps=3)
+    emit("distribution", step="n-dim", nvidia_smi=smi, rows=len(corpus),
+         model_shards=st.n_model, build_s=build_s, batch_ms=batch_ms,
+         overlap_at_10_with_exact_f32=ovl,
+         device_bytes=st.device_memory_bytes())
+    if ovl < 0.99:
+        raise AssertionError(f"(n-dim) overlap@10 with exact f32: {ovl}")
+
+
+def distribution_phase(corpus, queries, kernels, launches, c_rows, smi):
+    """(n): the distribution slice on the card (see the module docstring)."""
+    import torch
+
+    store5, q5 = n5_phase(kernels, launches, smi)
+    tmp = tempfile.mkdtemp(prefix="evdb_dist_")
+    try:
+        shard41 = n3_phase(corpus, queries, launches, c_rows, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dist_kernel_checks(kernels, store5._primary(0), q5, shard41)
+    del store5, shard41
+    torch.cuda.empty_cache()
+    dim_phase(corpus, queries, smi)
+    torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------------------- index
 
 
@@ -2239,6 +2709,13 @@ def index_manager_phase(data, held, gt, launches):
             or min(reloaded["same_answers"].values()) < 1.0):
         raise AssertionError(f"(l) indexes saved and loaded again answer "
                              f"otherwise: {reloaded}")
+    if (res["ep_ivf"]["recall_at_10"] < 0.95
+            or res["ep_cellprobe"]["recall_at_10"]
+            < res["cellprobe"]["recall_at_10"] - 0.01):
+        raise AssertionError(f"(n-ep) recall@10: ep_ivf "
+                             f"{res['ep_ivf']['recall_at_10']}, ep_cellprobe "
+                             f"{res['ep_cellprobe']['recall_at_10']}, "
+                             f"cellprobe {res['cellprobe']['recall_at_10']}")
     if any(r["same_as_direct"] < 1.0 for r in res.values()):
         raise AssertionError(f"(k) search_index differs from a direct "
                              f"IndexManager.search: {res}")
@@ -2388,6 +2865,8 @@ def main() -> int:
     stores.clear()
     torch.cuda.empty_cache()
     app_phase(corpus, queries, launches, c_rows, smi)
+    torch.cuda.empty_cache()
+    distribution_phase(corpus, queries, kernels, launches, c_rows, smi)
     del corpus
     torch.cuda.empty_cache()
     index_phase(kernels, launches)

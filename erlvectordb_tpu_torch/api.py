@@ -6,7 +6,8 @@ the OAuth server, the query batcher and the index manager together on one
 ``torch.device``; the MCP server calls through it.  ``start()`` reloads the
 persisted stores and indexes onto that device and starts the sync loop;
 ``stop()`` syncs and saves the indexes.  The cluster layer (distributed and
-dim-sharded stores) is not ported yet.
+dim-sharded stores over the devices of the Database's kind) is ported, except
+multi-process membership (``join_cluster``).
 """
 
 from __future__ import annotations
@@ -27,9 +28,11 @@ from erlvectordb_tpu_torch.core.registry import (
 )
 from erlvectordb_tpu_torch.core.store import VectorStore, default_device
 from erlvectordb_tpu_torch.infra.config import Config, load_config
+from erlvectordb_tpu_torch.parallel.mesh import devices_of_kind
 from erlvectordb_tpu_torch.persist import backup as backup_mod
 from erlvectordb_tpu_torch.persist.snapshot import (
     PersistenceManager,
+    get_store_info,
     list_persisted,
 )
 from erlvectordb_tpu_torch.quant import compression as compression_mod
@@ -38,10 +41,6 @@ from erlvectordb_tpu_torch.serve.oauth import OAuthServer
 from erlvectordb_tpu_torch.utils.metrics import metrics
 
 LOG = logging.getLogger(__name__)
-
-# what the frontends answer to the cluster verbs (REST 501, gRPC UNIMPLEMENTED)
-CLUSTER_NOT_PORTED = ("the cluster layer is not ported to erlvectordb_tpu_torch "
-                      "yet (ROADMAP Queue A item 2, distribution)")
 
 
 class Database:
@@ -76,6 +75,7 @@ class Database:
         )
         self.indexes = IndexManager(self.registry)
         self.batcher = QueryBatcher(self.any_store)
+        self._cluster = None  # lazy: the ClusterManager over this kind's devices
         self._lock = threading.RLock()
         self._started = False
 
@@ -88,11 +88,20 @@ class Database:
             if self._started:
                 return self
             if self.persistence is not None:
+                from erlvectordb_tpu_torch.parallel.sharded_store import (
+                    ShardedVectorStore,
+                )
+
                 for name in list_persisted(self.config.persistence_dir):
-                    if not self.registry.exists(name):
-                        store = self.persistence.open_store(name)
-                        if store is not None:
-                            self.registry.adopt(store)
+                    if self.registry.exists(name):
+                        continue
+                    info = get_store_info(name, self.config.persistence_dir) or {}
+                    mesh = self.cluster.mesh if info.get("sharded") else None
+                    store = self.persistence.open_store(name, mesh=mesh)
+                    if isinstance(store, ShardedVectorStore):
+                        self.cluster.distribute_store(store)
+                    elif store is not None:
+                        self.registry.adopt(store)
                 self.persistence.start()
                 self.indexes.load_indexes(self._index_dir())
             self.batcher.start()
@@ -114,15 +123,24 @@ class Database:
     def _index_dir(self) -> Path:
         return Path(self.config.persistence_dir) / "indexes"
 
-    def _track(self, store: VectorStore) -> None:
+    def _track(self, store) -> None:
         if self.persistence is not None:
             self.persistence.track(store)
+
+    def _check_free(self, name: str) -> None:
+        """A name must be free among the local AND the distributed stores."""
+        if self.registry.exists(name) or (
+                self._cluster is not None
+                and self._cluster.get_store(name) is not None):
+            raise StoreExists(f"store {name!r} already exists")
 
     # ------------------------------------------------------------ store ops
 
     def create_store(self, name: str, dim: Optional[int] = None,
                      metric: str = "cosine", dtype: str = "float32",
                      intkey: bool = False) -> dict:
+        if self._cluster is not None and self._cluster.get_store(name) is not None:
+            raise StoreExists(f"store {name!r} already exists (distributed)")
         store = self.registry.create(name, dim=dim, metric=metric,
                                      dtype=dtype, intkey=intkey)
         self._track(store)
@@ -136,8 +154,7 @@ class Database:
         (VectorStore.from_chunks): the corpus never exists as one host array.
         Ids are implicit "0".."n-1" by arrival order.  Extra kwargs reach
         ops/cell_build.py (cell_rows, cell_cap, aniso_eta...)."""
-        if self.registry.exists(name):
-            raise StoreExists(f"store {name!r} already exists")
+        self._check_free(name)
         store = VectorStore.from_chunks(name, chunks, n=n, dim=dim,
                                         metric=metric, device=self.device,
                                         **build_kw)
@@ -155,10 +172,16 @@ class Database:
             for idx in doomed:
                 shutil.rmtree(self._index_dir() / f"idx_{idx}",
                               ignore_errors=True)
-        return self.registry.drop(name)
+        hit = self.registry.drop(name)
+        if self._cluster is not None:
+            hit = self._cluster.undistribute_store(name) or hit
+        return hit
 
     def list_stores(self) -> List[str]:
-        return self.registry.list()
+        names = set(self.registry.list())
+        if self._cluster is not None:
+            names.update(self._cluster.get_cluster_stats()["stores"])
+        return sorted(names)
 
     def get_store(self, name: str) -> VectorStore:
         return self.registry.get(name)
@@ -237,15 +260,21 @@ class Database:
 
     def warmup(self, store: Optional[str] = None) -> int:
         """Run each store's search path once (kernel build included)."""
-        names = [store] if store else self.list_stores()
-        return sum(self.registry.get(name).warmup() for name in names)
+        names = [store] if store else self.registry.list()
+        stores = [self.registry.get_or_none(name) for name in names]
+        return sum(s.warmup() for s in stores if hasattr(s, "warmup"))
 
-    def any_store(self, name: str) -> VectorStore:
-        """A store by name (search/insert routing for the frontends)."""
+    def any_store(self, name: str):
+        """A store by name, local or distributed (search/insert routing for
+        the frontends)."""
         local = self.registry.get_or_none(name)
-        if local is None:
-            raise StoreNotFound(f"store {name!r} not found")
-        return local
+        if local is not None:
+            return local
+        if self._cluster is not None:
+            sharded = self._cluster.get_store(name)
+            if sharded is not None:
+                return sharded
+        raise StoreNotFound(f"store {name!r} not found")
 
     def sync(self, store: str) -> bool:
         """Force a persistence sync of one store (False when persistence is
@@ -266,9 +295,16 @@ class Database:
         path = Path(self.config.backup_dir) / Path(backup_file).name
         if not path.exists():
             path = Path(backup_file)
+        from erlvectordb_tpu_torch.parallel.sharded_store import ShardedVectorStore
+
         store = backup_mod.restore_store(path, new_name=new_name,
-                                         device=self.device)
-        self.registry.adopt(store)
+                                         device=self.device,
+                                         mesh=self.cluster.mesh)
+        if isinstance(store, ShardedVectorStore):
+            self._check_free(store.name)
+            self.cluster.distribute_store(store)
+        else:
+            self.registry.adopt(store)
         self._track(store)
         return store.get_stats()
 
@@ -287,6 +323,82 @@ class Database:
         self.registry.adopt(store)
         self._track(store)
         return store.get_stats()
+
+    # -------------------------------------------------------------- cluster
+
+    @property
+    def cluster(self):
+        """The ClusterManager over every device of this Database's kind
+        (every card; the logical CPU devices for a CPU Database)."""
+        with self._lock:
+            if self._cluster is None:
+                from erlvectordb_tpu_torch.parallel.cluster import ClusterManager
+
+                self._cluster = ClusterManager(
+                    devices=devices_of_kind(self.device),
+                    replication_factor=self.config.replication_factor)
+            return self._cluster
+
+    def create_distributed_store(self, name: str, dim: Optional[int] = None,
+                                 metric: str = "cosine",
+                                 dtype: str = "float32") -> dict:
+        """Create a store sharded across the cluster's mesh."""
+        from erlvectordb_tpu_torch.parallel.sharded_store import ShardedVectorStore
+
+        self._check_free(name)
+        sharded = ShardedVectorStore(name, self.cluster.mesh, dim=dim,
+                                     metric=metric, dtype=dtype)
+        self.cluster.distribute_store(sharded)
+        self._track(sharded)
+        return sharded.get_stats()
+
+    def create_dim_sharded_store(self, name: str, dim: Optional[int] = None,
+                                 metric: str = "cosine",
+                                 n_model: Optional[int] = None) -> dict:
+        """Create a store whose FEATURE dimension is split across devices
+        (``n_model`` of this Database's kind, default all of them); the full
+        store API applies."""
+        from erlvectordb_tpu_torch.parallel.dim_sharded import (
+            DimShardedVectorStore,
+            make_dim_mesh,
+        )
+
+        self._check_free(name)
+        devs = devices_of_kind(self.device)
+        store = DimShardedVectorStore(
+            name, make_dim_mesh(n_model or len(devs), devices=devs), dim=dim,
+            metric=metric)
+        self.registry.adopt(store)
+        self._track(store)
+        return store.get_stats()
+
+    def distribute_store(self, name: str) -> dict:
+        """Move an existing local store onto the cluster's mesh."""
+        local = self.registry.get(name)
+        sharded = self.cluster.distribute_store(local)
+        self.registry.drop(name)
+        if self.persistence is not None:
+            self.persistence.untrack(name)
+            self.persistence.track(sharded)
+        return sharded.get_stats()
+
+    def get_store_location(self, name: str):
+        return self.cluster.get_store_location(name)
+
+    def get_cluster_nodes(self):
+        return self.cluster.get_cluster_nodes()
+
+    def get_cluster_stats(self):
+        return self.cluster.get_cluster_stats()
+
+    def join_cluster(self, coordinator_address=None, num_processes=None,
+                     process_id=None):
+        """Multi-process membership waits for ROADMAP Queue A item 3."""
+        return self.cluster.join_cluster(coordinator_address, num_processes,
+                                         process_id)
+
+    def leave_cluster(self):
+        return self.cluster.leave_cluster()
 
     # ---------------------------------------------------------- maintenance
 

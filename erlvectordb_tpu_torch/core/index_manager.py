@@ -13,10 +13,9 @@ Counterpart of ``erlvectordb_tpu/core/index_manager.py``:
   * ``hnsw`` / ``cellprobe`` — balanced cells, int8 residual codes and the
                 multiprobe gather (core/cell_probe.py, kernel B7).
 
-``ep_ivf`` and ``ep_cellprobe`` (cells sharded over a device mesh) are
-accepted as descriptors; their build fails with an ``IndexError_`` recorded
-in ``info.error``, as any failed build is, until the distribution layer is
-ported.
+  * ``ep_ivf`` / ``ep_cellprobe`` — the ivf and cellprobe cells sharded
+                over a mesh of every device of the store's kind (every card;
+                the logical CPU devices on the CPU), parallel/ep_*.py.
 
 Built indexes persist under ``root/idx_<name>/`` (``save_index``,
 ``save_all``, ``load_indexes``) as a generation pair, ``arrays_<gen>.npz`` +
@@ -96,7 +95,8 @@ class IndexInfo:
     def probe_artifact(self):
         """The cellprobe-family index object, if this is one."""
         if isinstance(self.artifact, dict):
-            return self.artifact.get("cell_probe")
+            return (self.artifact.get("cell_probe")
+                    or self.artifact.get("ep_cellprobe"))
         return None
 
 
@@ -199,13 +199,12 @@ class IndexManager:
                                              rotated=info.type == "opq")
         elif info.type == "ivf":
             artifact, stats = self._build_ivf(store, info.parameters)
+        elif info.type == "ep_ivf":
+            artifact, stats = self._build_ep_ivf(store, info.parameters)
         elif info.type in ("hnsw", "cellprobe"):
             artifact, stats = self._build_cell_probe(store, info.parameters)
-        else:  # ep_ivf, ep_cellprobe
-            raise IndexError_(
-                f"index type {info.type!r} shards cells over a device mesh: "
-                "the distribution layer is not yet ported to "
-                "erlvectordb_tpu_torch")
+        else:  # ep_cellprobe
+            artifact, stats = self._build_ep_cell_probe(store, info.parameters)
         if store.device.type == "cuda":
             torch.cuda.synchronize(store.device)
         dt = time.perf_counter() - t0
@@ -299,6 +298,45 @@ class IndexManager:
             device=store.device,
         )
         artifact = {"ivf": idx, "nprobe": int(params.get("nprobe", 8))}
+        return artifact, idx.stats()
+
+    @staticmethod
+    def _ep_mesh(store: VectorStore):
+        """The EP indexes' mesh: every device of the store's kind, one
+        replica group."""
+        from erlvectordb_tpu_torch.parallel.mesh import devices_of_kind, make_mesh
+
+        devs = devices_of_kind(store.device)
+        return make_mesh(n_data=len(devs), n_replica=1, devices=devs)
+
+    def _build_ep_ivf(self, store: VectorStore, params: dict):
+        """Expert-parallel IVF: cells sharded across the data axis of the
+        mesh — the scale-out form of the ivf type."""
+        from erlvectordb_tpu_torch.parallel.ep_ivf import EPIVFIndex
+
+        mat, rows, norms = self._store_matrix(store)
+        idx = EPIVFIndex.build(
+            mat, rows, norms, self._ep_mesh(store),
+            n_cells=int(params.get("n_cells", 64)),
+            iters=int(params.get("iters", 15)),
+        )
+        artifact = {"ep_ivf": idx, "nprobe": int(params.get("nprobe", 8))}
+        return artifact, idx.stats()
+
+    def _build_ep_cell_probe(self, store: VectorStore, params: dict):
+        """Scale-out hnsw slot: int8 residual cells sharded over the data
+        axis of the mesh (parallel/ep_cell_probe.py)."""
+        from erlvectordb_tpu_torch.parallel.ep_cell_probe import EPCellProbeIndex
+
+        mat, rows, _norms = self._store_matrix(store, pad128=True)
+        idx = EPCellProbeIndex.build(
+            mat, rows, self._ep_mesh(store),
+            cell_rows=int(params.get("cell_rows", 96)),
+            cell_cap=int(params.get("cell_cap", 128)),
+            iters=int(params.get("iters", 15)),
+        )
+        artifact = {"ep_cellprobe": idx,
+                    "nprobe": int(params.get("nprobe", 32))}
         return artifact, idx.stats()
 
     def _build_cell_probe(self, store: VectorStore, params: dict):
@@ -413,7 +451,8 @@ class IndexManager:
             raise IndexError_(f"index {name!r} not found")
         if not info.built:
             raise IndexError_(f"index {name!r} is not built")
-        probed = info.type in ("ivf", "hnsw", "cellprobe")
+        probed = info.type in ("ivf", "ep_ivf", "hnsw", "cellprobe",
+                               "ep_cellprobe")
         if (nprobe is not None or recall_target is not None) and not probed:
             raise ValueError(
                 f"index {name!r} ({info.type}) has no probe knob — "
@@ -424,20 +463,20 @@ class IndexManager:
             return store.search(query, k=k)
         q = np.asarray(query, np.float32)
         a = info.artifact
-        if info.type == "ivf":
+        if info.type in ("ivf", "ep_ivf"):
             if recall_target is not None:
                 raise ValueError(
                     "recall_target calibration is cellprobe-family only; "
                     "pass an explicit nprobe for ivf/ep_ivf indexes")
-            dists, rows = a["ivf"].search(
+            dists, rows = a[info.type].search(
                 q, k=k, nprobe=a["nprobe"] if nprobe is None else int(nprobe),
                 metric=_search_metric(store))
             return self._rows_to_hits(store, dists[0], rows[0])
-        if info.type in ("hnsw", "cellprobe"):
+        if info.type in ("hnsw", "cellprobe", "ep_cellprobe"):
             kw = {"nprobe": a["nprobe"] if nprobe is None else int(nprobe)}
             if recall_target is not None:
                 kw = {"recall_target": float(recall_target)}
-            dists, rows = a["cell_probe"].search(
+            dists, rows = info.probe_artifact().search(
                 q, k=k, metric=_search_metric(store), **kw)
             return self._rows_to_hits(store, dists[0], rows[0])
         if info.type == "int8":
@@ -492,11 +531,11 @@ class IndexManager:
             arrays["codes"] = a["codes"].cpu().numpy()
             arrays["rows"] = np.asarray(a["rows"])
             meta["pad_dim"] = int(a["pad_dim"])
-        elif info.type == "ivf" and a is not None:
-            arrays = a["ivf"].to_arrays()
+        elif info.type in ("ivf", "ep_ivf") and a is not None:
+            arrays = a[info.type].to_arrays()
             meta["nprobe"] = int(a["nprobe"])
-        elif info.type in ("hnsw", "cellprobe") and a is not None:
-            arrays = a["cell_probe"].to_arrays()
+        elif info.type in ("hnsw", "cellprobe", "ep_cellprobe") and a is not None:
+            arrays = info.probe_artifact().to_arrays()
             meta["nprobe"] = int(a["nprobe"])
         idir = Path(root) / f"idx_{name}"
         write_pair(idir, "arrays", arrays, meta)
@@ -542,10 +581,6 @@ class IndexManager:
         if resolved is None:
             return None
         meta = resolved[2]
-        if meta["type"] in ("ep_ivf", "ep_cellprobe"):
-            raise IndexError_(
-                f"index {meta['name']!r} ({meta['type']}) shards cells over a "
-                "device mesh: the distribution layer is not yet ported")
         store = self._registry.get_or_none(meta["store"])
         if store is None:
             return None
@@ -595,6 +630,22 @@ class IndexManager:
 
             info.artifact = {
                 "cell_probe": CellProbeIndex.from_arrays(arrays, device=dev),
+                "nprobe": int(meta.get("nprobe", 32)),
+            }
+        elif info.type == "ep_ivf" and arrays:
+            from erlvectordb_tpu_torch.parallel.ep_ivf import EPIVFIndex
+
+            info.artifact = {
+                "ep_ivf": EPIVFIndex.from_arrays(arrays, self._ep_mesh(store)),
+                "nprobe": int(meta.get("nprobe", 8))}
+        elif info.type == "ep_cellprobe" and arrays:
+            from erlvectordb_tpu_torch.parallel.ep_cell_probe import (
+                EPCellProbeIndex,
+            )
+
+            info.artifact = {
+                "ep_cellprobe": EPCellProbeIndex.from_arrays(
+                    arrays, self._ep_mesh(store)),
                 "nprobe": int(meta.get("nprobe", 32)),
             }
         with self._lock:

@@ -3,7 +3,6 @@ JSON export/import (backup.py), in the JAX package's on-disk formats."""
 
 from erlvectordb_tpu_torch.persist.snapshot import (  # noqa: F401
     PersistenceManager,
-    UnsupportedSnapshot,
     delete_persisted,
     get_store_info,
     list_persisted,

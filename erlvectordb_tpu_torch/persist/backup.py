@@ -12,9 +12,9 @@ Counterpart of ``erlvectordb_tpu/persist/backup.py``, in its file formats:
 
 As in snapshots (persist/snapshot.py), every array of the exported state
 goes into the npz: the JAX package's five named arrays leave an int4r
-store's ``rq_*`` arrays in the manifest, where ``json.dumps`` fails.
-Backups of sharded stores are refused until the distribution layer is
-ported.
+store's ``rq_*`` arrays in the manifest, where ``json.dumps`` fails.  A
+sharded store's backup restores onto a mesh; a dim-sharded one, as in the
+JAX package, restores as a single-device store.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from erlvectordb_tpu_torch.core.store import VectorStore
-from erlvectordb_tpu_torch.persist.snapshot import refuse_sharded, split_arrays
+from erlvectordb_tpu_torch.persist.snapshot import split_arrays, store_from_state
 
 BACKUP_SUFFIX = ".backup"
 
@@ -66,19 +66,20 @@ def read_backup_manifest(path: str | os.PathLike) -> dict:
 
 
 def restore_store(path: str | os.PathLike, new_name: Optional[str] = None,
-                  device: Optional[torch.device] = None) -> VectorStore:
+                  device: Optional[torch.device] = None, mesh=None):
     """Materialize a store from a backup file (optionally renamed) on
-    ``device`` (default: the CUDA card)."""
+    ``device`` (default: the CUDA card); a sharded backup onto ``mesh``
+    (default: every device of that kind)."""
     with zipfile.ZipFile(path) as z:
         state = json.loads(z.read("manifest.json"))
-        refuse_sharded(state, f"the backup {Path(path).name}")
         with np.load(io.BytesIO(z.read("state.npz"))) as npz:
             for k in npz.files:
                 state[k] = npz[k]
     state.pop("store_info", None)
     if new_name:
         state["name"] = new_name
-    return VectorStore.from_state(state, device=device)
+    state.pop("dim_sharded", None)
+    return store_from_state(state, device=device, mesh=mesh)
 
 
 def list_backups(backup_dir: str | os.PathLike) -> List[dict]:

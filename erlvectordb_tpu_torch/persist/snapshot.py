@@ -33,9 +33,9 @@ Divergences from the JAX package, each readable by its loader:
   * a deleted store's snapshot is deleted with it (``forget``); the JAX
     ``Database.delete_store`` leaves it, and the next start reloads it.
 
-Stores sharded over a device mesh (``sharded``/``dim_sharded`` snapshots of
-the JAX package) are refused with :class:`UnsupportedSnapshot` until the
-distribution layer is ported.
+Stores sharded over a device mesh (``sharded``/``dim_sharded`` states, in
+the JAX package's format) load onto a mesh of the devices of the loader's
+kind (parallel/), and are written as the JAX package writes them.
 
 Optional at-rest compression (``compression="zlib"``) uses numpy's deflate
 container.
@@ -63,19 +63,30 @@ DEFAULT_SYNC_INTERVAL = 30.0
 _ROW_KEYS = ("vectors", "norms", "valid", "scales", "rq_codes", "codes_unit")
 
 
-class UnsupportedSnapshot(ValueError):
-    """A snapshot this package cannot load: a store sharded across a device
-    mesh, which needs the distribution layer (ROADMAP Queue A)."""
+def store_from_state(state: dict, device=None, mesh=None):
+    """The store an exported state describes, on ``device`` (default: the
+    CUDA card): a ShardedVectorStore on ``mesh`` (default: every device of
+    that kind) for a sharded state, a DimShardedVectorStore over
+    ``n_model`` devices of that kind for a dim-sharded one, else a
+    VectorStore."""
+    from erlvectordb_tpu_torch.core.store import default_device
+    from erlvectordb_tpu_torch.parallel.mesh import devices_of_kind, make_mesh
 
+    device = torch.device(device) if device is not None else default_device()
+    if state.get("sharded"):
+        from erlvectordb_tpu_torch.parallel.sharded_store import ShardedVectorStore
 
-def refuse_sharded(state: dict, what: str) -> None:
-    if state.get("sharded") or state.get("dim_sharded"):
-        kind = "dim-sharded" if state.get("dim_sharded") else "sharded"
-        raise UnsupportedSnapshot(
-            f"{what} holds a {kind} store ({state.get('name')!r}): sharded "
-            "and dim-sharded stores need the distribution layer "
-            "(ROADMAP Queue A, distribution), which is not yet ported to "
-            "erlvectordb_tpu_torch")
+        return ShardedVectorStore.from_state(
+            state, mesh or make_mesh(devices=devices_of_kind(device)))
+    if state.get("dim_sharded"):
+        from erlvectordb_tpu_torch.parallel.dim_sharded import (
+            DimShardedVectorStore,
+            make_dim_mesh,
+        )
+
+        return DimShardedVectorStore.from_state(state, make_dim_mesh(
+            int(state.get("n_model", 1)), devices=devices_of_kind(device)))
+    return VectorStore.from_state(state, device=device)
 
 
 def split_arrays(state: dict) -> dict:
@@ -174,14 +185,18 @@ def save_store(store: VectorStore, root: str | os.PathLike,
     # clear BEFORE export: a row touched after this clear is recorded again
     # by its own mutation (which the export's read lock holds off until
     # done), so at worst a row lands in both the base and the next delta
-    store._touched_rows.clear()
+    # (a sharded store has no delta chain: every sync is a full base)
+    local = isinstance(store, VectorStore)
+    if local:
+        store._touched_rows.clear()
     state = store.export_state()
     arrays = split_arrays(state)
     state["snapshot_format"] = SNAPSHOT_FORMAT
     state["compression"] = compression or "none"
     write_pair(sdir, "state", arrays, state, compressed=compression == "zlib")
     clear_deltas(sdir)
-    store._touched_reliable = True
+    if local:
+        store._touched_reliable = True
     return str(sdir)
 
 
@@ -288,9 +303,10 @@ def read_state(npz_path: Optional[Path], meta: dict) -> dict:
 
 
 def load_store(name: str, root: str | os.PathLike,
-               device: Optional[torch.device] = None):
+               device: Optional[torch.device] = None, mesh=None):
     """Re-hydrate a store (base + deltas) onto ``device`` (default: the CUDA
-    card); None if no snapshot exists."""
+    card); a sharded snapshot onto ``mesh`` (see store_from_state).  None if
+    no snapshot exists."""
     sdir = _store_dir(Path(root), name)
     if not sdir.exists():
         return None
@@ -298,9 +314,9 @@ def load_store(name: str, root: str | os.PathLike,
     if resolved is None:
         return None
     state = read_state(resolved[1], resolved[2])
-    refuse_sharded(state, f"the snapshot under {sdir}")
-    _apply_deltas(state, sdir)
-    return VectorStore.from_state(state, device=device)
+    if not state.get("sharded"):  # sharded stores write no deltas
+        _apply_deltas(state, sdir)
+    return store_from_state(state, device=device, mesh=mesh)
 
 
 def list_persisted(root: str | os.PathLike) -> List[str]:
@@ -431,9 +447,10 @@ class PersistenceManager:
         with save_lock:
             return delete_persisted(name, self.root)
 
-    def open_store(self, name: str) -> Optional[VectorStore]:
-        """Load a snapshot if present and start tracking the store."""
-        store = load_store(name, self.root, device=self.device)
+    def open_store(self, name: str, mesh=None):
+        """Load a snapshot if present (a sharded one onto ``mesh``) and
+        start tracking the store."""
+        store = load_store(name, self.root, device=self.device, mesh=mesh)
         if store is not None:
             self.track(store)
             with self._lock:
@@ -441,7 +458,8 @@ class PersistenceManager:
                 # continue the existing delta chain where it left off
                 self._delta_seq[name] = len(_delta_files(
                     _store_dir(self.root, name)))
-            store._touched_reliable = True
+            if isinstance(store, VectorStore):
+                store._touched_reliable = True
         return store
 
     # -- syncing -----------------------------------------------------------
@@ -459,10 +477,12 @@ class PersistenceManager:
         # lands during the save moves store.version past it, so the next
         # cycle syncs again instead of marking unsaved state as synced
         ver = store.version
-        touched = len(store._touched_rows)
         seq = self._delta_seq.get(name, 0)
+        local = isinstance(store, VectorStore)
+        touched = len(store._touched_rows) if local else 0
         use_delta = (
-            store._touched_reliable
+            local
+            and store._touched_reliable
             and not store._contig
             and 0 < touched <= max(1, int(self.MAX_DELTA_FRACTION
                                           * max(store.count, 1)))
@@ -497,7 +517,7 @@ class PersistenceManager:
             pending = [
                 s for s in self._tracked.values()
                 if s.version != self._synced_version.get(s.name, -1)
-                or s._calib.dirty
+                or isinstance(s, VectorStore) and s._calib.dirty
             ]
         for store in pending:
             self._sync_store(store)

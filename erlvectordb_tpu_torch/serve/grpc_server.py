@@ -18,8 +18,8 @@ rebuild's parity-plus frontend (ROADMAP #13).  Design points:
     they arrive and replies are yielded as device batches complete —
     out-of-order, correlated by the echoed ``seq`` field (the gRPC
     analogue of MCP's pipelined out-of-order JSON-RPC ids).
-  * ``CreateStore(distributed=true)`` answers UNIMPLEMENTED until the
-    cluster layer is ported (ROADMAP Queue A item 2).
+  * ``CreateStore(distributed=true)`` creates a store sharded over the
+    Database's cluster mesh (parallel/).
   * Auth: ``authorization: Bearer <token>`` call metadata, validated
     against the built-in OAuth 2.1 server with the same read/write/admin
     scope classes as the MCP tool table (serve/tools.py,
@@ -37,7 +37,6 @@ from typing import Optional
 
 import numpy as np
 
-from erlvectordb_tpu_torch.api import CLUSTER_NOT_PORTED
 from erlvectordb_tpu_torch.utils.metrics import metrics
 
 logger = logging.getLogger("evdb.grpc")
@@ -200,16 +199,17 @@ class GrpcServer:
 
     def CreateStore(self, request, context):
         self._auth(context, "CreateStore")
-        if request.distributed:
-            context.abort(grpc.StatusCode.UNIMPLEMENTED, CLUSTER_NOT_PORTED)
         try:
             kwargs = {}
             if request.metric:
                 kwargs["metric"] = request.metric
             if request.dtype:
                 kwargs["dtype"] = request.dtype
-            self.db.create_store(request.name, request.dimension or None,
-                                 **kwargs)
+            dim = request.dimension or None
+            if request.distributed:
+                self.db.create_distributed_store(request.name, dim, **kwargs)
+            else:
+                self.db.create_store(request.name, dim, **kwargs)
             metrics.inc("grpc.create_store")
             return self.pb.StatusReply(ok=True, message=request.name)
         except Exception as e:  # noqa: BLE001

@@ -16,7 +16,7 @@ Capability parity with the reference's rest_api_server
   GET  /api/v1/ports/status, /api/v1/ports/service/:name     (:299-314,469-497)
   GET  /api/v1/cluster/status                                (:362-380)
   POST /api/v1/cluster/join                                  (:382-410)
-       (both 501 until the cluster layer is ported: ROADMAP Queue A item 2)
+       (join: 501 until multi-process is ported: ROADMAP Queue A item 3)
   CORS on every response + OPTIONS preflight                 (:412-413,599-605)
 
 Bearer auth per request, scope-checked (read for GET/search, write for
@@ -34,7 +34,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from erlvectordb_tpu_torch.api import CLUSTER_NOT_PORTED, Database
+from erlvectordb_tpu_torch.api import Database
 from erlvectordb_tpu_torch.core.registry import StoreExists, StoreNotFound
 from erlvectordb_tpu_torch.core.store import DimensionMismatch, InvalidVector
 from erlvectordb_tpu_torch.infra.health import HealthCheckServer
@@ -179,7 +179,7 @@ class RestServer:
                             return self._reply(404, {"error": "service not found"})
                         return self._reply(200, {"service": parts[4], "port": port})
                     if parts == ["api", "v1", "cluster", "status"]:
-                        return self._reply(501, {"error": CLUSTER_NOT_PORTED})
+                        return self._reply(200, outer.db.get_cluster_stats())
                     if parts == ["api", "v1", "backups"]:
                         return self._reply(200, {"backups": outer.db.list_backups()})
                     return self._reply(404, {"error": "not found"})
@@ -268,7 +268,14 @@ class RestServer:
                     if parts == ["api", "v1", "cluster", "join"]:
                         if self._require("admin") is None:
                             return
-                        return self._reply(501, {"error": CLUSTER_NOT_PORTED})
+                        try:
+                            stats = outer.db.join_cluster(
+                                body.get("coordinator_address"),
+                                body.get("num_processes"),
+                                body.get("process_id"))
+                        except NotImplementedError as e:
+                            return self._reply(501, {"error": str(e)})
+                        return self._reply(200, stats)
                     if (len(parts) == 5 and parts[:3] == ["api", "v1", "stores"]
                             and parts[4] == "backup"):
                         if self._require("admin") is None:

@@ -5,9 +5,10 @@ restore / export / import, compression and OAuth verbs, the recall_target
 batch tool, compressed snapshots, warmup on start, and the streaming build.
 
 The cases of tests/test_api.py that need a store distributed over a device
-mesh (create_distributed_store, distribute_store, sharded backup and export,
-distributed visibility and routing, name shadowing against a distributed
-store) wait for the distribution layer (ROADMAP Queue A)."""
+mesh (create_distributed_store, distribute_store, sharded persistence,
+backup and export, distributed visibility and routing, name shadowing
+against a distributed store) run on the port's cluster over 8 logical CPU
+devices (the ``eight_cpu_devices`` fixture)."""
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 from erlvectordb_tpu_torch.api import Database
 from erlvectordb_tpu_torch.core.registry import StoreNotFound
 from erlvectordb_tpu_torch.infra.config import load_config
+from erlvectordb_tpu_torch.parallel.mesh import cpu_device_count, set_cpu_device_count
 
 CPU = torch.device("cpu")
 
@@ -205,3 +207,126 @@ class TestStreamingFacade:
         assert hits[0][0] == "17"
         with pytest.raises(Exception, match="exists"):
             db.create_store_streaming("stream-f", chunks(), n=300, dim=32)
+
+
+# ------------------------------------------------ distributed (8 CPU devices)
+
+
+@pytest.fixture
+def eight_cpu_devices():
+    held = cpu_device_count()
+    set_cpu_device_count(8)
+    yield
+    set_cpu_device_count(held)
+
+
+@pytest.mark.usefixtures("eight_cpu_devices")
+class TestDistributedVerbs:
+    def test_create_distributed_and_search(self, db, rng):
+        stats = db.create_distributed_store("dist1", dtype="int8")
+        assert stats["shards"] == 8
+        data = rng.standard_normal((100, 16)).astype(np.float32)
+        store = db.any_store("dist1")
+        store.insert_batch([f"v{i}" for i in range(100)], data)
+        assert store.search(data[7], k=1)[0][0] == "v7"
+        loc = db.get_store_location("dist1")
+        assert loc["shards"] == stats["shards"]
+        assert db.get_cluster_stats()["stores"]["dist1"] == 100
+        assert len(db.get_cluster_nodes()) == 8
+
+    def test_nprobe_on_distributed_store_tool_error(self, db, rng):
+        """The MCP nprobe fast path surfaces the domain ValueError for
+        distributed stores, not a TypeError from the store signature."""
+        from erlvectordb_tpu_torch.serve.tools import call_tool
+
+        db.create_distributed_store("distnp", dtype="int8")
+        data = rng.standard_normal((50, 16)).astype(np.float32)
+        db.any_store("distnp").insert_batch([f"v{i}" for i in range(50)], data)
+        with pytest.raises(ValueError, match="nprobe requires"):
+            call_tool(db, "search_vectors", {
+                "store": "distnp", "vector": data[0].tolist(), "k": 3,
+                "nprobe": 4})
+
+    def test_distribute_existing_store(self, db, rng):
+        db.create_store("local1")
+        data = rng.standard_normal((50, 8)).astype(np.float32)
+        db.insert_batch("local1", [f"v{i}" for i in range(50)], data)
+        stats = db.distribute_store("local1")
+        assert stats["count"] == 50
+        # moved out of the local registry but still visible as a store
+        assert db.registry.get_or_none("local1") is None
+        assert "local1" in db.list_stores()
+        assert db.any_store("local1").search(data[3], k=1)[0][0] == "v3"
+
+    def test_distributed_persistence_roundtrip(self, db, rng):
+        db.create_distributed_store("dist2")
+        data = rng.standard_normal((30, 8)).astype(np.float32)
+        db.any_store("dist2").insert_batch([f"v{i}" for i in range(30)], data)
+        assert db.persistence.sync("dist2")
+        db2 = Database(db.config, device=CPU).start()
+        try:
+            sh = db2.any_store("dist2")
+            assert sh.count == 30
+            assert sh.search(data[9], k=1)[0][0] == "v9"
+        finally:
+            db2.persistence.close()
+
+
+@pytest.mark.usefixtures("eight_cpu_devices")
+class TestDistributedBackup:
+    def test_backup_restore_sharded_store(self, db, rng):
+        db.create_distributed_store("dsb")
+        data = rng.standard_normal((60, 8)).astype(np.float32)
+        db.any_store("dsb").insert_batch(
+            [f"v{i}" for i in range(60)], data, [{"i": i} for i in range(60)])
+        path = db.backup_store("dsb", "snap")
+        stats = db.restore_store(path.rsplit("/", 1)[-1], new_name="dsb_restored")
+        assert stats["count"] == 60
+        restored = db.any_store("dsb_restored")
+        assert restored.search(data[7], k=1)[0][0] == "v7"
+        assert restored.get("v3")[1] == {"i": 3}
+
+    def test_export_sharded_store(self, db, rng, tmp_path):
+        db.create_distributed_store("dse")
+        data = rng.standard_normal((20, 4)).astype(np.float32)
+        db.any_store("dse").insert_batch([f"v{i}" for i in range(20)], data)
+        path = str(tmp_path / "dse.json")
+        db.export_store("dse", path)
+        assert db.import_store(path, new_name="dse_imported")["count"] == 20
+
+
+@pytest.mark.usefixtures("eight_cpu_devices")
+class TestDistributedVisibility:
+    def test_list_and_delete_distributed(self, db, rng):
+        db.create_distributed_store("dvis")
+        assert "dvis" in db.list_stores()
+        assert db.delete_store("dvis")
+        assert "dvis" not in db.list_stores()
+        assert not db.delete_store("dvis")
+
+
+@pytest.mark.usefixtures("eight_cpu_devices")
+class TestFacadeRoutesDistributed:
+    def test_all_verbs_on_distributed_store(self, db, rng):
+        db.create_distributed_store("dall")
+        data = rng.standard_normal((30, 8)).astype(np.float32)
+        db.insert_batch("dall", [f"v{i}" for i in range(30)], data)
+        db.insert("dall", "extra", np.ones(8, np.float32), {"t": 1})
+        assert db.get_stats("dall")["count"] == 31
+        assert db.search("dall", data[5], k=1)[0][0] == "v5"
+        assert db.delete("dall", "extra")
+        assert len(db.get_all_vectors("dall")) == 30
+        assert db.sync("dall")
+
+
+@pytest.mark.usefixtures("eight_cpu_devices")
+class TestNameShadowing:
+    def test_local_vs_distributed_name_collision(self, db):
+        from erlvectordb_tpu_torch.core.registry import StoreExists
+
+        db.create_distributed_store("shadow1")
+        with pytest.raises(StoreExists):
+            db.create_store("shadow1")
+        db.create_store("shadow2")
+        with pytest.raises(StoreExists):
+            db.create_distributed_store("shadow2")

@@ -338,7 +338,7 @@ class TestServingValidation:
 
     def test_database_calibrate_store(self):
         """Database.calibrate_store and the search kwargs on the facade; a
-        store that is not a VectorStore gets the domain error."""
+        distributed store gets the domain error."""
         from erlvectordb_tpu_torch.api import Database
         from erlvectordb_tpu_torch.infra.config import load_config
 
@@ -353,5 +353,41 @@ class TestServingValidation:
         assert db.search("r", held[0], k=3, nprobe=4)
         assert len(db.search_batch("r", held[:2], k=3,
                                    recall_target=min(curve.values()))) == 2
+        db.create_distributed_store("d", dim=16)
+        db.insert_batch("d", ["a", "b"], data[:2])
         with pytest.raises(ValueError, match="distributed"):
-            db._check_nprobe(object())
+            db._check_nprobe(db.any_store("d"))
+        with pytest.raises(ValueError, match="nprobe requires"):
+            db.search("d", held[0], k=3, nprobe=4)
+
+
+class TestEPCellProbeExact:
+    def test_empty_index_raises(self):
+        """tests/test_calibration.py's case on the port: an EP cell probe
+        with no live row over 8 logical CPU devices refuses to
+        self-calibrate."""
+        from erlvectordb_tpu_torch.parallel.ep_cell_probe import EPCellProbeIndex
+        from erlvectordb_tpu_torch.parallel.mesh import (
+            cpu_device_count,
+            cpu_devices,
+            make_mesh,
+            set_cpu_device_count,
+        )
+
+        held = cpu_device_count()
+        set_cpu_device_count(8)
+        try:
+            devs = cpu_devices()
+            mesh = make_mesh(n_data=len(devs), n_replica=1, devices=devs)
+        finally:
+            set_cpu_device_count(held)
+        n_cells = 8 * len(devs)
+        idx = EPCellProbeIndex(
+            mesh, np.full((n_cells, 8), 1e6, np.float32),
+            np.zeros((n_cells * 4, 8), np.int8),
+            np.ones(n_cells * 4, np.float32),
+            np.zeros(n_cells * 4, np.float32),
+            np.zeros(n_cells * 4, bool),
+            np.full(n_cells * 4, -1, np.int64), 4)
+        with pytest.raises(ValueError):
+            idx.calibrate_nprobe(k=5)

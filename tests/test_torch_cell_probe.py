@@ -679,3 +679,17 @@ def test_spilled_streaming_index_dedups():
     assert [r[0] for r in rows] == list(range(16))
     for r in rows:
         assert len(set(r.tolist())) == len(r)
+
+
+def test_nprobe_on_distributed_store_is_clean_error():
+    """tests/test_cell_probe.py's case on the port's Database: nprobe
+    against a distributed store raises the domain error, not a TypeError."""
+    from erlvectordb_tpu_torch.api import Database
+    from erlvectordb_tpu_torch.infra.config import load_config
+
+    db = Database(load_config(overrides={"persistence_enabled": False},
+                              env={}), device=CPU)
+    db.create_distributed_store("dshard", dim=8)
+    db.insert("dshard", "a", np.ones(8, np.float32))
+    with pytest.raises(ValueError, match="distributed"):
+        db.search("dshard", np.ones(8, np.float32), k=1, nprobe=4)

@@ -12,7 +12,7 @@ was saved (both packages answer through their exact scans on the CPU; the
 the store change tracking is the JAX store's, a delta restores the touched
 rows' key plane, second-stage codes and cell slots, a Database with the
 default configuration starts and recovers its stores bit for bit, and
-sharded snapshots are refused.
+sharded and dim-sharded snapshots and backups cross between the packages.
 """
 
 import json
@@ -350,21 +350,52 @@ def test_persistence_verbs_and_tools(tmp_path):
 
 @pytest.mark.parametrize("flag", ["sharded", "dim_sharded"])
 def test_sharded_snapshots_and_backups_refused(tmp_path, flag):
-    """A JAX snapshot or backup of a store sharded over a device mesh is
-    refused with an error naming the distribution layer, not loaded as a
-    single-device store."""
-    meta = {"name": "sh", "dim": 8, "metric": "cosine", flag: True}
-    tsnap.write_pair(tmp_path / "sh", "state", {}, dict(meta))
-    with pytest.raises(tsnap.UnsupportedSnapshot, match="Queue A, distribution"):
-        tsnap.load_store("sh", tmp_path, device=CPU)
-    import zipfile
+    """A JAX snapshot and a JAX backup of a store sharded over a device mesh
+    (rows over a 4 x 2 mesh, or the feature dimension over 4 devices) load
+    in the port onto the logical CPU devices, and the port's snapshot and
+    backup of it load in JAX: every load answers with the ids of the JAX
+    store that was saved.  (A dim-sharded backup restores as a
+    single-device store in both packages.)"""
+    from erlvectordb_tpu.parallel import ShardedVectorStore as JSharded
+    from erlvectordb_tpu.parallel import make_mesh as jmake_mesh
+    from erlvectordb_tpu.parallel.dim_sharded import DimShardedVectorStore as JDim
+    from erlvectordb_tpu.parallel.dim_sharded import make_dim_mesh as jdim_mesh
+    from erlvectordb_tpu_torch.parallel import mesh as tmesh
 
-    path = tmp_path / "sh_b_1.backup"
-    with zipfile.ZipFile(path, "w") as z:
-        z.writestr("manifest.json", json.dumps(meta))
-        z.writestr("state.npz", b"")
-    with pytest.raises(tsnap.UnsupportedSnapshot, match="Queue A, distribution"):
-        tbackup.restore_store(path, device=CPU)
+    x, q = _corpus(31, 400), _corpus(32, 12)
+    ids = [f"v{i}" for i in range(len(x))]
+    held = tmesh.cpu_device_count()
+    tmesh.set_cpu_device_count(8)
+    try:
+        if flag == "sharded":
+            jm = jmake_mesh(n_data=4, n_replica=2)
+            j = JSharded("sh", jm, metric="euclidean", dtype="int8")
+            j.insert_batch(ids, x, [{"i": i} for i in range(len(x))])
+            tm = tmesh.make_mesh(n_data=4, n_replica=2,
+                                 devices=tmesh.cpu_devices())
+        else:
+            jm = tm = None
+            j = JDim.from_matrix("sh", x, mesh=jdim_mesh(4), ids=ids,
+                                 metric="euclidean")
+        j.delete("v3")
+        want = _ids(j.search_batch(q, k=5))
+        jsnap.save_store(j, tmp_path / "j")
+        t = tsnap.load_store("sh", tmp_path / "j", device=CPU, mesh=tm)
+        assert type(t).__name__ == type(j).__name__ and t.count == j.count
+        assert _ids(t.search_batch(q, k=5)) == want
+        tb = tbackup.restore_store(
+            jbackup.backup_store(j, "b", tmp_path / "jb"), device=CPU, mesh=tm)
+        assert _ids(tb.search_batch(q, k=5)) == want
+        # the port's writes, read by the JAX package
+        tsnap.save_store(t, tmp_path / "t")
+        j2 = jsnap.load_store("sh", tmp_path / "t", mesh=jm)
+        assert type(j2).__name__ == type(j).__name__
+        assert _ids(j2.search_batch(q, k=5)) == want
+        j3 = jbackup.restore_store(
+            tbackup.backup_store(t, "b", tmp_path / "tb"), mesh=jm)
+        assert _ids(j3.search_batch(q, k=5)) == want
+    finally:
+        tmesh.set_cpu_device_count(held)
 
 
 def test_deleted_store_stays_deleted_after_restart(tmp_path):

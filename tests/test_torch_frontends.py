@@ -13,7 +13,8 @@ bit for bit).  Within the port, the MCP and gRPC batches equal the
 in-process ``Database.search_batch`` bit for bit, and the single-query
 frontends equal its rows to rtol 1e-6.  Also: either package's client and
 stdio bridge against the other package's server, the port's health check
-naming the CPU, the cluster verbs refused, a graceful stop that frees every
+naming the CPU, the cluster verbs (status, a distributed store over
+gRPC, join refused), a graceful stop that frees every
 port and a restart that answers the same batch, and ``cli serve`` as a
 process.
 """
@@ -321,24 +322,47 @@ def test_health_reports_the_cpu(apps):
     assert dev["details"]["device"] == "cpu"
 
 
-def test_cluster_verbs_are_refused(apps):
-    app = apps["torch"]
+def test_cluster_verbs_are_refused(apps, corpus, queries):
+    """The cluster verbs over the frontends.  REST cluster status answers
+    200 with the JAX server's keys; join answers 501 naming ROADMAP Queue A
+    item 3 (multi-process); gRPC CreateStore(distributed=true) creates a
+    sharded store on either server, InsertBatch fills it, and its
+    SearchBatch answers as the JAX server's does."""
+    app, japp = apps["torch"], apps["jax"]
     tok = token(app)
     status, body = http("GET", rest(app, "/api/v1/cluster/status"), tok=tok)
-    assert status == 501 and "Queue A item 2" in body["error"]
+    jstatus, jbody = http("GET", rest(japp, "/api/v1/cluster/status"),
+                          tok=token(japp))
+    assert status == 200 == jstatus and set(body) == set(jbody)
+    assert body["total_devices"] == 1 and body["data_shards"] == 1
     status, body = http("POST", rest(app, "/api/v1/cluster/join"),
                         {"coordinator_address": "127.0.0.1:1"}, tok)
-    assert status == 501 and "Queue A item 2" in body["error"]
-    with channel(app) as ch:
-        call = ch.unary_unary("/evdb.ErlVectorDB/CreateStore",
-                              request_serializer=pb.CreateStoreRequest.SerializeToString,
-                              response_deserializer=pb.StatusReply.FromString)
-        with pytest.raises(grpc.RpcError) as e:
-            call(pb.CreateStoreRequest(name="dist", dimension=8, distributed=True),
-                 timeout=30, metadata=[("authorization", f"Bearer {tok}")])
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "Queue A item 2" in e.value.details()
-    assert "dist" not in app.db.list_stores()
+    assert status == 501 and "Queue A item 3" in body["error"]
+    rows = corpus[:1024]
+    for a, pbm in ((app, pb), (japp, jax_pb)):
+        auth = [("authorization", f"Bearer {token(a)}")]
+        with channel(a) as ch:
+            create = ch.unary_unary(
+                "/evdb.ErlVectorDB/CreateStore",
+                request_serializer=pbm.CreateStoreRequest.SerializeToString,
+                response_deserializer=pbm.StatusReply.FromString)
+            r = create(pbm.CreateStoreRequest(name="dist", dimension=DIM,
+                                              dtype="int8", distributed=True),
+                       timeout=30, metadata=auth)
+            assert r.ok, r
+            insert = ch.unary_unary(
+                "/evdb.ErlVectorDB/InsertBatch",
+                request_serializer=pbm.InsertBatchRequest.SerializeToString,
+                response_deserializer=pbm.StatusReply.FromString)
+            r = insert(pbm.InsertBatchRequest(
+                store="dist", ids=[str(i) for i in range(len(rows))],
+                vectors_f32=rows.astype("<f4").tobytes(), dim=DIM),
+                timeout=60, metadata=auth)
+            assert r.ok, r
+    assert type(app.db.any_store("dist")).__name__ == "ShardedVectorStore"
+    assert "dist" in app.db.list_stores()
+    assert_cross_package("s8", grpc_batch(app, "dist", queries),
+                         grpc_batch(japp, "dist", queries, jax_pb))
 
 
 def test_graceful_stop_frees_ports_and_restart_answers_alike(tmp_path, corpus,

@@ -89,3 +89,13 @@ def test_app_and_cli_import_and_serve_without_grpc():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["None", "True"]
+
+
+def test_walk_covers_the_distribution_modules():
+    """The mesh, the sharded and dim-sharded stores, the cluster manager,
+    the EP indexes and the dry run are among the modules loaded with jax
+    blocked and scanned for jax imports above."""
+    for name in ("parallel", "parallel.mesh", "parallel.sharded_store",
+                 "parallel.cluster", "parallel.dim_sharded", "parallel.ep_ivf",
+                 "parallel.ep_cell_probe", "parallel.dryrun"):
+        assert f"erlvectordb_tpu_torch.{name}" in MODULES, name

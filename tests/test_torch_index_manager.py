@@ -79,15 +79,29 @@ class TestRegistry:
 
     @pytest.mark.parametrize("itype", ["ep_ivf", "ep_cellprobe"])
     def test_distributed_types_fail_in_info(self, setup, itype):
-        """The mesh-sharded types are accepted descriptors whose build fails
-        into info.error (the distribution layer is not ported)."""
+        """The mesh-sharded types build over the logical CPU devices (4
+        here) with no error in info, and search like the other types: a
+        stored row finds itself."""
+        from erlvectordb_tpu_torch.parallel.mesh import (
+            cpu_device_count,
+            set_cpu_device_count,
+        )
+
         _, im, data = setup
-        im.create_index("ep", "s", itype)
-        info = im.build_index("ep")
-        assert not info["built"] and not info["building"]
-        assert "distribution layer" in info["error"]
-        with pytest.raises(IndexError_, match="not built"):
-            im.search("ep", data[0], k=1)
+        held = cpu_device_count()
+        set_cpu_device_count(4)
+        try:
+            im.create_index("ep", "s", itype,
+                            {"n_cells": 16, "cell_rows": 24, "cell_cap": 32,
+                             "nprobe": 16, "iters": 4})
+            info = im.build_index("ep")
+        finally:
+            set_cpu_device_count(held)
+        assert info["built"] and not info["building"] and info["error"] is None
+        assert info["stats"]["kind"] == itype and info["stats"]["shards"] == 4
+        assert im.search("ep", data[7], k=3)[0][0] == "v7"
+        with pytest.raises(IndexError_, match="not found"):
+            im.search("ghost", data[0], k=1)
 
 
 class TestBuilds:

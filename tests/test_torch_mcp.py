@@ -267,23 +267,32 @@ def test_tools_list_is_the_ported_subset(pair):
 
 
 def test_persistence_is_refused(tmp_path):
-    """Persistence runs with the default configuration; what it still
-    refuses is a snapshot of a store sharded over a device mesh, with an
-    error that names the distribution layer, instead of a single-device
-    load."""
-    from erlvectordb_tpu_torch.persist.snapshot import (
-        UnsupportedSnapshot,
-        write_pair,
-    )
+    """Persistence runs with the default configuration, and a snapshot of a
+    store sharded over a device mesh (the JAX package's format) is no
+    longer refused: the port's Database starts with it as a distributed
+    store on its cluster mesh and answers as the JAX store did."""
+    from erlvectordb_tpu.parallel import ShardedVectorStore as JSharded
+    from erlvectordb_tpu.parallel import make_mesh as jmake_mesh
+    from erlvectordb_tpu.persist.snapshot import save_store
+    from erlvectordb_tpu_torch.parallel import ShardedVectorStore
 
     cfg = load_config(overrides={"persistence_dir": str(tmp_path / "data"),
                                  "backup_dir": str(tmp_path / "backups"),
                                  "sync_interval": 9999}, env={})
     Database(cfg, device=torch.device("cpu")).start().stop()
-    write_pair(tmp_path / "data" / "sh", "state", {},
-               {"name": "sh", "dim": DIM, "sharded": True, "shards": 8})
-    with pytest.raises(UnsupportedSnapshot, match="Queue A, distribution"):
-        Database(cfg, device=torch.device("cpu")).start()
+    x = np.random.default_rng(5).standard_normal((60, DIM)).astype(np.float32)
+    j = JSharded("sh", jmake_mesh(n_data=1, n_replica=1))
+    j.insert_batch([f"r{i}" for i in range(60)], x)
+    save_store(j, tmp_path / "data")
+    db = Database(cfg, device=torch.device("cpu")).start()
+    try:
+        got = db.any_store("sh")
+        assert isinstance(got, ShardedVectorStore) and got.count == 60
+        assert "sh" in db.list_stores()
+        assert ([h[0] for h in db.search("sh", x[7], k=3)]
+                == [h[0] for h in j.search(x[7], k=3)])
+    finally:
+        db.stop()
 
 
 def test_int4_store_over_mcp(pair, data):
