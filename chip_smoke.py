@@ -80,6 +80,27 @@ Phases, each printing one JSON line of its own numbers:
               then (l) every index saved (save_all), loaded into a fresh
               IndexManager (load_indexes) and searched again: the same
               answers;
+              (q) the same manager's default cellprobe past HIER_MIN_CELLS:
+              config 4's recipe drawn on the card at 16,777,216 x 128 (the
+              exact f32 top-10 of 1024 held-out points gathered while it is
+              drawn), a float32 euclidean store adopted by a card Database
+              (persistence in a temp directory) behind MCPServer;
+              create_index(type="cellprobe") with no parameters and
+              build_index over MCP (hierarchical: 174,763 cells in
+              supercells of 240 children; the build's phase seconds), 256
+              search_index calls each equal to a direct search (recall@10,
+              median and p99 ms), the hierarchical route against the flat
+              one on the same cells by nprobe (recall@10, route and search
+              ms; overlap@10 >= 0.85 at nprobe 16, euclidean and cosine),
+              calibrate_index and recall_target 0.95 over MCP, save_all /
+              load_indexes (the same answers, still hierarchical); B7 int8
+              against its plain version at (q)'s shape (1024 queries x 32
+              probes, padding cells among them) -> B7 gather_dots int8;
+              (c1), (c2) configs 1 and 2 (bench.py:299-348): 10k x 128 f32
+              cosine top-5 -> B4 fused_scan f32, overlap@5 with the exact
+              f32 scan >= 0.99; 100k x 384 int8 euclidean top-10 -> B4
+              fused_scan int8, overlap@10 with the plain exact int8 scan
+              >= 0.99; batch ms and launches;
   8. durability (l), after (f-rq): stores (a), (h) (after its 1,000 MCP
               inserts) and the rq_m = 9 store of (f-rq), each adopted by a
               Database with the default configuration (persistence on):
@@ -235,6 +256,20 @@ J_OPQ = dict(m=8, k=256, iters=15, opq_iters=4, max_train=200_000)
 J_C, J_BATCHES = 2048, 4   # adc_search_fused's pool; timed batches
 K_TYPES = ("pq", "opq", "int8", "ivf", "cellprobe", "ep_ivf",
            "ep_cellprobe")   # (k)'s index types; the last two are (n-ep)
+# (q): the index manager's default cellprobe past HIER_MIN_CELLS over MCP.
+# Config 4's recipe (bench.py:60-80, make_corpus(intrinsic_dim=20): 1024
+# centres in 20-d, noise 0.35, projected to 128-d, 0.05 isotropic noise)
+# drawn on the card at 16,777,216 rows (174,763 cells of 96 rows) in
+# 1,048,576-row chunks, and 1024 held-out points from a stream of their
+# own; 256 of them served over MCP, all 1024 in the route sweep; B7-int8 at
+# 1024 queries x 32 probes with a padding cell probed every 8th query
+Q_ROWS, Q_CHUNK, Q_HELD, Q_SEED = 16_777_216, 1_048_576, 1024, 15
+Q_SERVED, Q_NPROBE, Q_GATE_NPROBE = 256, (8, 16, 32, 64, 128, 256), 16
+Q_TARGET, Q_OVERLAP, Q_B7_NPROBE = 0.95, 0.85, 32
+# configs 1 and 2 (bench.py:299-348) on the card: (rows, dim, metric, dtype,
+# k, batch); queries are the batch's first corpus rows, as in bench.py
+SMALL_CONFIGS = {"c1": (10_000, 128, "cosine", "float32", 5, 256),
+                 "c2": (100_000, 384, "euclidean", "int8", 10, 512)}
 # (l): rows inserted into and deleted from (a), (h) and (f-rq) between their
 # full base and the sync after it; (l-c): the rows compressed on the card
 L_NEW = L_DELETE = 1_000
@@ -824,7 +859,7 @@ def batch_ids(client, store, qs, **probe):
     return r["ids"]
 
 
-def exact_rows(corpus_dev, queries, metric):
+def exact_rows(corpus_dev, queries, metric, k=K):
     """Exact f32 top-k row indices on the card (the recall reference)."""
     import torch
 
@@ -837,7 +872,7 @@ def exact_rows(corpus_dev, queries, metric):
         score = dots / corpus_dev.norm(dim=1)[None, :]
     else:  # euclidean, up to the per-query constant |q|^2
         score = 2.0 * dots - (corpus_dev * corpus_dev).sum(dim=1)[None, :]
-    return torch.topk(score, K, dim=1).indices.cpu().numpy()
+    return torch.topk(score, k, dim=1).indices.cpu().numpy()
 
 
 def plain_exact_ids(store, queries):
@@ -2830,32 +2865,36 @@ def multiprocess_phase(corpus, queries, n5_held, n5_gt, launches, smi):
 # -------------------------------------------------------------------- index
 
 
-def manifold(seed: int):
-    """bench.py::_manifold_gen with torch generators on the card: 4096
-    centres in a 48-d latent space, a latent -> 768 projection of N(0, 1) /
-    sqrt(48) entries, latent noise 0.35 and 0.05 isotropic noise in 768-d.
-    Returns chunk(stream, rows): the rows of one seeded stream."""
+def manifold(seed: int, centres: int = I_CENTRES, latent: int = I_LATENT,
+             dim: int = I_DIM, noise: float = I_NOISE,
+             noise_d: float = I_NOISE_D):
+    """bench.py's manifold corpora with torch generators on the card:
+    ``centres`` N(0, 1) centres in a ``latent``-d space, a latent -> ``dim``
+    projection of N(0, 1) / sqrt(latent) entries, latent noise ``noise`` and
+    ``noise_d`` isotropic noise in ``dim``-d (defaults: _manifold_gen's 4096
+    centres in 48-d to 768-d, 0.35 and 0.05).  Returns chunk(stream, rows):
+    the rows of one seeded stream."""
     import torch
 
     from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed)
-    centres = torch.randn((I_CENTRES, I_LATENT), generator=g, device=DEVICE)
-    proj = (torch.randn((I_LATENT, I_DIM), generator=g, device=DEVICE)
-            / math.sqrt(I_LATENT))
+    cent = torch.randn((centres, latent), generator=g, device=DEVICE)
+    proj = (torch.randn((latent, dim), generator=g, device=DEVICE)
+            / math.sqrt(latent))
 
     def chunk(stream: int, rows: int):
         gs = torch.Generator(device=DEVICE)
         gs.manual_seed((seed << 32) + stream + 1)
-        z = centres[torch.randint(0, I_CENTRES, (rows,), generator=gs,
-                                  device=DEVICE)]
-        z = z + I_NOISE * torch.randn((rows, I_LATENT), generator=gs,
-                                      device=DEVICE)
+        z = cent[torch.randint(0, centres, (rows,), generator=gs,
+                               device=DEVICE)]
+        z = z + noise * torch.randn((rows, latent), generator=gs,
+                                    device=DEVICE)
         with full_f32_matmul():
             x = z @ proj
-        return x + I_NOISE_D * torch.randn((rows, I_DIM), generator=gs,
-                                           device=DEVICE)
+        return x + noise_d * torch.randn((rows, dim), generator=gs,
+                                         device=DEVICE)
 
     return chunk
 
@@ -3303,6 +3342,292 @@ def index_manager_phase(data, held, gt, launches):
                              f"gather_dots[int8]: {launches['k']}")
 
 
+def q_draw(chunk, held):
+    """(q)'s corpus on the card, a chunk at a time, and the exact f32
+    euclidean top-10 of the held-out points over it (2 q.x - |x|^2, full
+    f32 products).  Returns (rows [Q_ROWS, J_DIM] f32, ground truth [Q_HELD,
+    K] rows)."""
+    import torch
+
+    from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
+
+    x = torch.empty((Q_ROWS, J_DIM), dtype=torch.float32, device=DEVICE)
+    best = torch.full((Q_HELD, K), -float("inf"), device=DEVICE)
+    rows = torch.full((Q_HELD, K), -1, dtype=torch.int64, device=DEVICE)
+    for i in range(Q_ROWS // Q_CHUNK):
+        c = chunk(i, Q_CHUNK)
+        x[i * Q_CHUNK:(i + 1) * Q_CHUNK] = c
+        with full_f32_matmul():
+            sc = 2.0 * (held @ c.T) - (c * c).sum(dim=1)[None, :]
+        s, r = torch.topk(sc, K, dim=1)
+        best, sel = torch.topk(torch.cat([best, s], 1), K, dim=1)
+        rows = torch.gather(torch.cat([rows, r + i * Q_CHUNK], 1), 1, sel)
+    return x, rows.cpu().numpy()
+
+
+def q_routes(idx, qnp, gt):
+    """(q)'s hierarchical index against its flat twin (the same device
+    tensors, no supercentroids: the padding cells hold no valid row, so the
+    flat route never probes them): recall@10 of both routes over nprobe on
+    the 1024 held-out points, the route's and the whole search's host and
+    device ms (torch.profiler), and overlap@10 of the two routes' answers at
+    Q_GATE_NPROBE in euclidean and cosine."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+    from erlvectordb_tpu_torch.core.cell_probe import CellProbeIndex
+
+    flat = CellProbeIndex(idx.centroids, idx.codes, idx.scales, idx.norms,
+                          idx.valid, idx.row_map, idx.cell_cap, device=DEVICE)
+    q = torch.from_numpy(qnp).to(DEVICE)
+    active = idx.valid.reshape(idx.n_cells, idx.cell_cap).any(dim=1)
+    routes = {"hier": idx, "flat": flat}
+    out = {name: {} for name in routes}
+    for name, ix in routes.items():
+        for p in Q_NPROBE:
+            def route():
+                return cp.route_probes(
+                    ix.centroids, q, active, metric="euclidean", nprobe=p,
+                    centroids_route=ix.cents_route, cn2=ix.cn2,
+                    super_route=ix.super_route, child_cap=ix.child_cap)
+            rows = ix.search(qnp, k=K, nprobe=p, metric="euclidean")[1]
+            r_prof = profile_calls(route, reps=3)
+            s_prof = profile_calls(lambda: ix.search(qnp, k=K, nprobe=p,
+                                                     metric="euclidean"),
+                                   reps=3)
+            out[name][p] = dict(
+                recall_at_10=overlap(rows, gt),
+                route_host_ms=r_prof["host_ms"],
+                route_device_ms=r_prof["device_ms"],
+                search_host_ms=s_prof["host_ms"],
+                search_device_ms=s_prof["device_ms"],
+                search_device_busy=s_prof["device_busy_share"])
+    agree = {}
+    for metric in ("euclidean", "cosine"):
+        h = idx.search(qnp, k=K, nprobe=Q_GATE_NPROBE, metric=metric)[1]
+        f = flat.search(qnp, k=K, nprobe=Q_GATE_NPROBE, metric=metric)[1]
+        agree[metric] = overlap(h, f)
+    return out, agree
+
+
+def hierarchy_phase(kernels, launches):
+    """(q): the index manager's default cellprobe past HIER_MIN_CELLS,
+    through MCP.  A 16,777,216 x 128 float32 euclidean store of config 4's
+    recipe drawn on the card, adopted by a card Database (persistence in a
+    temp directory) served by MCPServer.  With the launch counts zeroed:
+    create_index(type="cellprobe") with no parameters and build_index
+    (gates: hierarchical, >= HIER_MIN_CELLS cells before padding; the
+    build's phase seconds), 256 search_index calls at the default nprobe,
+    each equal to a direct IndexManager.search (recall@10, median and p99
+    ms), the hierarchical route against the flat one on the same cells
+    (q_routes), calibrate_index (exact) and search_index(recall_target=0.95)
+    over MCP, save_all / load_indexes into a fresh IndexManager (the same
+    answers, still hierarchical).  Then B7-int8 against its plain version
+    at (q)'s shape."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+    from erlvectordb_tpu_torch.api import Database
+    from erlvectordb_tpu_torch.core.cell_probe import CellProbeIndex
+    from erlvectordb_tpu_torch.core.index_manager import IndexManager
+    from erlvectordb_tpu_torch.core.store import VectorStore
+    from erlvectordb_tpu_torch.infra.config import load_config
+    from erlvectordb_tpu_torch.serve.mcp_server import MCPServer
+
+    t_phase = time.perf_counter()
+    chunk = manifold(SEED + Q_SEED, N_CENTRES, J_LATENT, J_DIM, NOISE, 0.05)
+    held = chunk(10 ** 6, Q_HELD)
+    (x, gt), draw_s = timed(lambda: q_draw(chunk, held))
+    qnp = held.cpu().numpy()
+    del held
+    store, store_s = timed(lambda: VectorStore.from_matrix(
+        "q", x, metric="euclidean", dtype="float32", device=DEVICE))
+    del x
+    tmp = tempfile.mkdtemp(prefix="evdb_q_")
+    db = Database(load_config(overrides={
+        "persistence_dir": os.path.join(tmp, "data"),
+        "backup_dir": os.path.join(tmp, "backups"), "sync_interval": 3600},
+        env={}), device=torch.device(DEVICE)).start()
+    server = None
+    name = "q_cellprobe"
+    try:
+        db.registry.adopt(store)
+        server = MCPServer(db, host="127.0.0.1", port=0).start()
+        token = db.oauth.grant_client_credentials(
+            "erlvectordb_client", "erlvectordb_secret")["access_token"]
+        cl = Client(server._sock.getsockname()[1], token)
+        served = qnp[:Q_SERVED]
+
+        def serve(**probe):
+            lat, ids, same, direct = [], [], 0, []
+            for q in served:
+                t0 = time.perf_counter()
+                r = cl.tool("search_index", name=name, vector=q.tolist(),
+                            k=K, **probe)
+                lat.append(time.perf_counter() - t0)
+                got = [(h["id"], h["distance"]) for h in r["results"]]
+                hits = db.indexes.search(name, q, k=K, **probe)
+                want = [(h[0], h[2]) for h in hits]
+                same += got == want
+                ids.append([h[0] for h in got])
+                direct.append(hits)
+            return dict(same_as_direct=same / len(served),
+                        recall_at_10=overlap(ids, gt[:Q_SERVED]),
+                        ms_median=1e3 * float(np.median(lat)),
+                        ms_p99=1e3 * float(np.percentile(lat, 99))), direct
+
+        def run():
+            res = {}
+            cl.tool("create_index", name=name, store="q", type="cellprobe")
+            info, res["build_call_s"] = timed(
+                lambda: cl.tool("build_index", name=name))
+            res["build"] = info
+            res["serve"], answers = serve()
+            idx = db.indexes._indexes[name].probe_artifact()
+            (res["routes"], res["route_overlap"]), res["routes_s"] = timed(
+                lambda: q_routes(idx, qnp, gt))
+            calib, res["calibrate_s"] = timed(
+                lambda: cl.tool("calibrate_index", name=name))
+            res["calibration"] = calib
+            curve = {int(p): r for p, r in calib["curve"].items()}
+            if calib["ceiling"] >= Q_TARGET:
+                picked = idx.nprobe_for(Q_TARGET, k=K, metric="euclidean")
+                res["target"], _ = serve(recall_target=Q_TARGET)
+                res["target"].update(
+                    nprobe=picked, calibrated_recall=curve[picked],
+                    held_out_recall_at_10=overlap(
+                        idx.search(qnp, k=K, nprobe=picked,
+                                   metric="euclidean")[1], gt))
+            else:   # the reference refuses a target above the ceiling
+                try:
+                    cl.tool("search_index", name=name,
+                            vector=served[0].tolist(), k=K,
+                            recall_target=Q_TARGET)
+                    refused = False
+                except RuntimeError as e:
+                    refused = "ceiling" in str(e)
+                res["target"] = dict(refused=refused, ceiling=calib["ceiling"])
+            idx_root = os.path.join(tmp, "saved")
+            saved, save_s = timed(lambda: db.indexes.save_all(idx_root))
+            fresh = IndexManager(db.registry)
+            loaded, load_s = timed(lambda: fresh.load_indexes(idx_root))
+            again = [fresh.search(name, q, k=K) for q in served]
+            res["reload"] = dict(
+                saved=saved, loaded=loaded, save_s=save_s, load_s=load_s,
+                bytes=dir_bytes(idx_root),
+                same_answers=float(np.mean([a == b for a, b in
+                                            zip(again, answers)])),
+                hierarchical=(fresh.get_index_info(name)["stats"]["hierarchical"]
+                              and fresh._indexes[name].probe_artifact()
+                              .super_route is not None))
+            del fresh
+            return res, idx
+
+        reset_launches()
+        (res, idx), path_s = timed(run)
+        launches["q"] = read_launches()
+        cl.sock.close()
+
+        qb = torch.from_numpy(qnp).to(DEVICE)
+        probe = cp.route_probes(
+            idx.centroids, qb, idx.valid.reshape(idx.n_cells, idx.cell_cap)
+            .any(dim=1), metric="euclidean", nprobe=Q_B7_NPROBE,
+            centroids_route=idx.cents_route, cn2=idx.cn2,
+            super_route=idx.super_route, child_cap=idx.child_cap)
+        pad_cell = int(torch.nonzero(~idx.valid.reshape(
+            idx.n_cells, idx.cell_cap).any(dim=1))[0])
+        probe[::8, -1] = pad_cell
+        gather_check(kernels, "int8", idx.codes.reshape(idx.n_cells,
+                                                        idx.cell_cap, -1),
+                     probe.to(torch.int32).contiguous(),
+                     qb.to(torch.bfloat16).float(), row="int8-q")
+        del probe, qb, idx
+        db.drop_index(name)
+    finally:
+        if server is not None:
+            server.stop()
+        db.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    build = res["build"]
+    emit("hierarchy", rows=Q_ROWS, dim=J_DIM, draw_s=draw_s,
+         store_build_s=store_s, path_s=path_s,
+         phase_s=time.perf_counter() - t_phase, padding_cell=pad_cell,
+         launches=launches["q"], **res)
+    st = build["stats"]
+    if not (build["built"] and st["hierarchical"]
+            and st["build"]["cells"] >= CellProbeIndex.HIER_MIN_CELLS):
+        raise AssertionError(f"(q) build: {build}")
+    if res["serve"]["same_as_direct"] < 1.0:
+        raise AssertionError(f"(q) search_index differs from a direct "
+                             f"IndexManager.search: {res['serve']}")
+    if min(res["route_overlap"].values()) < Q_OVERLAP:
+        raise AssertionError(f"(q) hierarchical and flat routes overlap@10 at "
+                             f"nprobe {Q_GATE_NPROBE}: {res['route_overlap']}")
+    tgt = res["target"]
+    if not (tgt.get("refused") or (tgt.get("calibrated_recall", 0) >= Q_TARGET
+                                   and tgt["same_as_direct"] == 1.0)):
+        raise AssertionError(f"(q) recall_target {Q_TARGET}: {tgt}")
+    if not (res["reload"]["same_answers"] == 1.0
+            and res["reload"]["hierarchical"]):
+        raise AssertionError(f"(q) save_all / load_indexes: {res['reload']}")
+    if not launches["q"].get("gather_dots", {}).get("int8"):
+        raise AssertionError(f"path q never launched gather_dots[int8]: "
+                             f"{launches['q']}")
+
+
+def small_configs_step(launches):
+    """Configs 1 and 2 (bench.py:299-348) on the card, each with the launch
+    counts zeroed just before it: c1, 10k x 128 f32 cosine top-5 (B4-f32,
+    under the pos path's tile gate), its overlap@5 with the exact f32 scan;
+    c2, 100k x 384 int8 euclidean top-10 (B4-int8), its overlap@10 with
+    the plain exact int8 scan of the same codes; the median ms of the
+    batch through the store API (synchronised) and the launches."""
+    import torch
+
+    from erlvectordb_tpu_torch.core import search as search_mod
+    from erlvectordb_tpu_torch.core.store import VectorStore
+
+    for name, (n, d, metric, dtype, k, batch) in SMALL_CONFIGS.items():
+        rng = np.random.default_rng(SEED)
+        centres = rng.standard_normal((N_CENTRES, d), dtype=np.float32)
+        x = centres[rng.integers(0, N_CENTRES, n)]
+        x += NOISE * rng.standard_normal((n, d), dtype=np.float32)
+        qs = x[:batch]
+        store = VectorStore.from_matrix(name, x, metric=metric, dtype=dtype,
+                                        device=DEVICE)
+        reset_launches()
+        ids = store.search_batch(qs, k=k)
+        secs = [timed(lambda: store.search_batch(qs, k=k))[1]
+                for _ in range(5)]
+        launches[name] = read_launches()
+        got = [[h[0] for h in hits] for hits in ids]
+        qd = torch.from_numpy(qs).to(DEVICE)
+        if dtype == "float32":
+            want = exact_rows(torch.from_numpy(x).to(DEVICE), qs, metric, k)
+            ref = "exact f32"
+        else:
+            _, rows = search_mod.exact_topk_int8(
+                store._vectors, store._scales, store._norms, store._valid,
+                qd, metric=metric, k=k)
+            want = rows.cpu().numpy()
+            ref = "plain exact int8"
+        ov = float(np.mean([len(set(map(str, g)) & set(map(str, w))) / k
+                            for g, w in zip(got, want)]))
+        emit("config", name=name, rows=n, dim=d, metric=metric, dtype=dtype,
+             k=k, batch=batch, batch_ms_median=1e3 * float(np.median(secs)),
+             batch_ms_all=[1e3 * t for t in secs], overlap=ov, against=ref,
+             launches=launches[name])
+        kname, variant = "fused_scan", "f32" if dtype == "float32" else "int8"
+        if not launches[name].get(kname, {}).get(variant):
+            raise AssertionError(f"{name} never launched {kname}[{variant}]: "
+                                 f"{launches[name]}")
+        if ov < 0.99:
+            raise AssertionError(f"{name}: overlap@{k} with the {ref} scan "
+                                 f"{ov} < 0.99")
+        del store
+        torch.cuda.empty_cache()
+
+
 def kernel_summary(kernels, launches) -> list:
     """The contract's kernel rows: each checked kernel row with its launches
     on the paths that serve it (a row of a variant checked at several
@@ -3456,6 +3781,11 @@ def main() -> int:
     data, held, gt = adc_phase(kernels, launches)
     torch.cuda.empty_cache()
     index_manager_phase(data, held, gt, launches)
+    del data, held, gt
+    torch.cuda.empty_cache()
+    hierarchy_phase(kernels, launches)
+    torch.cuda.empty_cache()
+    small_configs_step(launches)
 
     print(json.dumps({"kernels": kernel_summary(kernels, launches)}), flush=True)
     print(smi, flush=True)

@@ -19,9 +19,13 @@ from erlvectordb_tpu_torch.core import (  # noqa: F401
 
 
 def __getattr__(name):
-    # lazy: Database pulls in the serving modules
+    # lazy: Database/Application pull in the serving modules
     if name == "Database":
         from erlvectordb_tpu_torch.api import Database
 
         return Database
+    if name == "Application":
+        from erlvectordb_tpu_torch.app import Application
+
+        return Application
     raise AttributeError(name)

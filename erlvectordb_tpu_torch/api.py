@@ -527,3 +527,24 @@ class Database:
 
     def validate_token(self, token: str):
         return self.oauth.validate_token(token)
+
+
+_default_db: Optional[Database] = None
+_default_lock = threading.Lock()
+
+
+def default_database(device: Optional[torch.device] = None) -> Database:
+    """Process-wide default instance (the `erlvectordb:start()` analogue):
+    one started ``Database`` with the default configuration, on the CUDA
+    card unless the first caller asks for another device (``"cpu"``).  A
+    later call naming another device than the instance's raises."""
+    global _default_db
+    with _default_lock:
+        if _default_db is None:
+            _default_db = Database(device=device).start()
+        elif (device is not None
+              and torch.device(device) != _default_db.device):
+            raise ValueError(
+                f"the default database runs on {_default_db.device}, not "
+                f"{torch.device(device)}")
+        return _default_db

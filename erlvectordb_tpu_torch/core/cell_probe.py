@@ -20,6 +20,9 @@ either package's ``to_arrays``.
 
 from __future__ import annotations
 
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,7 +32,68 @@ from erlvectordb_tpu_torch.core.calibration import CalibrationSet, measure_curve
 from erlvectordb_tpu_torch.core.ivf import _balanced_assign
 from erlvectordb_tpu_torch.core.store import default_device
 from erlvectordb_tpu_torch.ops.cell_probe import dedup_rows_topk, multiprobe_topk
-from erlvectordb_tpu_torch.ops.kmeans import kmeans_fit
+from erlvectordb_tpu_torch.ops.kmeans import _lloyd, kmeans_fit, kmeans_seeds
+
+# the host encode's rows a task, and its threads (numpy releases the GIL in
+# its array loops)
+_ENCODE_ROWS = 65_536
+_ENCODE_THREADS = min(8, os.cpu_count() or 1)
+
+
+class _Laps:
+    """Seconds since the previous lap into ``stats[key]``, each lap ending
+    in a device synchronise."""
+
+    def __init__(self, device: torch.device, stats: dict):
+        self.device, self.stats = device, stats
+        self.t = time.perf_counter()
+
+    def __call__(self, key: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.stats[key] = now - self.t
+        self.t = now
+
+
+def _encode_cells(data, rows, owner, cents, cell_cap):
+    """The cell-major layout of rows ``data`` [N, D] f32 placed by ``owner``
+    around ``cents`` [K, D]: (codes [K*cap, D] int8, scales, reconstruction
+    norms, valid, slot -> row map).  Each row's residual is encoded with a
+    true division by 127; the rows are encoded in tasks of _ENCODE_ROWS on
+    a thread pool (each row's arithmetic is the same in any task)."""
+    n, d = data.shape
+    n_cells = cents.shape[0]
+    order = np.argsort(owner, kind="stable")
+    oc = owner[order]
+    starts = np.searchsorted(oc, np.arange(n_cells))
+    dest = oc * cell_cap + (np.arange(n) - starts[oc])
+    rows = np.asarray(rows)
+    total = n_cells * cell_cap
+    codes = np.zeros((total, d), np.int8)
+    scales = np.ones((total,), np.float32)
+    norms = np.zeros((total,), np.float32)
+    row_map = np.full((total,), -1, np.int64)
+
+    def encode(lo):
+        part = slice(lo, min(lo + _ENCODE_ROWS, n))
+        src, cell, to = order[part], oc[part], dest[part]
+        res = data[src] - cents[cell]                      # residuals
+        absmax = np.abs(res).max(axis=1)
+        scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+        codes_rows = np.clip(np.round(res / scale[:, None]),
+                             -127, 127).astype(np.int8)
+        codes[to] = codes_rows
+        scales[to] = scale
+        # score with reconstruction norms (what the codes encode), as the
+        # int4r store does
+        recon = cents[cell] + codes_rows.astype(np.float32) * scale[:, None]
+        norms[to] = np.linalg.norm(recon, axis=1)
+        row_map[to] = rows[src]
+
+    with ThreadPoolExecutor(_ENCODE_THREADS) as pool:
+        list(pool.map(encode, range(0, n, _ENCODE_ROWS)))
+    return codes, scales, norms, row_map >= 0, row_map
 
 
 class CellProbeIndex:
@@ -102,7 +166,9 @@ class CellProbeIndex:
     ) -> "CellProbeIndex":
         """Host build: k-means on the device, the balanced assignment, and
         int8 residuals encoded in numpy (a true division by 127, as the JAX
-        package's host build does)."""
+        package's host build does).  The seconds of each phase (k-means++
+        seeding, Lloyd, the assignment's parts, encode, upload, hierarchy)
+        and the straggler count land in ``build_stats``."""
         dev = torch.device(device) if device is not None else default_device()
         data = np.asarray(data, np.float32)
         n, d = data.shape
@@ -117,46 +183,31 @@ class CellProbeIndex:
             idx = np.random.default_rng(seed).choice(n, max_train,
                                                      replace=False)
             train = data[idx]
-        cents, _ = kmeans_fit(torch.as_tensor(train, device=dev), seed,
-                              k=min(n_cells, max(1, train.shape[0])),
-                              iters=iters, init="kpp")
-        cents = cents.cpu().numpy()
-        n_cells = cents.shape[0]
+        stats: dict = {}
+        lap = _Laps(dev, stats)
+        xt = torch.as_tensor(train, device=dev)
+        k = min(n_cells, max(1, train.shape[0]))
+        cents0 = kmeans_seeds(xt, seed, k=k, init="kpp")
+        lap("kpp_s")
+        cents = _lloyd(xt, cents0, k, iters).cpu().numpy()
+        del xt, cents0
+        lap("lloyd_s")
+        n_cells = stats["cells"] = cents.shape[0]
         if n_cells * cell_cap < n:
             raise ValueError(
                 f"{n_cells} cells x {cell_cap} slots < {n} rows; raise "
                 "cell_cap or max_train")
-        owner = _balanced_assign(data, cents, cell_cap, device=dev)
-
-        order = np.argsort(owner, kind="stable")
-        oc = owner[order]
-        starts = np.searchsorted(oc, np.arange(n_cells))
-        slot = np.arange(n) - starts[oc]
-
-        res = data[order] - cents[oc]                          # residuals
-        absmax = np.abs(res).max(axis=1)
-        scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
-        codes_rows = np.clip(np.round(res / scale[:, None]),
-                             -127, 127).astype(np.int8)
-
-        total = n_cells * cell_cap
-        codes = np.zeros((total, d), np.int8)
-        scales = np.ones((total,), np.float32)
-        out_norms = np.zeros((total,), np.float32)
-        row_map = np.full((total,), -1, np.int64)
-        dest = oc * cell_cap + slot
-        codes[dest] = codes_rows
-        scales[dest] = scale
-        # score with reconstruction norms (what the codes encode), as the
-        # int4r store does
-        recon = cents[oc] + codes_rows.astype(np.float32) * scale[:, None]
-        out_norms[dest] = np.linalg.norm(recon, axis=1)
-        row_map[dest] = np.asarray(rows)[order]
-        valid = row_map >= 0
-        idx = cls(cents, codes, scales, out_norms, valid, row_map, cell_cap,
-                  device=dev)
+        owner = _balanced_assign(data, cents, cell_cap, device=dev,
+                                 stats=stats)
+        lap("assign_s")
+        arrays = _encode_cells(data, rows, owner, cents, cell_cap)
+        lap("encode_s")
+        idx = cls(cents, *arrays, cell_cap, device=dev)
+        lap("upload_s")
         if hierarchy and n_cells >= cls.HIER_MIN_CELLS:
             idx = idx._with_hierarchy(seed=seed, iters=iters)
+            lap("hierarchy_s")
+        idx.build_stats = stats
         return idx
 
     @classmethod
@@ -183,10 +234,13 @@ class CellProbeIndex:
     def _with_hierarchy(self, *, seed: int = 0, iters: int = 10,
                         child_target: int = 192) -> "CellProbeIndex":
         """Cluster cell centroids into supercells, permute cells
-        supercell-major, pad with empty cells to a fixed child count."""
+        supercell-major, pad with empty cells to a fixed child count.  The
+        cells move on the device; only the slot -> row map moves on the
+        host."""
         cents = self.centroids.cpu().numpy()
         k0, w = cents.shape
         cap = self.cell_cap
+        dev = self.device
         s_count = max(2, -(-k0 // child_target))
         sc, _ = kmeans_fit(self.centroids, seed + 1, k=s_count, iters=iters,
                            init="kpp")
@@ -194,32 +248,34 @@ class CellProbeIndex:
         s_count = sc.shape[0]
         child_cap = -(-max(child_target + child_target // 4,
                            -(-k0 // s_count)) // 8) * 8
-        owner = _balanced_assign(cents, sc, child_cap, device=self.device)
+        owner = _balanced_assign(cents, sc, child_cap, device=dev)
         order = np.argsort(owner, kind="stable")
         oc = owner[order]
         starts = np.searchsorted(oc, np.arange(s_count))
         slot = np.arange(k0) - starts[oc]
         dest_cell = oc * child_cap + slot                  # new cell index
         k_new = s_count * child_cap
+        src = torch.as_tensor(order, device=dev)
+        dst = torch.as_tensor(dest_cell, device=dev)
 
-        def scatter_cells(arr, fill):
-            out = np.full((k_new,) + arr.shape[1:], fill, arr.dtype)
+        def scatter_cells(t, fill):
+            out = torch.full((k_new,) + tuple(t.shape[1:]), fill,
+                             dtype=t.dtype, device=dev)
             # the assignment above ran on the argsorted cells
-            out[dest_cell] = arr[order]
+            out[dst] = t[src]
             return out
 
-        new_cents = scatter_cells(cents, 1e6)              # pad cells far away
-        codes = self.codes.cpu().numpy().reshape(k0, cap, -1)
-        scales = self.scales.cpu().numpy().reshape(k0, cap)
-        norms = self.norms.cpu().numpy().reshape(k0, cap)
-        row_map = self.row_map.reshape(k0, cap)
-        new_codes = scatter_cells(codes, 0).reshape(k_new * cap, -1)
-        new_scales = scatter_cells(scales, 1.0).reshape(-1)
-        new_norms = scatter_cells(norms, 0.0).reshape(-1)
-        new_rows = scatter_cells(row_map, -1).reshape(-1)
+        new_cents = scatter_cells(self.centroids, 1e6)     # pad cells far away
+        new_codes = scatter_cells(self.codes.reshape(k0, cap, -1),
+                                  0).reshape(k_new * cap, -1)
+        new_scales = scatter_cells(self.scales.reshape(k0, cap), 1.0).reshape(-1)
+        new_norms = scatter_cells(self.norms.reshape(k0, cap), 0.0).reshape(-1)
+        new_rows = np.full((k_new, cap), -1, np.int64)
+        new_rows[dest_cell] = self.row_map.reshape(k0, cap)[order]
+        new_rows = new_rows.reshape(-1)
         return type(self)(new_cents, new_codes, new_scales, new_norms,
                           new_rows >= 0, new_rows, cap, super_cents=sc,
-                          child_cap=child_cap, device=self.device)
+                          child_cap=child_cap, device=dev)
 
     # ----------------------------------------------------------------- search
 
@@ -320,7 +376,7 @@ class CellProbeIndex:
 
     def stats(self) -> dict:
         fill = (self.row_map >= 0).reshape(self.n_cells, self.cell_cap).sum(1)
-        return {
+        out = {
             "kind": "cell_probe",
             "calibration": self._calib.summaries(),
             "hierarchical": self.super_route is not None,
@@ -335,6 +391,9 @@ class CellProbeIndex:
                                 + self.norms.numel() * 4
                                 + self.centroids.numel() * 4),
         }
+        if self.build_stats:
+            out["build"] = dict(self.build_stats)
+        return out
 
     def to_arrays(self) -> dict:
         out = {

@@ -247,22 +247,26 @@ class IndexManager:
 
     @staticmethod
     def _store_matrix(store: VectorStore, pad128: bool = False):
-        """(matrix, store rows, norms) of a store's live rows for an index
-        build — the shared front half of every builder."""
+        """(matrix, store rows) of a store's live rows for an index build —
+        the shared front half of every builder."""
         if store.count == 0:
             raise IndexError_("store is empty")
         rows, mat = store.live_matrix()
         if pad128 and mat.shape[1] % 128:
             mat = np.pad(mat, ((0, 0), (0, 128 - mat.shape[1] % 128)))
-        norms = np.linalg.norm(mat, axis=1).astype(np.float32)
-        return mat, rows, norms
+        return mat, rows
+
+    @staticmethod
+    def _row_norms(mat: np.ndarray) -> np.ndarray:
+        """The rows' f32 norms (the IVF layouts score with them)."""
+        return np.linalg.norm(mat, axis=1).astype(np.float32)
 
     def _build_pq(self, store: VectorStore, params: dict,
                   rotated: bool = False):
         from erlvectordb_tpu_torch.quant.opq import OPQCodebook
         from erlvectordb_tpu_torch.quant.pq import PQCodebook
 
-        mat, rows, _norms = self._store_matrix(store)
+        mat, rows = self._store_matrix(store)
         m = int(params.get("m", 8))
         k = int(params.get("k", 256))
         iters = int(params.get("iters", 15))
@@ -290,9 +294,9 @@ class IndexManager:
     def _build_ivf(self, store: VectorStore, params: dict):
         from erlvectordb_tpu_torch.core.ivf import IVFIndex
 
-        mat, rows, norms = self._store_matrix(store)
+        mat, rows = self._store_matrix(store)
         idx = IVFIndex.build(
-            mat, rows, norms,
+            mat, rows, self._row_norms(mat),
             n_cells=int(params.get("n_cells", 64)),
             iters=int(params.get("iters", 15)),
             device=store.device,
@@ -314,9 +318,9 @@ class IndexManager:
         mesh — the scale-out form of the ivf type."""
         from erlvectordb_tpu_torch.parallel.ep_ivf import EPIVFIndex
 
-        mat, rows, norms = self._store_matrix(store)
+        mat, rows = self._store_matrix(store)
         idx = EPIVFIndex.build(
-            mat, rows, norms, self._ep_mesh(store),
+            mat, rows, self._row_norms(mat), self._ep_mesh(store),
             n_cells=int(params.get("n_cells", 64)),
             iters=int(params.get("iters", 15)),
         )
@@ -328,7 +332,7 @@ class IndexManager:
         axis of the mesh (parallel/ep_cell_probe.py)."""
         from erlvectordb_tpu_torch.parallel.ep_cell_probe import EPCellProbeIndex
 
-        mat, rows, _norms = self._store_matrix(store, pad128=True)
+        mat, rows = self._store_matrix(store, pad128=True)
         idx = EPCellProbeIndex.build(
             mat, rows, self._ep_mesh(store),
             cell_rows=int(params.get("cell_rows", 96)),
@@ -344,7 +348,7 @@ class IndexManager:
         by the sub-linear multiprobe gather (core/cell_probe.py)."""
         from erlvectordb_tpu_torch.core.cell_probe import CellProbeIndex
 
-        mat, rows, _norms = self._store_matrix(store, pad128=True)
+        mat, rows = self._store_matrix(store, pad128=True)
         idx = CellProbeIndex.build(
             mat, rows,
             cell_rows=int(params.get("cell_rows", 96)),
@@ -390,7 +394,7 @@ class IndexManager:
                 exact_ground_truth,
             )
 
-            mat, rows, _norms = self._store_matrix(store, pad128=True)
+            mat, rows = self._store_matrix(store, pad128=True)
             if queries is None:
                 rng = np.random.default_rng(n_sample)
                 sel = rng.choice(mat.shape[0],

@@ -13,13 +13,15 @@ tensor code, every top-k a stable sort (ties to the lower index, as
 Every row gets its nearest centroid among its top-J choices subject to a
 per-cell capacity: closest-first greedy rounds, bumped rows walking down
 their own preference list, stragglers placed in the nearest cell with
-space.  Choice lists are exact (a stable sort: equal distances keep the
-lower cell first, as the JAX package's top-k does); the greedy runs on the
-host in numpy, as in the JAX package.
+space.  Choice lists are exact (a stable sort's first J: equal distances
+keep the lower cell first, as the JAX package's top-k does); the greedy,
+which the JAX package runs on the host in numpy, runs on the device with
+the same stable sorts, and so places every row where numpy's would.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,9 +37,33 @@ _NEG = -1e30
 
 def _nearest(d2: torch.Tensor, j: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The j smallest of each row of d2, ascending, ties to the lower
-    column."""
-    vals, ids = torch.sort(d2, dim=1, stable=True)
-    return vals[:, :j], ids[:, :j]
+    column: the first j of a stable sort of each row.  A top-(j + 1)
+    selection finds them; a row whose (j + 1)-th value equals its j-th (a
+    tie across the cut, where the selection may keep either column) takes
+    the stable sort instead."""
+    if j >= d2.shape[1]:
+        vals, ids = torch.sort(d2, dim=1, stable=True)
+        return vals[:, :j], ids[:, :j]
+    vals, ids = torch.topk(d2, j + 1, dim=1, largest=False, sorted=True)
+    cut_tie = vals[:, j] == vals[:, j - 1]
+    # the selected j by column, then stably by value: ties to the lower column
+    by_col = torch.argsort(ids[:, :j], dim=1)
+    ids = torch.gather(ids[:, :j], 1, by_col)
+    vals, by_val = torch.sort(torch.gather(vals[:, :j], 1, by_col), dim=1,
+                              stable=True)
+    ids = torch.gather(ids, 1, by_val)
+    tied = torch.nonzero(cut_tie).squeeze(1)
+    if tied.numel():
+        sv, si = torch.sort(d2[tied], dim=1, stable=True)
+        vals[tied] = sv[:, :j]
+        ids[tied] = si[:, :j]
+    return vals, ids
+
+
+def _neg2_plus(cn: torch.Tensor, dots: torch.Tensor) -> torch.Tensor:
+    """cn[None, :] - 2 dots in one pass (2 dots is exact, so the single
+    rounding is the two-step expression's)."""
+    return torch.add(cn[None, :], dots, alpha=-2.0)
 
 
 def _top_choices(chunk: torch.Tensor, centroids: torch.Tensor, *, j: int
@@ -46,7 +72,7 @@ def _top_choices(chunk: torch.Tensor, centroids: torch.Tensor, *, j: int
     with full_f32_matmul():
         dots = chunk @ centroids.T
     cn = torch.sum(centroids * centroids, dim=-1)
-    return _nearest(cn[None, :] - 2.0 * dots, j)
+    return _nearest(_neg2_plus(cn, dots), j)
 
 
 def _top_choices_chunk(d_acc, i_acc, rows, centroids, cn, dscale, at, *, j):
@@ -54,7 +80,7 @@ def _top_choices_chunk(d_acc, i_acc, rows, centroids, cn, dscale, at, *, j):
     row ``at``: distances scaled by ``dscale`` and stored as f16."""
     with full_f32_matmul():
         dots = rows @ centroids.T
-    d, ids = _nearest(cn[None, :] - 2.0 * dots, j)
+    d, ids = _nearest(_neg2_plus(cn, dots), j)
     d_acc[at:at + rows.shape[0]] = (d * dscale).to(torch.float16)
     i_acc[at:at + rows.shape[0]] = ids.to(i_acc.dtype)
 
@@ -84,7 +110,8 @@ def _top_choices_all(data: torch.Tensor, centroids: torch.Tensor, *, j: int,
 
 def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
                      j: int = 32, chunk: int = 131072,
-                     device: Optional[torch.device] = None) -> np.ndarray:
+                     device: Optional[torch.device] = None,
+                     stats: Optional[dict] = None) -> np.ndarray:
     """owner[i] = cell of row i; closest-first greedy over J choice rounds
     with per-cell capacity.
 
@@ -92,7 +119,9 @@ def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
     far from its natural cell is findable only by luck.  So bumped rows walk
     DOWN THEIR OWN preference list (J deep), and the rare stragglers get a
     genuine nearest-cell-with-space pass — never an arbitrary dump.  The
-    choice lists are computed on ``device`` (default: the CUDA card)."""
+    choice lists and the greedy run on ``device`` (default: the CUDA card).
+    ``stats``, where given, receives the seconds of the choice lists, the
+    greedy and the straggler pass, and the straggler count."""
     dev = torch.device(device) if device is not None else default_device()
     n = data.shape[0]
     c = centroids.shape[0]
@@ -101,54 +130,113 @@ def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
     j = min(j, c)
     # bound the [chunk, C] distance intermediate for large cell counts
     chunk = min(chunk, max(4096, (1 << 27) // max(c, 1)))
+    t0 = time.perf_counter()
     cj = torch.as_tensor(np.ascontiguousarray(centroids, np.float32), device=dev)
     xj = torch.as_tensor(np.ascontiguousarray(data, np.float32), device=dev)
     d_all, i_all = _top_choices_all(xj, cj, j=j, chunk=min(chunk, n))
-    ch_d = d_all.cpu().numpy()
-    ch_i = i_all.cpu().numpy().astype(np.int32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    owner, fill, remaining = _greedy_rounds(d_all, i_all, c, cap)
+    del d_all, i_all
+    t2 = time.perf_counter()
+    if remaining.size:
+        _place_stragglers(owner, fill, remaining, xj, cj, centroids, cap)
+    if stats is not None:
+        stats.update(choices_s=t1 - t0, greedy_s=t2 - t1,
+                     stragglers=int(remaining.size),
+                     stragglers_s=time.perf_counter() - t2)
+    return owner
 
-    owner = np.full(n, -1, np.int64)
-    fill = np.zeros(c, np.int64)
-    remaining = np.arange(n)
+
+def _greedy_rounds(ch_d: torch.Tensor, ch_i: torch.Tensor, c: int, cap: int):
+    """The greedy over the [N, J] choice lists, on their device: round j
+    offers each unplaced row its j-th choice, closest first (stable sorts:
+    ties keep the lower row), and each cell takes rows while it has space.
+    Returns (owner [N] int64, fill [C] int64, the rows left) as numpy."""
+    dev = ch_d.device
+    n, j = ch_d.shape
+    owner = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    fill = torch.zeros((c,), dtype=torch.int64, device=dev)
+    remaining = torch.arange(n, device=dev)
+    cells_all = torch.arange(c, device=dev)
     for round_j in range(j):
-        if remaining.size == 0:
+        if remaining.numel() == 0:
             break
-        cells = ch_i[remaining, round_j].astype(np.int64)
+        cells = ch_i[remaining, round_j].long()
         dists = ch_d[remaining, round_j]
-        by_dist = np.argsort(dists, kind="stable")       # closest first
+        # one zero: a radix sort would put -0 before +0
+        dists = torch.where(dists == 0, torch.zeros_like(dists), dists)
+        by_dist = torch.sort(dists, stable=True).indices    # closest first
         rr, cc = remaining[by_dist], cells[by_dist]
-        by_cell = np.argsort(cc, kind="stable")          # keeps dist order
-        rr, cc = rr[by_cell], cc[by_cell]
-        starts = np.searchsorted(cc, np.arange(c))
-        rank = np.arange(rr.size) - starts[cc]
+        cc, by_cell = torch.sort(cc, stable=True)           # keeps dist order
+        rr = rr[by_cell]
+        rank = (torch.arange(rr.numel(), device=dev)
+                - torch.searchsorted(cc, cells_all)[cc])
         accept = rank < (cap - fill[cc])
         owner[rr[accept]] = cc[accept]
-        fill += np.bincount(cc[accept], minlength=c)
+        fill += torch.bincount(cc[accept], minlength=c)
         remaining = rr[~accept]
-    if remaining.size:
-        # stragglers: nearest cell WITH SPACE (full distance row, masked)
-        open_cells = np.where(fill < cap)[0]
+    return (owner.cpu().numpy(), fill.cpu().numpy(),
+            remaining.cpu().numpy())
+
+
+# choices kept per straggler; the [rows, open cells] f32 distances of a
+# straggler chunk stay under _STRAGGLER_ELEMS
+_STRAGGLER_PREFS = 64
+_STRAGGLER_ELEMS = 1 << 28
+
+
+def _place_stragglers(owner, fill, remaining, xj, cj, centroids, cap) -> None:
+    """Rows the greedy left, in order of their distance to the nearest cell
+    with space, each into its nearest cell (ties to the lower cell) that
+    still has space; past every such cell, into the emptiest cells' free
+    slots.  The distances to the open cells are computed a chunk of rows at
+    a time on the device, and each row keeps its _STRAGGLER_PREFS nearest;
+    a row that finds all of them full takes its whole chunk's distances
+    again.  Updates ``owner`` and ``fill`` in place."""
+    dev = xj.device
+    c = centroids.shape[0]
+    open_cells = np.where(fill < cap)[0]
+    cn = torch.as_tensor((centroids[open_cells] ** 2).sum(axis=1), device=dev)
+    co = cj[torch.as_tensor(open_cells, device=dev)]
+    rows_dev = torch.as_tensor(remaining, device=dev)
+    step = max(1, _STRAGGLER_ELEMS // max(len(open_cells), 1))
+    t = min(_STRAGGLER_PREFS, len(open_cells))
+
+    def chunk_d2(at):
         with full_f32_matmul():
-            dists_all = (xj[torch.as_tensor(remaining, device=dev)]
-                         @ cj[torch.as_tensor(open_cells, device=dev)].T)
-        dists_all = dists_all.cpu().numpy()
-        cn = (centroids[open_cells] ** 2).sum(axis=1)
-        d2 = cn[None, :] - 2.0 * dists_all
-        order = np.argsort(d2.min(axis=1), kind="stable")
-        for ri in order:  # small set: per-row greedy is fine
-            row = remaining[ri]
-            for oc in np.argsort(d2[ri], kind="stable"):
-                cell = open_cells[oc]
-                if fill[cell] < cap:
-                    owner[row] = cell
-                    fill[cell] += 1
-                    break
-        # anything still unplaced (cap exhausted in open set) -> emptiest
-        left = remaining[owner[remaining] < 0]
-        if left.size:
-            space_cells = np.repeat(np.arange(c), np.maximum(cap - fill, 0))
-            owner[left] = space_cells[: left.size]
-    return owner
+            dots = xj[rows_dev[at:at + step]] @ co.T
+        return _neg2_plus(cn, dots)
+
+    pref_d, pref_i = [], []
+    for at in range(0, remaining.size, step):
+        d, i = _nearest(chunk_d2(at), t)
+        pref_d.append(d.cpu().numpy())
+        pref_i.append(i.cpu().numpy())
+    pref_d = np.concatenate(pref_d)
+    pref_i = np.concatenate(pref_i)
+    for ri in np.argsort(pref_d[:, 0], kind="stable"):
+        row = remaining[ri]
+        for oc in pref_i[ri]:
+            cell = open_cells[oc]
+            if fill[cell] < cap:
+                break
+        else:
+            at = ri - ri % step
+            d2 = chunk_d2(at)[ri - at].cpu().numpy()
+            d2 = np.where(fill[open_cells] < cap, d2, np.inf)
+            oc = int(np.argmin(d2))
+            if not np.isfinite(d2[oc]):
+                continue
+            cell = open_cells[oc]
+        owner[row] = cell
+        fill[cell] += 1
+    # anything still unplaced (cap exhausted in open set) -> emptiest
+    left = remaining[owner[remaining] < 0]
+    if left.size:
+        space_cells = np.repeat(np.arange(c), np.maximum(cap - fill, 0))
+        owner[left] = space_cells[: left.size]
 
 
 class IVFIndex:

@@ -54,7 +54,13 @@ def _update(x: torch.Tensor, assign: torch.Tensor, k: int
 
 def _kpp_init(x: torch.Tensor, gen: torch.Generator, k: int) -> torch.Tensor:
     """k-means++ seeding: each next centroid drawn with probability
-    proportional to its squared distance from the chosen set."""
+    proportional to its squared distance from the chosen set.
+
+    Each draw is ``torch.multinomial(p, 1)``'s own computation (an
+    exponential variate per row from ``gen``, then the argmax of p / e),
+    kept on the device: multinomial checks its input with a host sync on
+    every call, and the cell-probe build seeds up to ~175k centroids.  The
+    same generator gives the same centroids as multinomial does."""
     n = x.shape[0]
     first = int(torch.randint(0, n, (1,), generator=gen, device=gen.device))
     cents = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
@@ -62,9 +68,11 @@ def _kpp_init(x: torch.Tensor, gen: torch.Generator, k: int) -> torch.Tensor:
     mind2 = torch.sum((x - x[first]) ** 2, dim=1)
     for i in range(1, k):
         w = torch.clamp(mind2, min=1e-20)
-        idx = int(torch.multinomial(w / w.sum(), 1, generator=gen))
-        cents[i] = x[idx]
-        mind2 = torch.minimum(mind2, torch.sum((x - x[idx]) ** 2, dim=1))
+        p = w / w.sum()
+        e = torch.empty_like(p).exponential_(1.0, generator=gen)
+        pick = x.index_select(0, torch.argmax(p / e, dim=0, keepdim=True))
+        cents[i:i + 1] = pick
+        mind2 = torch.minimum(mind2, torch.sum((x - pick) ** 2, dim=1))
     return cents
 
 
@@ -107,25 +115,32 @@ def _lloyd(x: torch.Tensor, cents0: torch.Tensor, k: int, iters: int,
     return cents
 
 
+def kmeans_seeds(x: torch.Tensor, seed: int, *, k: int,
+                 init: str = "random") -> torch.Tensor:
+    """The k initial centroids of ``kmeans_fit``: k-means++ (``"kpp"``) or
+    k distinct rows at random, drawn from a generator seeded with
+    ``seed``."""
+    n = x.shape[0]
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(int(seed))
+    if init == "kpp":
+        return _kpp_init(x, gen, k)
+    if init != "random":
+        raise ValueError(f"init must be 'random' or 'kpp', got {init!r}")
+    if n < k:
+        idx = torch.randint(0, n, (k,), generator=gen, device=x.device)
+    else:
+        idx = torch.randperm(n, generator=gen, device=x.device)[:k]
+    return x[idx]
+
+
 def kmeans_fit(x: torch.Tensor, seed: int, *, k: int, iters: int = 25,
                init: str = "random", balance: float = 0.0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lloyd k-means on x [N, D] f32.  Returns (centroids [k, D],
     assignments [N] int64)."""
-    n = x.shape[0]
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(int(seed))
-    if init == "kpp":
-        cents0 = _kpp_init(x, gen, k)
-    elif init == "random":
-        if n < k:
-            idx = torch.randint(0, n, (k,), generator=gen, device=x.device)
-        else:
-            idx = torch.randperm(n, generator=gen, device=x.device)[:k]
-        cents0 = x[idx]
-    else:
-        raise ValueError(f"init must be 'random' or 'kpp', got {init!r}")
-    cents = _lloyd(x, cents0, k, iters, balance=balance)
+    cents = _lloyd(x, kmeans_seeds(x, seed, k=k, init=init), k, iters,
+                  balance=balance)
     return cents, _assign(x, cents)
 
 
