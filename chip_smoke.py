@@ -60,8 +60,10 @@ Phases, each printing one JSON line of its own numbers:
               rows (int8 residual cells, SOAR spill) built by streaming from
               a manifold corpus drawn on the card, with the exact f32 top-10
               gathered while it is drawn; B7 int8 against its plain version
-              at the index's shapes, the recall@10 curve over nprobe and the
-              per-dispatch ms at 8 queries -> B7 gather_dots int8;
+              at the index's shapes (with the cell blocks its plan reads, the
+              three-call PyTorch equivalent, and timed under each plan by
+              batch), the recall@10 curve over nprobe and the per-dispatch
+              ms at 8 queries -> B7 gather_dots int8;
   6. adc      (j) config 4 (bench.py:351-475): 1M x 128 rows of a 20-d
               manifold, OPQ 8 x 8-bit codes trained on the card, int8 rerank
               rows; B8, B9, B10 (int8 and bf16 LUT) against their plain
@@ -76,7 +78,8 @@ Phases, each printing one JSON line of its own numbers:
               through the MCP tools (256 search_index calls each, every
               answer the same as a direct IndexManager.search; ep_ivf
               recall@10 >= 0.95, ep_cellprobe's at least cellprobe's less
-              0.01) -> B7 gather_dots int8 (cellprobe);
+              0.01) -> B7 gather_dots int8 (cellprobe), checked against its
+              plain version at one search_index query's 32 probes;
               then (l) every index saved (save_all), loaded into a fresh
               IndexManager (load_indexes) and searched again: the same
               answers;
@@ -116,8 +119,10 @@ Phases, each printing one JSON line of its own numbers:
               nprobe 2-64 (8 queries), equal at nprobe 4 and 64 to the
               kernels' plain versions, and the same rows scanned brute by
               a 1 x 1 ShardedVectorStore (ids equal to the plain exact int8
-              scan); B7-int8 against its plain version at 8 queries x 64
-              probes -> B7 gather_dots int8, B3 pos_scan int8 at W 768;
+              scan), the cold and warm builds' codes equal (SHA-1);
+              B7-int8 against its plain version at 8 queries x 64 probes,
+              and timed under each plan by batch -> B7 gather_dots int8, B3
+              pos_scan int8 at W 768;
               (bench_cli) `python -m erlvectordb_tpu_torch.cli bench
               --bench-config 1` as a process: exit 0, one JSON line with
               every key of BENCH_ALL.json's config-1 row;
@@ -347,14 +352,14 @@ F32_SOURCE = "fused_topk.cu"   # B3 and B4 on f32 codes
 # (T 2 / 4 / 8 x wide dots), B5 (t_top 2 / 8 x wide dots), B3-f32, B4-f32
 # (T 2 / 4 / 8 x 1, 2, 4, 8 query columns) and its merge (T), B8-B10 on the
 # packed int8 LUT ((B10, B9 at list depths 2 / 4 / 8 / 32, B8) x 2, 4, 8
-# subspace phases a warp), B7 on int4 (bf16 mma; windows of up to 8 or 32
-# pairs) and int8, B10-bf16 on the packed bf16 LUT (list depths 2 / 4 / 8 /
+# subspace phases a warp), B7 on bf16 mma (int4 and int8 x windows of up to
+# 8 or 32 pairs), B10-bf16 on the packed bf16 LUT (list depths 2 / 4 / 8 /
 # 32 x (S, S0) in (2, 8), (4, 8), (8, 8), (2, 4), (4, 4))
 CHECKED_KERNELS = {"slice_scan_kernel": 10, "tile_scan_kernel": 18,
                    "residual_mma_kernel": 4, "pos_f32_kernel": 2,
                    "tile_f32_kernel": 12, "tile_merge_kernel": 3,
-                   "adc_packed_kernel": 27, "gather_mma_kernel": 2,
-                   "gather_dots_kernel": 1, "adc_bf16_packed_kernel": 20}
+                   "adc_packed_kernel": 27, "gather_mma_kernel": 4,
+                   "adc_bf16_packed_kernel": 20}
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops/s (the
 # int4 codes are counted at the int8 rate they run at after unpacking), bf16
 # tensor-core FLOP/s (B7: a bf16-exact query against int8-exact codes), f32
@@ -363,6 +368,8 @@ PEAK = {"int8": 1979e12, "int4": 1979e12, "bf16": 989e12, "f32": 67e12}
 HBM = 3.35e12
 NO_LIBRARY = "none: no single PyTorch call computes the scan and its selection"
 NO_LIBRARY_B7 = "none: a gather plus a product is not one PyTorch call"
+THREE_CALLS_B7 = ("gather, bf16 conversion and torch.bmm: three PyTorch "
+                  "calls, not one")
 NO_LIBRARY_ADC = "none: no single PyTorch call computes a LUT scan and its selection"
 # LUT lookups have no tensor-core rate: they are bounded by shared-memory
 # words, 32 a clock on each SM (132 on an H100 SXM), at the SM clock
@@ -509,13 +516,14 @@ def read_launches() -> dict:
 
 
 def b7_reads(probe, n_cells, plan):
-    """Cell blocks B7-int4 reads for ``probe`` under ``plan`` (window,
-    sort): one a run of equal cells within a window of the pairs."""
+    """Cell blocks B7 reads for ``probe`` under ``plan`` (window, sort,
+    split): one a run of equal cells within a window of the pairs (a split
+    deals a block's tiles to several blocks, not more tiles)."""
     import torch
 
     import erlvectordb_tpu_torch.ops.cell_probe as cp
 
-    window, sort = plan
+    window, sort = plan[:2]
     cells, _ = cp.b7_plan(probe, sort)
     cells = cells.clamp(0, n_cells - 1)
     i = torch.arange(cells.numel(), device=cells.device)
@@ -529,10 +537,12 @@ def gather_check(out, variant, codes3, probe, q, row=None):
     1e-5 of sum |q| |c| (the kernel sums in f32, the plain version in
     float64); the largest ratio is reported beside the bar.  The bound
     counts each distinct probed cell's block once, the query and probe
-    lists, and the [B, nprobe, cap] f32 output; the bytes the kernel reads
-    (int8: a block per query and probe; int4: a block per run of its plan)
-    are reported beside it.  ``row``: the summary row's label where the
-    variant has several rows."""
+    lists, and the [B, nprobe, cap] f32 output; the plan the wrapper picks
+    and the bytes the kernel reads under it (a block per run of equal cells
+    in a window) are reported beside it, and for int8 the time of the
+    three-call PyTorch equivalent (``three_calls_ms``; no single call
+    computes B7, so ``library_ms`` stays null).  ``row``: the summary row's
+    label where the variant has several rows."""
     import torch
 
     import erlvectordb_tpu_torch.ops.cell_probe as cp
@@ -567,13 +577,14 @@ def gather_check(out, variant, codes3, probe, q, row=None):
     b_ms, b_by = bound("bf16", 2.0 * b * nprobe * cap * q.shape[1], nbytes)
     extra = dict(batch=b, nprobe=nprobe, cap=cap, width=q.shape[1],
                  distinct_cells=cells, bound_bytes=nbytes, max_rel_err=rel)
-    if variant == "int4":
-        plan = cp.b7_plan_for(b * nprobe, b)
-        reads = b7_reads(probe, n_cells, plan)
-        extra.update(window=plan[0], sorted=plan[1], cell_reads=reads,
-                     bytes_read=reads * cap * wc)
-    else:
-        extra.update(bytes_read=b * nprobe * cap * wc)
+    plan = cp.b7_plan_for(b * nprobe, b, variant, cap, cap * wc)
+    reads = b7_reads(probe, n_cells, plan)
+    extra.update(window=plan[0], sorted=plan[1], split=plan[2],
+                 cell_reads=reads, bytes_read=reads * cap * wc)
+    if variant == "int8":
+        extra.update(three_calls_ms=cuda_ms(
+            lambda: b7_three_calls(codes3, probe, q), reps=3),
+            three_calls=THREE_CALLS_B7)
     rec = dict(max_abs_err=float(err.max()), mismatch=over, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                rows=b * nprobe * cap, extra=extra)
@@ -584,6 +595,58 @@ def gather_check(out, variant, codes3, probe, q, row=None):
          **{k: v for k, v in rec.items() if k != "extra"}, **rec["extra"])
 
 
+def b7_three_calls(codes3, probe, q):
+    """B7-int8 as three PyTorch calls (not one call): the probed blocks
+    gathered, converted to bf16, and torch.bmm against the bf16 query."""
+    import torch
+
+    b, nprobe = probe.shape
+    blk = codes3[probe.long()].to(torch.bfloat16).reshape(b, -1, q.shape[1])
+    return torch.bmm(blk, q.to(torch.bfloat16)[:, :, None])
+
+
+def b7_int8_plans(tiles):
+    """The plans B7-int8's sweeps time, by name: windows of 1 and
+    B7_PIPELINE pairs in pair order, of B7_PIPELINE, 16 and B7_WINDOW pairs
+    sorted, each with a run's ``tiles`` row tiles in one block, in two and
+    each in a block of its own; and the plan the wrapper picks (None)."""
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+
+    plans = {}
+    for window, sort in ((1, False), (cp.B7_PIPELINE, False),
+                         (cp.B7_PIPELINE, True), (16, True),
+                         (cp.B7_WINDOW, True)):
+        for split in sorted({1, min(2, tiles), tiles}):
+            name = (f"s{window}" + ("-sorted" if sort else "")
+                    + (f"-split{split}" if split > 1 else ""))
+            plans[name] = (window, sort, split)
+    plans["picked"] = None
+    return plans
+
+
+def b7_int8_sweep(tag, codes3, probe_of, q, batches, nprobe):
+    """B7-int8 by batch under each plan of ``b7_int8_plans`` (CUDA-event ms,
+    the sort included), with the cell blocks each plan reads: the sweep
+    that sets B7_SORT_MIN_BYTES and the split rule."""
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
+
+    n_cells, cap, wc = codes3.shape
+    plans = b7_int8_plans(-(-cap // cp.B7_TILE_ROWS))
+    sweep = {}
+    for b in batches:
+        probe = probe_of(b, nprobe)
+        picked = cp.b7_plan_for(b * nprobe, b, "int8", cap, cap * wc)
+        row = {"plan": picked, "distinct_cells": int(probe.unique().numel()),
+               "cell_reads": {k: b7_reads(probe, n_cells, v or picked)
+                              for k, v in plans.items()}}
+        for k, v in plans.items():
+            row[k] = cuda_ms(lambda: cp.gather_dots(codes3, probe, q[:b],
+                                                    plan=v), reps=20)
+        sweep[b] = row
+    emit("b7_int8_sweep", tag=tag, nprobe=nprobe, cap=cap, width=wc,
+         ms_by_batch_and_plan=sweep, sort_min_bytes=cp.B7_SORT_MIN_BYTES)
+
+
 def b7_window_sweep(codes3, probe_of, q):
     """B7-int4 at nprobe 64 by batch under three plans: one pair a window,
     B7_PIPELINE pairs a window in pair order, B7_WINDOW sorted (the sort
@@ -591,8 +654,9 @@ def b7_window_sweep(codes3, probe_of, q):
     bound at small batches) that set B7_SORT_MIN_PAIRS."""
     import erlvectordb_tpu_torch.ops.cell_probe as cp
 
-    plans = {"s1": (1, False), f"s{cp.B7_PIPELINE}": (cp.B7_PIPELINE, False),
-             f"s{cp.B7_WINDOW}-sorted": (cp.B7_WINDOW, True), "picked": None}
+    plans = {"s1": (1, False, 1),
+             f"s{cp.B7_PIPELINE}": (cp.B7_PIPELINE, False, 1),
+             f"s{cp.B7_WINDOW}-sorted": (cp.B7_WINDOW, True, 1), "picked": None}
     sweep = {}
     for b in (16, 64, 256, 512, 1024):
         probe = probe_of(b, B7_NPROBE)
@@ -2931,9 +2995,15 @@ def index_phase(kernels, launches):
         idx.centroids, qb, idx.valid.reshape(n_cells, cap).any(dim=1),
         metric="cosine", nprobe=B7_NPROBE, centroids_route=idx.cents_route,
         cn2=idx.cn2).to(torch.int32).contiguous()
-    gather_check(kernels, "int8", idx.codes.reshape(n_cells, cap, -1), probe,
-                 qb.to(torch.bfloat16).float())
-    del probe, qb
+    codes3 = idx.codes.reshape(n_cells, cap, -1)
+    qbf = qb.to(torch.bfloat16).float()
+    gather_check(kernels, "int8", codes3, probe, qbf)
+
+    def probe_of(b, nprobe):
+        return probe[:b, :nprobe].contiguous()
+
+    b7_int8_sweep("i", codes3, probe_of, qbf, (1, 8, 64, 256), B7_NPROBE)
+    del probe, qb, qbf, codes3
 
     qnp = queries.cpu().numpy()
     q8 = queries[:I_BQ]
@@ -3213,7 +3283,7 @@ def adc_phase(kernels, launches):
     return data, held, gt
 
 
-def index_manager_phase(data, held, gt, launches):
+def index_manager_phase(data, held, gt, kernels, launches):
     """(k): the index manager over MCP on a 1M x 128 float32 euclidean store
     of (j)'s corpus.  With the launch counts zeroed: each index type created,
     built and searched through the MCP tools (256 search_index calls of the
@@ -3222,9 +3292,12 @@ def index_manager_phase(data, held, gt, launches):
     ground truth, the median search_index latency, build seconds.  Then
     (path l) every index saved with save_all, loaded into a fresh
     IndexManager with load_indexes, and searched again: each answer must
-    equal the one before the save."""
+    equal the one before the save.  B7-int8 against its plain version at
+    one search_index query's probes of the cellprobe index (kernel row
+    gather_dots_int8-k)."""
     import torch
 
+    import erlvectordb_tpu_torch.ops.cell_probe as cp
     from erlvectordb_tpu_torch.api import Database
     from erlvectordb_tpu_torch.core.index_manager import IndexManager
     from erlvectordb_tpu_torch.core.store import VectorStore
@@ -3278,6 +3351,19 @@ def index_manager_phase(data, held, gt, launches):
         torch.cuda.synchronize()
         launches["k"] = read_launches()
         cl.sock.close()
+        idx = db.indexes._indexes["k_cellprobe"].probe_artifact()
+        qk = torch.zeros((1, idx.codes.shape[1]), device=DEVICE)
+        qk[:, :J_DIM] = torch.as_tensor(np.asarray(qs[:1]), device=DEVICE)
+        probe = cp.route_probes(
+            idx.centroids, qk, idx.valid.reshape(idx.n_cells, idx.cell_cap)
+            .any(dim=1), metric="euclidean",
+            nprobe=db.indexes._indexes["k_cellprobe"].artifact["nprobe"],
+            centroids_route=idx.cents_route, cn2=idx.cn2)
+        gather_check(kernels, "int8", idx.codes.reshape(idx.n_cells,
+                                                        idx.cell_cap, -1),
+                     probe.to(torch.int32).contiguous(),
+                     qk.to(torch.bfloat16).float(), row="int8-k")
+        del idx, qk, probe
 
         def reload(idx_root):
             saved, save_s = timed(lambda: db.indexes.save_all(idx_root))
@@ -3654,8 +3740,9 @@ def ep_shard_step(kernels, launches, smi):
     kernels' plain versions' (ids, distances within B7's bar), the brute
     scan's ids equal the plain exact int8 scan's.  Here: B7-int8 against
     its plain version at this shape (8 queries x 64 probes x 512 x 768,
-    kernel row gather_dots_int8-ep, its launches put back), and the path's
-    launches -> B7 gather_dots int8, B3 pos_scan int8 at W 768."""
+    kernel row gather_dots_int8-ep) and its plan sweep at 1 and 8 queries,
+    their launches put back; the cold and warm builds' codes equal; and the
+    path's launches -> B7 gather_dots int8, B3 pos_scan int8 at W 768."""
     import torch
 
     import erlvectordb_tpu_torch.ops.cell_probe as cp
@@ -3668,9 +3755,12 @@ def ep_shard_step(kernels, launches, smi):
             idx.centroids, q, active, metric="cosine", nprobe=64,
             centroids_route=idx.cents_route, cn2=idx.cn2).to(
                 torch.int32).contiguous()
-        gather_check(kernels, "int8", idx.codes.reshape(
-            idx.n_cells, idx.cell_cap, -1), probe,
-            q.to(torch.bfloat16).float(), row="int8-ep")
+        codes3 = idx.codes.reshape(idx.n_cells, idx.cell_cap, -1)
+        qbf = q.to(torch.bfloat16).float()
+        gather_check(kernels, "int8", codes3, probe, qbf, row="int8-ep")
+        b7_int8_sweep("ep_shard", codes3,
+                      lambda b, nprobe: probe[:b, :nprobe].contiguous(), qbf,
+                      (1, 8), 64)
         restore_launches(held)
 
     reset_launches()
@@ -3683,6 +3773,10 @@ def ep_shard_step(kernels, launches, smi):
         if not launches["ep"].get(kname, {}).get("int8"):
             raise AssertionError(f"ep_shard never launched {kname}[int8]: "
                                  f"{launches['ep']}")
+    if not row["builds_codes_equal"]:
+        raise AssertionError("ep_shard: the cold and warm builds of one stream "
+                             "gave different codes (the build is not "
+                             "deterministic on the card)")
 
 
 def bench_cli_step(root, smi):
@@ -3861,7 +3955,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     data, held, gt = adc_phase(kernels, launches)
     torch.cuda.empty_cache()
-    index_manager_phase(data, held, gt, launches)
+    index_manager_phase(data, held, gt, kernels, launches)
     del data, held, gt
     torch.cuda.empty_cache()
     hierarchy_phase(kernels, launches)

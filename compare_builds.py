@@ -31,9 +31,10 @@ held-out points, then times, each step ending in a device synchronise:
 chip_smoke.Q_CHUNK; N / 96 cells).  The first ROOT writes the inputs every
 later one reads (BUILD_DIR): the
 Lloyd centroids and, per k-means call of the hierarchy, the supercentroids
-(Lloyd's index_add_ sums in no fixed order on the card, so a second fit
-differs in the last bits), so every checkout assigns, encodes and builds
-the hierarchy from the same centroids.  ``--choices-from ROOT2`` gives a
+(a checkout whose Lloyd sums have no fixed order on the card fits other
+last bits each time; one whose sums differ in order from another's fits
+other bits than it), so every checkout assigns, encodes and builds the
+hierarchy from the same centroids.  ``--choices-from ROOT2`` gives a
 checkout ROOT2's ``_top_choices_all`` inside ``_balanced_assign`` (for a
 checkout whose choice lists would take too long at this size; its
 ``choices`` step still times its own).  Each process prints one JSON line:

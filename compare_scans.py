@@ -26,9 +26,12 @@ chip_smoke.py names for it:
     for the rq_m = 9 store (f-rq) of the same corpus (f_rq_*)
   * B7 int4 alone on store (f)'s cells and routed probe lists: 1024 queries
     at nprobe 64 and 512, 1, 16, 64 and 256 queries at nprobe 64 (b7_int4_*)
-  * B7 int8 alone at (i)'s shapes: 256 queries x 64 probes of a 20,224-cell
-    table of 512 x 768 random int8 codes, probes drawn at random (seeded);
-    also a hash of its output, equal between checkouts that share the kernel
+  * B7 int8 alone at (i)'s, (ep_shard)'s, (q)'s and (k)'s shapes on seeded
+    random codes and probes (``B7_I8_SHAPES``), with a hash of each output
+    (equal between checkouts that share the kernel) and whether a second
+    call gives the same bits; where the checkout takes int8 plans, each
+    plan kind of ``chip_smoke.b7_int8_plans`` and the three-call PyTorch
+    equivalent (gather, bf16 conversion, ``torch.bmm``: not one call)
   * the ADC kernels alone on (j)'s codes and the LUTs of its first 512-query
     batch, as chip_smoke.adc_kernel_checks calls them: B8, B9 and B10-int8
     at 512 queries, B10-bf16 (the f32 LUT) at 512, 1, 16 and 64 (adc_*);
@@ -36,7 +39,7 @@ chip_smoke.py names for it:
     seeded random codes, LUTs and rerank rows ((j)'s own codes differ from
     run to run: the OPQ fit on the card is not deterministic)
 
-    python3 compare_scans.py ROOT [ROOT ...]
+    python3 compare_scans.py [--only b7_int8] ROOT [ROOT ...]
 
 Each ROOT is a directory holding an ``erlvectordb_tpu_torch`` package (a
 checkout, or ``git archive`` of one); they run in the order given, so
@@ -165,8 +168,23 @@ def b7_int4(store, queries, out) -> None:
                     f"b7_int4_bq{bq}_np{nprobe}")
 
 
+# B7-int8's shapes on seeded random codes: table (cells, cap, W) and the
+# (queries, probes) probing it at random -- (i) and (ep_shard) on cells of
+# 512 x 768 (20,224 cells: (i)'s 16,384 pairs land on ~11,250 distinct ones,
+# as its index's do on 11,024), (q) on 218,640 cells of 128 x 128 (its
+# layout; 32,768 pairs on ~30,500 distinct), (k)'s single search_index query
+B7_I8_TABLES = {"wide": (20_224, 512, 768), "narrow": (218_640, 128, 128)}
+B7_I8_SHAPES = {"i": ("wide", 256, 64), "ep": ("wide", 8, 64),
+                "q": ("narrow", 1024, 32), "k": ("narrow", 1, 32)}
+
+
 def b7_int8(out) -> None:
-    """B7 int8 at the cell-probe index's shapes, on seeded random codes."""
+    """B7 int8 at (i)'s, (ep_shard)'s, (q)'s and (k)'s shapes on seeded
+    random codes: the wrapper's plan timed, a hash of its output (equal
+    between checkouts that share the kernel) and whether a second call
+    gives the same bits; where the checkout takes int8 plans, each plan of
+    ``chip_smoke.b7_int8_plans`` (CUDA-event ms, the sort included) and
+    the three-call PyTorch equivalent."""
     import hashlib
 
     import torch
@@ -174,20 +192,38 @@ def b7_int8(out) -> None:
     import erlvectordb_tpu_torch.ops.cell_probe as cp
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
-    codes3 = torch.randint(-127, 128, (20_224, 512, cs.I_DIM), generator=gen,
-                           device="cuda", dtype=torch.int8)
-    bq = cs.B7_BATCH["int8"]
-    probe = torch.randint(0, codes3.shape[0], (bq, cs.B7_NPROBE), generator=gen,
-                          device="cuda", dtype=torch.int32)
-    q = torch.randn((bq, cs.I_DIM), generator=gen, device="cuda"
-                    ).to(torch.bfloat16).float()
-    res = cp.gather_dots(codes3, probe, q)
-    out["b7_int8_output_sha256"] = hashlib.sha256(
-        res.cpu().numpy().tobytes()).hexdigest()
-    timed_calls(lambda: cp.gather_dots(codes3, probe, q), out,
-                f"b7_int8_bq{bq}_np{cs.B7_NPROBE}")
-    del codes3
-    torch.cuda.empty_cache()
+    for table, (n_cells, cap, w) in B7_I8_TABLES.items():
+        codes3 = torch.randint(-127, 128, (n_cells, cap, w), generator=gen,
+                               device="cuda", dtype=torch.int8)
+        for tag, (t, bq, nprobe) in B7_I8_SHAPES.items():
+            if t != table:
+                continue
+            probe = torch.randint(0, n_cells, (bq, nprobe), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            q = torch.randn((bq, w), generator=gen, device="cuda"
+                            ).to(torch.bfloat16).float()
+            hashes = [hashlib.sha256(cp.gather_dots(codes3, probe, q).cpu()
+                                     .numpy().tobytes()).hexdigest()
+                      for _ in range(2)]
+            out[f"b7_int8_{tag}_output_sha256"] = hashes[0]
+            out[f"b7_int8_{tag}_second_call_equal"] = hashes[1] == hashes[0]
+            out[f"b7_int8_{tag}_distinct_cells"] = int(torch.unique(probe).numel())
+            timed_calls(lambda: cp.gather_dots(codes3, probe, q), out,
+                        f"b7_int8_{tag}_bq{bq}_np{nprobe}")
+            if not hasattr(cp, "B7_TILE_ROWS"):
+                continue
+            out[f"b7_int8_{tag}_sweep_ms"] = {
+                name: cs.cuda_ms(lambda: cp.gather_dots(codes3, probe, q,
+                                                        plan=plan), reps=20)
+                for name, plan in cs.b7_int8_plans(
+                    -(-cap // cp.B7_TILE_ROWS)).items()}
+            out[f"b7_int8_{tag}_plan"] = cp.b7_plan_for(bq * nprobe, bq, "int8",
+                                                        cap, cap * w)
+            out[f"b7_int8_{tag}_three_calls_ms"] = cs.cuda_ms(
+                lambda: cs.b7_three_calls(codes3, probe, q), reps=5)
+            del probe, q
+        del codes3
+        torch.cuda.empty_cache()
 
 
 def adc_calls(codes_p, i8_p, sc_p, n2_p, nt, q, lut3) -> dict:
@@ -247,7 +283,7 @@ def adc_kernels(cb, codes_p, i8_p, sc_p, n2_p, nt, tq, out) -> None:
                 x.cpu().numpy().tobytes()).hexdigest()
 
 
-def measure(root: str) -> dict:
+def measure(root: str, only: str = "") -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -256,6 +292,9 @@ def measure(root: str) -> dict:
 
     dev = torch.device("cuda")
     out = {"root": root, "package": os.path.dirname(erlvectordb_tpu_torch.__file__)}
+    if only == "b7_int8":
+        b7_int8(out)
+        return out
     corpus = cs.make_corpus(cs.SEED, cs.N_ROWS)
     queries = cs.make_corpus(cs.SEED + 1, cs.BATCH)
     for name, (rows, kw, paths) in STORES.items():
@@ -305,8 +344,15 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("compare_scans: no CUDA device", file=sys.stderr)
         return 1
+    only = ""
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        only, argv = argv[1], argv[2:]
+        if only != "b7_int8":
+            print(f"compare_scans: --only takes b7_int8, not {only!r}",
+                  file=sys.stderr)
+            return 2
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(measure(argv[1])), flush=True)
+        print(json.dumps(measure(argv[1], only)), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -315,7 +361,8 @@ def main(argv: list[str]) -> int:
     rc = 0
     for root in argv:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root], text=True, capture_output=True)
+                               *(["--only", only] if only else []), "--one",
+                               root], text=True, capture_output=True)
         sys.stdout.write(proc.stdout)
         if proc.returncode:
             sys.stderr.write(proc.stderr[-4000:])

@@ -1832,7 +1832,11 @@ class VectorStore:
         refinements, residual int4 quantization.  From 200k rows the
         device-side streaming engine builds instead (ops/cell_build.py)."""
         from erlvectordb_tpu_torch.core.ivf import _balanced_assign
-        from erlvectordb_tpu_torch.ops.kmeans import kmeans_fit
+        from erlvectordb_tpu_torch.ops.kmeans import (
+            kmeans_fit,
+            segment_sum_dtype,
+            segment_sums_,
+        )
 
         x = np.asarray(matrix, np.float32)
         n, d = x.shape
@@ -1860,14 +1864,14 @@ class VectorStore:
         # members it actually got, then reassign
         xp_t = self._put(xp)
         for _ in range(2):
-            owner_t = self._put(owner)
-            sums = torch.zeros((k_real, width), dtype=torch.float32,
-                               device=self.device).index_add_(0, owner_t, xp_t)
+            sums = torch.zeros((k_real, width),
+                               dtype=segment_sum_dtype(self.device),
+                               device=self.device)
             cnt = torch.zeros((k_real,), dtype=torch.float32,
-                              device=self.device).index_add_(
-                0, owner_t, torch.ones((n,), dtype=torch.float32,
-                                       device=self.device))
-            cents_np = (sums / torch.clamp(cnt, min=1.0)[:, None]).cpu().numpy()
+                              device=self.device)
+            segment_sums_(sums, cnt, self._put(owner).long(), xp_t)
+            cents_np = (sums / torch.clamp(cnt, min=1.0)[:, None]
+                        ).float().cpu().numpy()
             owner = _balanced_assign(xp, cents_np, cap_c, j=16,
                                      device=self.device)
         order = np.argsort(owner, kind="stable")

@@ -21,8 +21,8 @@
 // 32-bit code word, i.e. elements [0 2 4 6 | 1 3 5 7] of its 8-element
 // group: the order in which the wrappers already hand over the query.
 //
-// Below them, the bf16 mma.sync helpers of B7's packed-int4 gather
-// (cell_probe.cu).
+// Below them, the bf16 mma.sync helpers of B7's gather (cell_probe.cu), on
+// packed int4 and int8 codes.
 
 #pragma once
 
@@ -99,7 +99,7 @@ __device__ __forceinline__ void warp_tile_dots(const int8_t* qs, int qp,
   }
 }
 
-// ------------------------------------------- bf16 mma.sync (B7, int4 codes)
+// ---------------------------------- bf16 mma.sync (B7, int4 and int8 codes)
 //
 // mma.sync m16n8k16 bf16 with f32 accumulators, thread (g = lane / 4,
 // t = lane % 4):
@@ -125,6 +125,20 @@ __device__ __forceinline__ void nibbles_bf16(uint32_t w, uint32_t (&r)[4]) {
   for (int i = 0; i < 4; ++i)   // x * 1.0 - 136.0
     asm("fma.rn.bf16x2 %0, %0, %1, %2;\n"
         : "+r"(r[i]) : "r"(0x3F803F80u), "r"(0xC308C308u));
+}
+
+// one int8 code word (signed bytes i = 0..3) -> two bf16x2, r[0] = (byte 0,
+// byte 1), r[1] = (byte 2, byte 3): a byte's low 7 bits m under 0x43 are the
+// bf16 128 + m, its sign bit s under 0xC3 the bf16 -(128 + 128 s), and their
+// sum is the signed byte m - 128 s (every step exact)
+__device__ __forceinline__ void bytes_bf16(uint32_t w, uint32_t (&r)[2]) {
+  const uint32_t m = w & 0x7F7F7F7Fu, s = w & 0x80808080u;
+  const uint32_t c0 = __byte_perm(s, 0xC3C3C3C3u, 0x4140);   // s0 C3 s1 C3
+  const uint32_t c1 = __byte_perm(s, 0xC3C3C3C3u, 0x4342);   // s2 C3 s3 C3
+  r[0] = __byte_perm(m, 0x43434343u, 0x4140);                // m0 43 m1 43
+  r[1] = __byte_perm(m, 0x43434343u, 0x4342);
+  asm("fma.rn.bf16x2 %0, %0, %1, %2;\n" : "+r"(r[0]) : "r"(0x3F803F80u), "r"(c0));
+  asm("fma.rn.bf16x2 %0, %0, %1, %2;\n" : "+r"(r[1]) : "r"(0x3F803F80u), "r"(c1));
 }
 
 // two f32 -> one bf16x2 (round to nearest even), lo in the low half

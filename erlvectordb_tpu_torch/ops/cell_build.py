@@ -47,7 +47,11 @@ from erlvectordb_tpu_torch.ops.fused_topk import (
     full_f32_matmul,
     mul_recip,
 )
-from erlvectordb_tpu_torch.ops.kmeans import kmeans_fit
+from erlvectordb_tpu_torch.ops.kmeans import (
+    kmeans_fit,
+    segment_sum_dtype,
+    segment_sums_,
+)
 
 # Inputs above this row count finish the assignment in levels of a few
 # rounds that give up early when a level places < 5% of its active rows.
@@ -249,16 +253,15 @@ def _refit_centroids(codes8, scales, owner, cents_old, *, k, sub, step=1):
     (``owner`` indexes every step-th ``sub``-row sub-chunk densely); empty
     cells keep their old centroid."""
     w = codes8.shape[1]
-    sums = torch.zeros((k + 1, w), dtype=torch.float32, device=codes8.device)
+    sums = torch.zeros((k + 1, w), dtype=segment_sum_dtype(codes8.device),
+                       device=codes8.device)
     cnt = torch.zeros((k + 1,), dtype=torch.float32, device=codes8.device)
     o_all = owner.long()
     for c in range(owner.shape[0] // sub):
         r0 = c * sub * step
         x = codes8[r0:r0 + sub].float() * scales[r0:r0 + sub, None]
-        o = o_all[c * sub:(c + 1) * sub]
-        sums.index_add_(0, o, x)
-        cnt.index_add_(0, o, torch.ones_like(o, dtype=torch.float32))
-    cents = sums[:k] / torch.clamp(cnt[:k], min=1.0)[:, None]
+        segment_sums_(sums, cnt, o_all[c * sub:(c + 1) * sub], x)
+    cents = (sums[:k] / torch.clamp(cnt[:k], min=1.0)[:, None]).float()
     return torch.where((cnt[:k] > 0.5)[:, None], cents, cents_old)
 
 

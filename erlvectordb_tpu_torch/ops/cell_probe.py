@@ -22,11 +22,11 @@ gather+dot kernel B7 (``gather_dots``, ``csrc/cell_probe.cu``) on the
 bf16-rounded query held as f32 — the precision class of the JAX package's
 path, where the TPU kernel multiplies at bf16 class and its CPU path rounds
 the query to bf16 with f32 accumulation.  Every multiprobe search on a CUDA
-device launches B7, for any nprobe, cell size and batch: on packed int4
-codes, with products on bf16 tensor cores, and from B7_SORT_MIN_PAIRS
-(query, probe) pairs sorted by cell (``b7_plan``) so a block reads each
-probed cell once for the queries of its window; on the CPU the plain
-version ``gather_dots_ref`` answers.
+device launches B7, for any nprobe, cell size and batch: on packed int4 and
+int8 codes alike, with products on bf16 tensor cores, and, where pairs
+share cells (``b7_plan_for``), on (query, probe) pairs sorted by cell
+(``b7_plan``) so a block reads each probed cell once for the queries of its
+window; on the CPU the plain version ``gather_dots_ref`` answers.
 
 The TPU accommodations of the JAX module do not carry over: the TPU gate and
 the VMEM/SMEM batch chunking, the [evens | odds] query reorder and the
@@ -105,42 +105,73 @@ def gather_dots_ref(codes3, probe, queries):
     return out
 
 
-# B7-int4's plan: from B7_SORT_MIN_PAIRS (query, probe) pairs, windows of
-# B7_WINDOW pairs sorted by cell; below, windows of 1 to B7_PIPELINE pairs
-# in pair order, as few as fill B7_BLOCKS blocks (132 SMs x 4 resident
-# blocks of the kernel); one pair a window for one query
+# B7's plan (window, sort, split), ``b7_plan_for``: pairs sorted by cell
+# from B7_SORT_MIN_PAIRS (query, probe) pairs on int4 cells (windows of
+# B7_WINDOW), from B7_SORT_MIN_BYTES of probed int8 blocks (pairs x a cell's
+# bytes; windows of B7_PIPELINE); below, windows of 1 to B7_PIPELINE pairs in
+# pair order, as few as fill B7_BLOCKS blocks (132 SMs x 4 resident blocks of
+# the kernel); one pair a window for one query; and a run's row tiles split
+# across blocks while the blocks are fewer than B7_BLOCKS
 B7_WINDOW = 32
 B7_SORT_MIN_PAIRS = 65536
+B7_SORT_MIN_BYTES = 1 << 32
 B7_PIPELINE = 8
 B7_BLOCKS = 528
-B7_CHUNK = 128   # k elements of the kernel's chunk
+B7_CHUNK = 128        # k elements of the kernel's chunk
+B7_TILE_ROWS = 128    # code rows of the kernel's tile
 
 
-def b7_query_order(w: int) -> np.ndarray:
-    """The k order of B7-int4 (``csrc/cell_probe.cu``): the element of a
-    query row of width ``w`` staged at each position of its bf16 row, in
-    chunks of 128 (the last one zero past ``w``: -1).  In each chunk, position
-    32m + 8t + i holds element 32t + 8m + i: the 8-element groups transposed,
-    so thread t of a quad reads its B fragments for mma k steps 2m, 2m + 1 as
-    the 16 bytes at 64m + 16t, matching the A fragments it takes from bytes
-    16t .. 16t + 15 of the packed code chunk."""
+def b7_query_order(w: int, layout: str = "int4") -> np.ndarray:
+    """The k order of B7 (``csrc/cell_probe.cu``): the element of a query
+    row of width ``w`` staged at each position of its bf16 row, in chunks of
+    128 (the last one zero past ``w``: -1).
+
+    int4: in each chunk, position 32m + 8t + i holds element 32t + 8m + i
+    (the 8-element groups transposed), so thread t of a quad reads its B
+    fragments for mma k steps 2m, 2m + 1 as the 16 bytes at 64m + 16t,
+    matching the A fragments it takes from bytes 16t .. 16t + 15 of the
+    packed code chunk.  int8: every element at its own position: thread t
+    takes 16-byte pieces t and t + 4 of the 128-byte code chunk, word c of
+    them (word c % 4 of piece t + 4 (c // 4)) for k step c, whose four codes
+    are elements 16 (t + 4 (c // 4)) + 4 (c % 4) + 0..3, and its B fragments
+    for k steps c, c + 1 (c even) as the 16 bytes at 32t + 128 (c // 4) + 8
+    (c % 4) of the staged row: the same elements."""
     n = -(-w // B7_CHUNK) * B7_CHUNK
     p = np.arange(n)
+    if layout == "int8":
+        return np.where(p < w, p, -1)
+    if layout != "int4":
+        raise ValueError(f"b7_query_order: unknown layout {layout!r}")
     m, t, i = (p % B7_CHUNK) // 32, (p % 32) // 8, p % 8
     e = p - p % B7_CHUNK + 32 * t + 8 * m + i
     return np.where(e < w, e, -1)
 
 
-def b7_plan_for(n_pairs: int, batch: int):
-    """(window, sort): B7-int4's plan for ``n_pairs`` (query, probe) pairs.
-    One query's probes are distinct cells, and few pairs share few cells,
-    so neither sorts (the sort's launches would cost more than the reads it
-    saves): windows in pair order, one pair for one query."""
-    if batch > 1 and n_pairs >= B7_SORT_MIN_PAIRS:
-        return B7_WINDOW, True
-    if batch == 1:
-        return 1, False
-    return max(1, min(B7_PIPELINE, -(-n_pairs // B7_BLOCKS))), False
+def b7_plan_for(n_pairs: int, batch: int, layout: str = "int4",
+                cap: int = 128, cell_bytes: int = 0):
+    """(window, sort, split): B7's plan for ``n_pairs`` (query, probe) pairs
+    of ``batch`` queries on cells of ``cap`` rows and ``cell_bytes`` bytes.
+
+    Sorted where pairs share enough cells that the reads saved outweigh the
+    sorted windows' cost: from B7_SORT_MIN_PAIRS pairs on int4 cells (a few
+    KB each), in windows of B7_WINDOW; from B7_SORT_MIN_BYTES of probed
+    blocks on int8 cells (up to 60 times larger), in windows of B7_PIPELINE
+    (at the cell-probe index's 512 x 768 cells, sorting paid at 256 queries
+    x 64 probes, 6.4 GB, and not at 64 x 64, 1.6 GB; windows of 8 beat 16
+    and 32: PERF.md §6).  One query's probes are distinct cells, so one
+    query never sorts: one pair a window.
+    Otherwise windows in pair order, as few pairs a window as fill
+    B7_BLOCKS blocks.  While the blocks are fewer than B7_BLOCKS, a run's
+    row tiles split across them."""
+    tiles = max(1, -(-cap // B7_TILE_ROWS))
+    if batch > 1 and (n_pairs * cell_bytes >= B7_SORT_MIN_BYTES
+                      if layout == "int8" else n_pairs >= B7_SORT_MIN_PAIRS):
+        window, sort = (B7_PIPELINE if layout == "int8" else B7_WINDOW), True
+    else:
+        window, sort = (1 if batch == 1 else
+                        max(1, min(B7_PIPELINE, -(-n_pairs // B7_BLOCKS)))), False
+    blocks = -(-n_pairs // window)
+    return window, sort, max(1, min(tiles, B7_BLOCKS // blocks))
 
 
 def b7_plan(probe, sort):
@@ -156,11 +187,11 @@ def b7_plan(probe, sort):
 
 def gather_dots(codes3, probe, queries, *, plan=None):
     """B7: the raw residual dots [B, nprobe, cap] f32 of each query against
-    each probed cell's code block (int8 [K, cap, W] or packed int4 [K, cap,
-    W/2] codes; probe [B, nprobe] int32; queries [B, W] f32, bf16-exact for
-    packed codes, which the kernel multiplies in bf16).  Replaces
-    erlvectordb_tpu ``_dma_gather_dots``.  Probe ids outside [0, K) are
-    clamped into it by the kernel.  ``plan``: B7-int4's (window, sort)
+    each probed cell's code block (int8 [K, cap, W] codes, W a multiple of
+    16, or packed int4 [K, cap, W/2], W a multiple of 32; probe [B, nprobe]
+    int32; queries [B, W] f32, bf16-exact: the kernel multiplies in bf16).
+    Replaces erlvectordb_tpu ``_dma_gather_dots``.  Probe ids outside [0, K)
+    are clamped into it by the kernel.  ``plan``: (window, sort, split)
     (default ``b7_plan_for``); the output does not depend on it."""
     if codes3.device.type == "cpu":
         return gather_dots_ref(codes3, probe, queries)
@@ -187,35 +218,26 @@ def gather_dots(codes3, probe, queries, *, plan=None):
     if wc % 16 or codes3.data_ptr() % 16 or queries.data_ptr() % 16:
         raise ValueError("gather_dots: rows must be 16-byte multiples, "
                          "16-byte aligned")
-    if variant == "int8" and 4 * w > 48 * 1024:
-        raise ValueError(f"gather_dots: query rows of {w} f32 exceed the "
-                         "kernel's shared memory")
     if b * nprobe >= 2 ** 31:
         raise ValueError("gather_dots: more than 2^31 - 1 (query, probe) pairs")
-    if variant == "int8":
-        if plan is not None:
-            raise ValueError("gather_dots: int8 codes take no plan")
-    else:
-        window, sort = b7_plan_for(b * nprobe, b) if plan is None else plan
-        if not 1 <= window <= B7_WINDOW:
-            raise ValueError(f"gather_dots: window {window} not in "
-                             f"[1, {B7_WINDOW}]")
+    window, sort, split = (b7_plan_for(b * nprobe, b, variant, cap, cap * wc)
+                           if plan is None else plan)
+    if not 1 <= window <= B7_WINDOW:
+        raise ValueError(f"gather_dots: window {window} not in [1, {B7_WINDOW}]")
+    tiles = -(-cap // B7_TILE_ROWS)
+    if not 1 <= split <= tiles:
+        raise ValueError(f"gather_dots: split {split} not in [1, {tiles}] "
+                         f"(row tiles of a {cap}-row cell)")
     out = torch.empty((b, nprobe, cap), dtype=torch.float32,
                       device=queries.device)
     if b == 0 or nprobe == 0:
         return out
-    lib = cuda_lib.library()
-    if variant == "int8":
-        rc = lib.evdb_gather_dots(
-            codes3.data_ptr(), probe.data_ptr(), queries.data_ptr(), k_cells,
-            cap, wc, w, b, nprobe, out.data_ptr(), _stream())
-    else:
-        cells, order = b7_plan(probe, sort)
-        rc = lib.evdb_gather_dots_i4(
-            codes3.data_ptr(), cells.data_ptr(),
-            None if order is None else order.data_ptr(), queries.data_ptr(),
-            k_cells, cap, w, nprobe, b * nprobe, window, out.data_ptr(),
-            _stream())
+    cells, order = b7_plan(probe, sort)
+    rc = cuda_lib.library().evdb_gather_dots(
+        codes3.data_ptr(), cells.data_ptr(),
+        None if order is None else order.data_ptr(), queries.data_ptr(),
+        k_cells, cap, w, nprobe, b * nprobe, window, split,
+        int(variant == "int8"), out.data_ptr(), _stream())
     cuda_lib.check(rc, "gather_dots")
     _count(gather_dots, variant)
     return out

@@ -54,8 +54,8 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "evdb_cell_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _P, _P, _P],
-    "evdb_gather_dots": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    "evdb_gather_dots_i4": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "evdb_gather_dots": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _P],
     "evdb_adc_scan_i8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "evdb_adc_scan_bf16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P],

@@ -7,7 +7,8 @@ subspace variants ``kmeans_fit_subspaces``/``kmeans_refine_subspaces``,
 where the JAX package vmaps over the M subspaces and this module loops).
 The assignment step
 is one ``X @ C^T`` product per row chunk and the update a segment sum
-(``index_add_``).  Random draws come from a ``torch.Generator`` seeded with
+(``segment_sums_``: ``index_add_`` on the CPU, a sum of fixed order on
+CUDA, so a build on the card is the same from run to run).  Random draws come from a ``torch.Generator`` seeded with
 ``seed``: the same seed does not give the JAX package's draws, so its tests
 hand both sides the same initial centroids.
 """
@@ -21,6 +22,58 @@ import torch
 from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
 
 _ELEMS_BUDGET = 1 << 26  # cap on materialized [rows, K] f32 intermediates
+_SEG_ELEMS = 1 << 24     # rows x columns of one pass of segment_sums_
+
+
+def segment_sum_dtype(device) -> torch.dtype:
+    """The dtype of ``segment_sums_``'s sums: float32 on the CPU, float64
+    on CUDA."""
+    return torch.float64 if torch.device(device).type == "cuda" else torch.float32
+
+
+def segment_sums_(sums: torch.Tensor, counts: torch.Tensor, seg: torch.Tensor,
+                  x: torch.Tensor) -> None:
+    """sums[seg[i]] += x[i] and counts[seg[i]] += 1 for each row i of x
+    [N, D] (seg [N] int64 in [0, len(sums))), in place.
+
+    On the CPU, ``index_add_``.  On CUDA, whose ``index_add_`` adds floats
+    by atomics in an order that changes from run to run (two builds of one
+    stream gave two sets of centroids, hence of codes), in an order fixed by
+    the data: the rows sorted by segment (stable), each run's sum read off a
+    float64 prefix sum along the rows (a [D, rows] scan) at its two ends and
+    added at its last row, every other row adding 0 (exact in any order);
+    ``sums`` is float64 there (``segment_sum_dtype``) and ``counts`` are
+    added from ``bincount``."""
+    if x.device.type != "cuda":
+        sums.index_add_(0, seg, x)
+        counts.index_add_(0, seg, torch.ones_like(seg, dtype=counts.dtype))
+        return
+    fixed_order_segment_sums_(sums, counts, seg, x)
+
+
+def fixed_order_segment_sums_(sums, counts, seg, x) -> None:
+    """``segment_sums_``'s CUDA arithmetic, on any device (float64
+    ``sums``)."""
+    n, d = x.shape
+    step = max(1, _SEG_ELEMS // max(d, 1))
+    zero = torch.zeros((), dtype=torch.float64, device=x.device)
+    for r0 in range(0, n, step):
+        s, order = torch.sort(seg[r0:r0 + step], stable=True)
+        m = s.shape[0]
+        new = torch.ones((m,), dtype=torch.bool, device=s.device)
+        new[1:] = s[1:] != s[:-1]
+        last = torch.ones_like(new)
+        last[:-1] = new[1:]
+        idx = torch.arange(m, device=s.device)
+        start = torch.cummax(torch.where(new, idx, 0), dim=0).values
+        # at least two scanned rows: a single one would go to cub's device
+        # scan, whose float sums are not of fixed order
+        xt = torch.nn.functional.pad(x[r0:r0 + step][order].double().T,
+                                     (0, 0, 0, 1 if d == 1 else 0))
+        pre = torch.cumsum(xt.contiguous(), dim=1)[:d]
+        before = torch.where(start > 0, pre[:, (start - 1).clamp(min=0)], zero)
+        sums.index_add_(0, s, torch.where(last, pre - before, zero).T)
+        counts += torch.bincount(s, minlength=counts.shape[0]).to(counts.dtype)
 
 
 def _assign(x: torch.Tensor, cents: torch.Tensor,
@@ -45,11 +98,11 @@ def _assign(x: torch.Tensor, cents: torch.Tensor,
 def _update(x: torch.Tensor, assign: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean per cluster (segment sums); returns (centroids, counts)."""
-    sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
-    sums.index_add_(0, assign, x)
+    sums = torch.zeros((k, x.shape[1]), dtype=segment_sum_dtype(x.device),
+                       device=x.device)
     counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
-    counts.index_add_(0, assign, torch.ones_like(assign, dtype=torch.float32))
-    return sums / torch.clamp(counts, min=1.0)[:, None], counts
+    segment_sums_(sums, counts, assign, x)
+    return (sums / torch.clamp(counts, min=1.0)[:, None]).float(), counts
 
 
 def _kpp_init(x: torch.Tensor, gen: torch.Generator, k: int) -> torch.Tensor:

@@ -770,3 +770,52 @@ class TestEightBitAndSpill:
         r_port = recall(CellProbeIndex.build_streaming(
             _chunks(clustered, 1024), device="cpu", **kw))
         assert abs(r_port - r_jax) <= 0.03, (r_port, r_jax)
+
+
+# ------------------------------------------ the build's segment sums (k-means)
+
+
+@pytest.mark.parametrize("n,d,k", [(1, 1, 1), (7, 1, 3), (1000, 3, 17),
+                                   (4096, 128, 40)])
+def test_segment_sums_on_the_cpu_are_index_add(n, d, k):
+    """On the CPU, segment_sums_ is index_add_ itself: the same bits the
+    JAX-parity tests above were written against."""
+    rng = np.random.default_rng(n + d)
+    x = _t(rng.standard_normal((n, d)).astype(np.float32))
+    seg = _t(rng.integers(0, k, n))
+    assert tkm.segment_sum_dtype("cpu") == torch.float32
+    sums, counts = torch.zeros((k, d)), torch.zeros((k,))
+    tkm.segment_sums_(sums, counts, seg, x)
+    want = torch.zeros((k, d)).index_add_(0, seg, x)
+    assert torch.equal(sums, want)
+    assert torch.equal(counts, torch.bincount(seg, minlength=k).float())
+
+
+@pytest.mark.parametrize("step_elems", [1, 64, 1 << 24])
+@pytest.mark.parametrize("n,d,k", [(1, 1, 1), (7, 1, 3), (1000, 3, 17),
+                                   (4096, 128, 40), (300, 16, 1)])
+def test_fixed_order_segment_sums_are_the_sums(monkeypatch, step_elems, n, d, k):
+    """The CUDA arithmetic of segment_sums_ (sorted runs, float64 prefix sums
+    along the rows, one add a run), on the CPU in passes of any size: the
+    float64 sums to 1e-12 relative, exact counts, and the same bits from
+    run to run (and in one pass as in passes of at least the whole input)."""
+    rng = np.random.default_rng(n * d + k)
+    x = _t(rng.standard_normal((n, d)).astype(np.float32))
+    seg = _t(rng.integers(0, k, n))
+    monkeypatch.setattr(tkm, "_SEG_ELEMS", step_elems)
+    got = []
+    for _ in range(2):
+        sums = torch.zeros((k, d), dtype=torch.float64)
+        counts = torch.zeros((k,))
+        tkm.fixed_order_segment_sums_(sums, counts, seg, x)
+        got.append((sums, counts))
+    assert torch.equal(got[0][0], got[1][0])
+    want = torch.zeros((k, d), dtype=torch.float64).index_add_(0, seg, x.double())
+    np.testing.assert_allclose(got[0][0].numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    assert torch.equal(got[0][1], torch.bincount(seg, minlength=k).float())
+    monkeypatch.setattr(tkm, "_SEG_ELEMS", 1 << 24)
+    whole = torch.zeros((k, d), dtype=torch.float64)
+    tkm.fixed_order_segment_sums_(whole, torch.zeros((k,)), seg, x)
+    if step_elems >= n * d:
+        assert torch.equal(whole, got[0][0])

@@ -141,11 +141,85 @@ def test_b7_fragment_order_gives_the_plain_dot(w):
     np.testing.assert_array_equal(acc, vals.astype(np.float64) @ q.T)
 
 
-def _emulate_b7_plan(codes3, probe, q, window, sort):
+def _bytes_bf16(word):
+    """mma_scan.cuh's bytes_bf16 on one 32-bit word, by its bits: the four
+    signed bytes as the values of the two bf16 pairs it forms (low byte the
+    lower k)."""
+    def bf16(bits):
+        return float(np.array([bits << 16], np.uint32).view(np.float32)[0])
+    out = []
+    for i in range(4):
+        byte = (int(word) >> (8 * i)) & 0xFF
+        out.append(bf16(0x4300 | (byte & 0x7F)) + bf16(0xC300 | (byte & 0x80)))
+    return out
+
+
+def test_b7_int8_conversion_is_exact():
+    """Every byte's bf16 pair sums to its signed value, and each summand is
+    an exact bf16 (the fma.rn.bf16x2 that adds them does not round)."""
+    words = np.arange(256, dtype=np.uint32) * 0x01010101
+    for word in words:
+        got = _bytes_bf16(word)
+        want = np.array([int(word) & 0xFF] * 4, np.uint8).view(np.int8)
+        assert got == [float(v) for v in want]
+
+
+@pytest.mark.parametrize("w", [16, 128, 768, 1536])
+def test_b7_int8_fragment_order_gives_the_plain_dot(w):
+    """The int8 layout's k order in the model of mma.sync m16n8k16's bf16
+    fragments: the tile stored as cp.async stores it (piece p of row r at
+    slot p ^ 4 (r & 1)), A from word c % 4 of piece t + 4 (c // 4) (read
+    back through the swizzle) converted by ``_bytes_bf16``, B from the 16
+    bytes at 32t + 128 (c // 4) + 8 (c % 4) of the query row staged in
+    ``b7_query_order(w, "int8")``.  Summed over the k steps, the fragments
+    give the plain dot exactly (integer inputs, codes over all of -128..127)."""
+    rng = np.random.default_rng(w + 1)
+    vals = rng.integers(-128, 128, (16, w)).astype(np.int8)
+    vals[0, :8] = [-128, 127, -1, 0, 1, -127, 64, -64]
+    q = rng.integers(-50, 51, (8, w)).astype(np.float64)
+    order = tcp.b7_query_order(w, "int8")
+    assert len(order) % 128 == 0 and len(order) - w < 128
+    assert sorted(order[order >= 0]) == list(range(w))
+    staged = np.where(order >= 0, q[:, np.maximum(order, 0)], 0.0)
+    nk = len(order) // 128
+    rows = np.zeros((16, nk * 128), np.int8)
+    rows[:, :w] = vals
+    words = rows.view(np.uint8)
+    acc = np.zeros((16, 8))
+    for kc in range(nk):
+        tile = np.zeros((16, 128), np.uint8)
+        for r in range(16):
+            for p in range(8):
+                s = p ^ (4 * (r & 1))
+                tile[r, 16 * s:16 * s + 16] = words[r, kc * 128 + 16 * p:
+                                                    kc * 128 + 16 * p + 16]
+        for c in range(8):
+            a = np.full((16, 16), np.nan)
+            b = np.full((16, 8), np.nan)
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for row in (g, g + 8):
+                    s = 16 * ((t + 4 * (c // 4)) ^ (4 * (row & 1))) + 4 * (c % 4)
+                    word = int(tile[row, s:s + 4].view(np.uint32)[0])
+                    conv = _bytes_bf16(word)
+                    for j in (0, 1):
+                        a[row, 2 * t + 8 * j:2 * t + 8 * j + 2] = conv[2 * j:2 * j + 2]
+                pos = kc * 128 + (32 * t + 128 * (c // 4) + 8 * (c % 4)) // 2
+                for j in (0, 1):
+                    b[2 * t + 8 * j:2 * t + 8 * j + 2, g] = staged[g, pos + 2 * j:
+                                                                   pos + 2 * j + 2]
+            assert not np.isnan(a).any() and not np.isnan(b).any()
+            acc += a @ b
+    np.testing.assert_array_equal(acc, vals.astype(np.float64) @ q.T)
+
+
+def _emulate_b7_plan(codes3, probe, q, window, sort, split=1):
     """The kernel's plan in plain torch: b7_plan's pairs (sorted by cell, or
     in pair order) cut into windows of ``window``, each window walked as
-    runs of equal (clamped) cells, each run's queries dotted with its cell.
-    Returns the output and the number of runs (cell reads)."""
+    runs of equal (clamped) cells, each run's queries dotted with its cell,
+    its 128-row tiles dealt to ``split`` blocks (block y: tiles y, y +
+    split, ...).  Every output row is written exactly once.  Returns the
+    output and the number of runs (cell reads)."""
     b, nprobe = probe.shape
     k_cells, cap, _ = codes3.shape
     cells, order = tcp.b7_plan(probe, sort)
@@ -154,6 +228,7 @@ def _emulate_b7_plan(codes3, probe, q, window, sort):
     cells = cells.clamp(0, k_cells - 1)
     assert torch.all(cells[1:] >= cells[:-1]) or not sort
     out = torch.full((b * nprobe, cap), float("nan"))
+    tiles = -(-cap // tcp.B7_TILE_ROWS)
     runs = 0
     for w0 in range(0, b * nprobe, window):
         w1 = min(b * nprobe, w0 + window)
@@ -161,13 +236,19 @@ def _emulate_b7_plan(codes3, probe, q, window, sort):
         for r0, r1 in zip(starts, starts[1:] + [w1]):
             pairs = order[r0:r1]
             cell = torch.full((r1 - r0, 1), int(cells[r0]), dtype=torch.int32)
-            out[pairs] = tcp.gather_dots_ref(codes3, cell, q[pairs // nprobe])[:, 0]
+            dots = tcp.gather_dots_ref(codes3, cell, q[pairs // nprobe])[:, 0]
+            for y in range(split):
+                for tile in range(y, tiles, split):
+                    rows = slice(tile * tcp.B7_TILE_ROWS,
+                                 min(cap, (tile + 1) * tcp.B7_TILE_ROWS))
+                    assert torch.isnan(out[pairs, rows]).all()
+                    out[pairs, rows] = dots[:, rows]
             runs += 1
     assert not torch.isnan(out).any()
     return out.reshape(b, nprobe, cap), runs
 
 
-def _plan_case(case):
+def _plan_case(case, int8=False):
     rng = np.random.default_rng(len(case))
     k_cells, b, nprobe = 40, 13, 5
     if case == "run-across-windows":     # one cell in every query's list
@@ -183,6 +264,11 @@ def _plan_case(case):
         probe = rng.permutation(k_cells).reshape(b, nprobe)
     else:                                # ids below 0 and past K, clamped
         probe = rng.integers(-4, k_cells + 4, (b, nprobe))
+    if int8:    # cells of three row tiles, the last one ragged
+        vals = rng.integers(-128, 128, (k_cells, 300, 48)).astype(np.int8)
+        q = rng.integers(-20, 21, (b, 48)).astype(np.float32)
+        return (torch.from_numpy(vals), torch.from_numpy(probe.astype(np.int32)),
+                torch.from_numpy(q))
     vals = rng.integers(-8, 8, (k_cells, 3, 64)).astype(np.int8)
     q = rng.integers(-20, 21, (b, 64)).astype(np.float32)
     return (torch.from_numpy(_pack(vals)), torch.from_numpy(probe.astype(np.int32)),
@@ -212,19 +298,79 @@ def test_b7_plan_emulation_matches_plain(case, window, sort):
         assert runs < p // 4
 
 
+@pytest.mark.parametrize("plan", [(1, False, 1), (1, False, 3), (8, False, 2),
+                                  (8, True, 1), (32, True, 3)],
+                         ids=["s1", "s1-split3", "s8-pair-order-split2", "s8",
+                              "s32-split3"])
+@pytest.mark.parametrize("case", ["run-across-windows", "ragged", "same-cells",
+                                  "distinct", "clamped"])
+def test_b7_plan_emulation_matches_plain_int8(case, plan):
+    """The same walk over int8 cells of 300 rows (three row tiles, the last
+    ragged), with the row tiles split across blocks: gather_dots_ref's output
+    exactly, each row written once, and sorted at most (distinct cells +
+    windows) cell reads."""
+    window, sort, split = plan
+    codes3, probe, q = _plan_case(case, int8=True)
+    got, runs = _emulate_b7_plan(codes3, probe, q, window, sort, split)
+    clamped = probe.clamp(0, codes3.shape[0] - 1)
+    assert torch.equal(got, tcp.gather_dots_ref(codes3, clamped, q))
+    p = probe.numel()
+    distinct = int(torch.unique(clamped).numel())
+    assert runs <= distinct + -(-p // window) if sort else runs <= p
+
+
 def test_b7_plan_from_the_pair_count():
     """One query: one pair a window, no sort; few pairs: windows in pair
-    order, as few as fill B7_BLOCKS blocks; many: the widest sorted window."""
-    assert tcp.b7_plan_for(64, 1) == (1, False)
-    assert tcp.b7_plan_for(100_000, 1) == (1, False)
-    assert tcp.b7_plan_for(tcp.B7_BLOCKS, 8) == (1, False)
-    assert tcp.b7_plan_for(16 * 64, 16) == (2, False)
-    assert tcp.b7_plan_for(4 * tcp.B7_BLOCKS, 64) == (4, False)
-    assert tcp.b7_plan_for(tcp.B7_SORT_MIN_PAIRS - 1, 1024) == (tcp.B7_PIPELINE, False)
-    assert tcp.b7_plan_for(tcp.B7_SORT_MIN_PAIRS, 1024) == (tcp.B7_WINDOW, True)
-    assert tcp.b7_plan_for(1024 * 512, 1024) == (tcp.B7_WINDOW, True)
+    order, as few as fill B7_BLOCKS blocks; many: the widest sorted window.
+    The int4r store's cells are one row tile: never split."""
+    assert tcp.b7_plan_for(64, 1) == (1, False, 1)
+    assert tcp.b7_plan_for(100_000, 1) == (1, False, 1)
+    assert tcp.b7_plan_for(tcp.B7_BLOCKS, 8) == (1, False, 1)
+    assert tcp.b7_plan_for(16 * 64, 16) == (2, False, 1)
+    assert tcp.b7_plan_for(4 * tcp.B7_BLOCKS, 64) == (4, False, 1)
+    assert tcp.b7_plan_for(tcp.B7_SORT_MIN_PAIRS - 1, 1024) == (tcp.B7_PIPELINE, False, 1)
+    assert tcp.b7_plan_for(tcp.B7_SORT_MIN_PAIRS, 1024) == (tcp.B7_WINDOW, True, 1)
+    assert tcp.b7_plan_for(1024 * 512, 1024) == (tcp.B7_WINDOW, True, 1)
     cells, order = tcp.b7_plan(torch.tensor([[3, 1], [1, 0]], dtype=torch.int32), True)
     assert cells.tolist() == [0, 1, 1, 3] and order.tolist() == [3, 1, 2, 0]
+
+
+I8_SHAPES = {"i": (256, 64, 512, 768), "q": (1024, 32, 128, 128),
+             "ep": (8, 64, 512, 768), "k": (256, 32, 128, 128)}
+
+
+@pytest.mark.parametrize("shape", sorted(I8_SHAPES))
+def test_b7_plan_for_int8(shape):
+    """int8 cells sort from B7_SORT_MIN_BYTES of probed blocks (pairs x a
+    cell's bytes), not from B7_SORT_MIN_PAIRS, in windows of B7_PIPELINE:
+    the cell-probe index's (i) sorts, (q)'s and (k)'s 16 KB cells and
+    (ep_shard)'s 512 pairs do not; unsorted, windows fill B7_BLOCKS blocks;
+    either way a 512-row cell's 4 row tiles split across blocks while there
+    are fewer."""
+    b, nprobe, cap, w = I8_SHAPES[shape]
+    p = b * nprobe
+    window, sort, split = tcp.b7_plan_for(p, b, "int8", cap, cap * w)
+    assert sort == (p * cap * w >= tcp.B7_SORT_MIN_BYTES)
+    assert sort == (shape == "i")
+    if sort:
+        assert window == tcp.B7_PIPELINE
+    else:
+        assert window == max(1, min(tcp.B7_PIPELINE, -(-p // tcp.B7_BLOCKS)))
+    blocks = -(-p // window)
+    assert 1 <= split <= -(-cap // tcp.B7_TILE_ROWS)
+    assert split == max(1, min(-(-cap // tcp.B7_TILE_ROWS),
+                               tcp.B7_BLOCKS // blocks))
+
+
+@pytest.mark.parametrize("b,cap,plan", [
+    (1, 512, (1, False, 4)), (2, 512, (1, False, 4)), (1, 300, (1, False, 3)),
+    (3, 128, (1, False, 1)), (1, 13, (1, False, 1))])
+def test_b7_plan_for_int8_few_pairs(b, cap, plan):
+    """A query's 64 probes of wide cells: every row tile a block of its own
+    while the blocks are fewer than B7_BLOCKS; a one-tile cell is never
+    split."""
+    assert tcp.b7_plan_for(b * 64, b, "int8", cap, cap * 768) == plan
+    assert tcp.b7_plan_for(10 ** 6, 1, "int8", cap, cap * 768)[:2] == (1, False)
 
 
 # ---------------------------------------------------------- multiprobe_topk

@@ -749,7 +749,7 @@ def test_gather_dots_int4_same_for_every_window(dev, shape):
 
     b, nprobe, cap, w = shape
     codes3, probe, q = _gather_case(dev, True, 200, cap, w, b, nprobe)
-    outs = [cp.gather_dots(codes3, probe, q, plan=(s, sort))
+    outs = [cp.gather_dots(codes3, probe, q, plan=(s, sort, 1))
             for s, sort in ((1, False), (cp.B7_PIPELINE, False), (2, True),
                             (8, True), (17, True), (cp.B7_WINDOW, True))]
     outs.append(cp.gather_dots(codes3, probe, q))
@@ -758,52 +758,156 @@ def test_gather_dots_int4_same_for_every_window(dev, shape):
         assert torch.equal(o, outs[0])
 
 
-def _gather_i8_lane_sums(codes3, probe, q):
-    """The int8 kernel's arithmetic in numpy f32: per row, lane l of a
-    group of G lanes chains fmaf over the 16-byte pieces l, l + G, ... (each
-    product code x bf16 query is exact in f32, so fmaf is an f32 add), then a
-    butterfly sum over the G lanes."""
-    codes = codes3.cpu().numpy()[probe.cpu().numpy()].astype(np.float32)
-    qn = q.cpu().numpy().astype(np.float32)
-    b, nprobe, cap, w = codes.shape
-    pieces = w // 16
-    group = 1
-    while group < 32 and group < pieces:
-        group *= 2
-    prod = codes * qn[:, None, None, :]             # exact in f32
-    lanes = np.zeros((group, b, nprobe, cap), np.float32)
-    for p in range(pieces):
-        for e in range(16):
-            lanes[p % group] += prod[..., 16 * p + e]
-    off = group // 2
-    while off:
-        lanes = lanes + lanes[np.arange(group) ^ off]
-        off //= 2
-    return lanes[0]
-
-
-def test_gather_dots_int8_bit_identical_to_its_lane_sums(dev):
-    """The int8 kernel keeps its order of f32 sums: bit-identical to the
-    lane chains and butterfly of _gather_i8_lane_sums on one fixed case
-    (rows of 48 pieces: groups of 32 lanes)."""
-    from erlvectordb_tpu_torch.ops import cell_probe as cp
-
-    codes3, probe, q = _gather_case(dev, False, 40, 24, 768, 9, 5, seed=3)
-    got = cp.gather_dots(codes3, probe, q)
-    torch.cuda.synchronize()
-    np.testing.assert_array_equal(got.cpu().numpy(), _gather_i8_lane_sums(codes3, probe, q))
-
-
 def test_gather_dots_int4_window_validates(dev):
+    """Both layouts take a plan and refuse windows outside [1, B7_WINDOW]
+    and splits outside [1, the row tiles of a cell]."""
     from erlvectordb_tpu_torch.ops import cell_probe as cp
 
     codes3, probe, q = _gather_case(dev, True, 8, 16, 64, 4, 2)
     for s in (0, cp.B7_WINDOW + 1):
         with pytest.raises(ValueError):
-            cp.gather_dots(codes3, probe, q, plan=(s, True))
-    c8, p8, q8 = _gather_case(dev, False, 8, 16, 32, 4, 2)
-    with pytest.raises(ValueError):
-        cp.gather_dots(c8, p8, q8, plan=(1, False))
+            cp.gather_dots(codes3, probe, q, plan=(s, True, 1))
+    c8, p8, q8 = _gather_case(dev, False, 8, 300, 32, 4, 2)
+    for plan in ((0, False, 1), (cp.B7_WINDOW + 1, True, 1), (1, False, 0),
+                 (1, False, 4)):
+        with pytest.raises(ValueError):
+            cp.gather_dots(c8, p8, q8, plan=plan)
+    want = cp.gather_dots(c8, p8, q8)
+    for plan in ((1, False, 3), (3, True, 2), (cp.B7_WINDOW, True, 1)):
+        assert torch.equal(cp.gather_dots(c8, p8, q8, plan=plan), want)
+
+
+def _gather_err8(codes3, probe, q, kern):
+    """max |kernel - plain| / sum |q| |c| over the outputs of int8 codes
+    (the plain version on the clamped ids)."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    probe = probe.clamp(0, codes3.shape[0] - 1)
+    ref = cp.gather_dots_ref(codes3, probe, q)
+    mag = cp.gather_dots_ref(codes3.abs(), probe, q.abs())
+    return float(((kern - ref).abs() / (mag + 1e-30)).max())
+
+
+@pytest.mark.parametrize("b", [1, 3, 16, 1024])
+@pytest.mark.parametrize("w", [16, 128, 768, 1536])
+@pytest.mark.parametrize("cap", [1, 13, 128, 512])
+def test_gather_dots_int8_mma_matches_plain(dev, cap, w, b):
+    """B7-int8 (bf16 mma.sync on the plan the wrapper picks) within 1e-5 of
+    sum |q| |c| of the plain version: products are exact, only the order and
+    rounding of the f32 sums differ."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    nprobe = 8 if cap * w <= 128 * 768 else 2
+    codes3, probe, q = _gather_case(dev, False, 61, cap, w, b, nprobe,
+                                    seed=cap + w + 1)
+    cp.reset_launches()
+    kern = cp.gather_dots(codes3, probe, q)
+    torch.cuda.synchronize()
+    assert cp.gather_dots.launches_by == {"int8": 1}
+    assert kern.shape == (b, nprobe, cap)
+    assert _gather_err8(codes3, probe, q, kern) <= 1e-5
+
+
+def test_gather_dots_int8_wide_rows(dev):
+    """Rows of 12,800 codes: the query is staged a chunk of 128 at a time,
+    so no shared-memory size bounds W."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    codes3, probe, q = _gather_case(dev, False, 9, 40, 12_800, 5, 3, seed=5)
+    kern = cp.gather_dots(codes3, probe, q)
+    torch.cuda.synchronize()
+    assert _gather_err8(codes3, probe, q, kern) <= 1e-5
+
+
+@pytest.mark.parametrize("b", [64, 1024])
+@pytest.mark.parametrize("case", ["one-cell", "distinct", "clamped"])
+def test_gather_dots_int8_duplication(dev, case, b):
+    """Every query probing one cell (runs that fill whole windows and cross
+    them), every pair its own cell, and ids past the table, clamped; cells
+    of 300 rows (three row tiles, the last ragged), each plan kind."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    nprobe = 8
+    k_cells = b * nprobe if case == "distinct" else 97
+    codes3, probe, q = _gather_case(dev, False, k_cells, 300, 128, b, nprobe)
+    if case == "one-cell":
+        probe[:, 3] = 5
+    elif case == "distinct":
+        probe = torch.randperm(k_cells, generator=torch.Generator().manual_seed(0)
+                               ).to(dev, torch.int32).reshape(b, nprobe)
+    else:
+        probe[:, ::3] += k_cells
+        probe[:, 1] -= 2 * k_cells
+    for plan in (None, (1, False, 3), (cp.B7_PIPELINE, False, 1),
+                 (cp.B7_WINDOW, True, 2)):
+        kern = cp.gather_dots(codes3, probe, q, plan=plan)
+        torch.cuda.synchronize()
+        assert _gather_err8(codes3, probe, q, kern) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(256, 64, 512, 768), (1024, 32, 128, 128),
+                                   (8, 64, 512, 768), (300, 16, 13, 1536)],
+                         ids=["i", "q", "ep", "cap13"])
+def test_gather_dots_int8_same_for_every_plan(dev, shape):
+    """Each output's k sequence does not depend on its window, its column
+    in the mma or the block its row tile went to: every plan gives the same
+    bits, and so does a second call."""
+    from erlvectordb_tpu_torch.ops import cell_probe as cp
+
+    b, nprobe, cap, w = shape
+    codes3, probe, q = _gather_case(dev, False, 600, cap, w, b, nprobe)
+    tiles = -(-cap // 128)
+    plans = [(1, False, 1), (1, False, tiles), (cp.B7_PIPELINE, False, 1),
+             (2, True, 1), (8, True, tiles), (17, True, 1),
+             (cp.B7_WINDOW, True, tiles), None]
+    outs = [cp.gather_dots(codes3, probe, q, plan=p) for p in plans]
+    outs.append(cp.gather_dots(codes3, probe, q))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    assert _gather_err8(codes3, probe, q, outs[0]) <= 1e-5
+
+
+def test_fixed_order_segment_sums_on_the_card(dev):
+    """The build's segment sums on CUDA: equal to a float64 sum, and the
+    same bits from call to call (index_add_'s float atomics are not)."""
+    from erlvectordb_tpu_torch.ops.kmeans import segment_sums_
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((300_000, 96)).astype(np.float32)
+                         ).to(dev)
+    seg = torch.from_numpy(rng.integers(0, 700, 300_000)).to(dev)
+    runs = []
+    for _ in range(3):
+        sums = torch.zeros((700, 96), dtype=torch.float64, device=dev)
+        counts = torch.zeros((700,), device=dev)
+        segment_sums_(sums, counts, seg, x)
+        runs.append((sums, counts))
+    for sums, counts in runs[1:]:
+        assert torch.equal(sums, runs[0][0]) and torch.equal(counts, runs[0][1])
+    want = torch.zeros((700, 96), dtype=torch.float64).index_add_(
+        0, seg.cpu(), x.cpu().double())
+    assert torch.allclose(runs[0][0].cpu(), want, rtol=1e-12, atol=1e-9)
+    assert torch.equal(runs[0][1].cpu(),
+                       torch.bincount(seg.cpu(), minlength=700).float())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_streaming_build_is_deterministic_on_the_card(dev, bits):
+    """Two build_cells_streaming builds of one seeded stream on the card
+    give the same codes, scales, centroids and slot -> row map."""
+    from erlvectordb_tpu_torch.ops.cell_build import build_cells_streaming
+
+    data = _clustered(np.random.default_rng(12), 262_144, d=128, centres=256)
+    chunks = lambda: (data[i:i + 65_536] for i in range(0, len(data), 65_536))
+    builds = [build_cells_streaming(
+        chunks(), n=len(data), dim=128, cell_rows=96, cell_cap=128,
+        residual_bits=bits, train_rows=65_536, refits=2, spill_mult=1.2,
+        device=dev) for _ in range(2)]
+    a, b = builds
+    for name in ("codes", "scales", "centroids", "perm", "norms", "valid"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert (a.counts == b.counts).all()
 
 
 def test_int4r_store_multiprobe_through_kernel(dev):
