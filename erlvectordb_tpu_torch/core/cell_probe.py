@@ -33,6 +33,7 @@ from erlvectordb_tpu_torch.core.ivf import _balanced_assign
 from erlvectordb_tpu_torch.core.store import default_device
 from erlvectordb_tpu_torch.ops.cell_probe import dedup_rows_topk, multiprobe_topk
 from erlvectordb_tpu_torch.ops.kmeans import _lloyd, kmeans_fit, kmeans_seeds
+from erlvectordb_tpu_torch.utils.metrics import metrics, now_ns
 
 # the host encode's rows a task, and its threads (numpy releases the GIL in
 # its array loops)
@@ -340,7 +341,11 @@ class CellProbeIndex:
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (distances [B, k], store rows [B, k]; -1 = no hit).
         ``recall_target`` overrides ``nprobe`` with the smallest calibrated
-        value meeting the target (see calibrate_nprobe)."""
+        value meeting the target (see calibrate_nprobe).  Spans
+        ``index.probe`` (to the readback), ``index.readback`` (the two
+        copies to the host) and ``index.map`` (row map, dedup) for the
+        thread's request."""
+        t0 = now_ns()
         if recall_target is not None:
             nprobe = self.nprobe_for(recall_target, k=k, metric=metric)
         q = np.asarray(queries, np.float32)
@@ -363,13 +368,20 @@ class CellProbeIndex:
         if self.row_map_dev is not None:
             dev_rows = self.row_map_dev[torch.clamp(
                 dev_rows.long(), 0, self.row_map_dev.shape[0] - 1)]
+        t1 = now_ns()
         dists = dists.cpu().numpy()
         raw_rows = dev_rows.cpu().numpy().astype(np.int64)
+        t2 = now_ns()
         store_rows = (raw_rows if self.row_map_dev is not None
                       else self.row_map[raw_rows])
         store_rows = np.where(np.isfinite(dists), store_rows, -1)
         if k_eff > k:
             dists, store_rows = dedup_rows_topk(dists, store_rows, k)
+        t3 = now_ns()
+        rid, nq = metrics.current()[0], q.shape[0]
+        metrics.record("index.probe", rid, 0, t0, t1, nq)
+        metrics.record("index.readback", rid, 0, t1, t2, nq)
+        metrics.record("index.map", rid, 0, t2, t3, nq)
         return dists, store_rows
 
     # ------------------------------------------------------------------ misc

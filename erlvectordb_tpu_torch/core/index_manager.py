@@ -44,6 +44,7 @@ import torch
 
 from erlvectordb_tpu_torch.core.store import VectorStore
 from erlvectordb_tpu_torch.ops import fused_topk as ft
+from erlvectordb_tpu_torch.utils.metrics import metrics
 
 LOG = logging.getLogger(__name__)
 
@@ -444,72 +445,80 @@ class IndexManager:
         smallest calibrated nprobe meeting a recall@k target (cellprobe
         family only): absolute after ``calibrate_index(mode="exact")``,
         relative to the index's own deep probe under the lazy ceiling-mode
-        calibration."""
-        if nprobe is not None and recall_target is not None:
-            raise ValueError("pass either nprobe or recall_target, not both")
-        if nprobe is not None and int(nprobe) < 1:
-            raise ValueError("nprobe must be >= 1")
-        with self._lock:
-            info = self._indexes.get(name)
-        if info is None:
-            raise IndexError_(f"index {name!r} not found")
-        if not info.built:
-            raise IndexError_(f"index {name!r} is not built")
-        probed = info.type in ("ivf", "ep_ivf", "hnsw", "cellprobe",
-                               "ep_cellprobe")
-        if (nprobe is not None or recall_target is not None) and not probed:
-            raise ValueError(
-                f"index {name!r} ({info.type}) has no probe knob — "
-                "nprobe/recall_target apply to ivf/cellprobe-family indexes")
-        store: VectorStore = self._registry.get(info.store)
-        if info.type == "flat" or (info.type == "int8"
-                                   and info.artifact is None):
-            return store.search(query, k=k)
-        q = np.asarray(query, np.float32)
-        a = info.artifact
-        if info.type in ("ivf", "ep_ivf"):
-            if recall_target is not None:
+        calibration.  Spans ``index.search`` (and ``index.map``, the
+        row-to-hit mapping) for the thread's request."""
+        with metrics.span("index.search"):
+            if nprobe is not None and recall_target is not None:
                 raise ValueError(
-                    "recall_target calibration is cellprobe-family only; "
-                    "pass an explicit nprobe for ivf/ep_ivf indexes")
-            dists, rows = a[info.type].search(
-                q, k=k, nprobe=a["nprobe"] if nprobe is None else int(nprobe),
-                metric=_search_metric(store))
-            return self._rows_to_hits(store, dists[0], rows[0])
-        if info.type in ("hnsw", "cellprobe", "ep_cellprobe"):
-            kw = {"nprobe": a["nprobe"] if nprobe is None else int(nprobe)}
-            if recall_target is not None:
-                kw = {"recall_target": float(recall_target)}
-            dists, rows = info.probe_artifact().search(
-                q, k=k, metric=_search_metric(store), **kw)
-            return self._rows_to_hits(store, dists[0], rows[0])
-        if info.type == "int8":
-            from erlvectordb_tpu_torch.core.search import exact_topk_int8
+                    "pass either nprobe or recall_target, not both")
+            if nprobe is not None and int(nprobe) < 1:
+                raise ValueError("nprobe must be >= 1")
+            with self._lock:
+                info = self._indexes.get(name)
+            if info is None:
+                raise IndexError_(f"index {name!r} not found")
+            if not info.built:
+                raise IndexError_(f"index {name!r} is not built")
+            probed = info.type in ("ivf", "ep_ivf", "hnsw", "cellprobe",
+                                   "ep_cellprobe")
+            if (nprobe is not None or recall_target is not None) \
+                    and not probed:
+                raise ValueError(
+                    f"index {name!r} ({info.type}) has no probe knob — "
+                    "nprobe/recall_target apply to ivf/cellprobe-family "
+                    "indexes")
+            store: VectorStore = self._registry.get(info.store)
+            if info.type == "flat" or (info.type == "int8"
+                                       and info.artifact is None):
+                return store.search(query, k=k)
+            q = np.asarray(query, np.float32)
+            a = info.artifact
+            if info.type in ("ivf", "ep_ivf"):
+                if recall_target is not None:
+                    raise ValueError(
+                        "recall_target calibration is cellprobe-family only; "
+                        "pass an explicit nprobe for ivf/ep_ivf indexes")
+                dists, rows = a[info.type].search(
+                    q, k=k,
+                    nprobe=a["nprobe"] if nprobe is None else int(nprobe),
+                    metric=_search_metric(store))
+                return self._rows_to_hits(store, dists[0], rows[0])
+            if info.type in ("hnsw", "cellprobe", "ep_cellprobe"):
+                kw = {"nprobe": (a["nprobe"] if nprobe is None
+                                 else int(nprobe))}
+                if recall_target is not None:
+                    kw = {"recall_target": float(recall_target)}
+                dists, rows = info.probe_artifact().search(
+                    q, k=k, metric=_search_metric(store), **kw)
+                return self._rows_to_hits(store, dists[0], rows[0])
+            if info.type == "int8":
+                from erlvectordb_tpu_torch.core.search import exact_topk_int8
 
-            qp = torch.zeros((1, a["codes"].shape[1]), dtype=torch.float32,
-                             device=a["codes"].device)
+                qp = torch.zeros((1, a["codes"].shape[1]),
+                                 dtype=torch.float32,
+                                 device=a["codes"].device)
+                qp[0, : q.shape[0]] = torch.as_tensor(q, device=qp.device)
+                dists, rows = exact_topk_int8(
+                    a["codes"], a["scales"], a["norms"], a["valid"], qp,
+                    metric=store.metric, k=min(k, store.count))
+                return self._rows_to_hits(store, dists[0].cpu().numpy(),
+                                          rows[0].cpu().numpy())
+            # pq/opq: the ADC scan over the codes; artifact rows map code
+            # index -> store row
+            from erlvectordb_tpu_torch.ops.adc import adc_search_exact_topk
+
+            cbk = a["codebook"]
+            qp = torch.zeros((1, a["pad_dim"]), dtype=torch.float32,
+                             device=cbk.device)
             qp[0, : q.shape[0]] = torch.as_tensor(q, device=qp.device)
-            dists, rows = exact_topk_int8(
-                a["codes"], a["scales"], a["norms"], a["valid"], qp,
-                metric=store.metric, k=min(k, store.count))
-            return self._rows_to_hits(store, dists[0].cpu().numpy(),
-                                      rows[0].cpu().numpy())
-        # pq/opq: the ADC scan over the codes; artifact rows map code index
-        # -> store row
-        from erlvectordb_tpu_torch.ops.adc import adc_search_exact_topk
-
-        cbk = a["codebook"]
-        qp = torch.zeros((1, a["pad_dim"]), dtype=torch.float32,
-                         device=cbk.device)
-        qp[0, : q.shape[0]] = torch.as_tensor(q, device=qp.device)
-        if hasattr(cbk, "rotate"):  # OPQ: search in the rotated space
-            qp = cbk.rotate(qp)
-        kk = min(k, a["codes"].shape[0])
-        dists, idx = adc_search_exact_topk(a["codes"], cbk.codebooks, qp,
-                                           k=kk)
-        dists = np.sqrt(np.maximum(dists[0].cpu().numpy(), 0.0))
-        return self._rows_to_hits(store, dists,
-                                  a["rows"][idx[0].cpu().numpy()])
+            if hasattr(cbk, "rotate"):  # OPQ: search in the rotated space
+                qp = cbk.rotate(qp)
+            kk = min(k, a["codes"].shape[0])
+            dists, idx = adc_search_exact_topk(a["codes"], cbk.codebooks, qp,
+                                               k=kk)
+            dists = np.sqrt(np.maximum(dists[0].cpu().numpy(), 0.0))
+            return self._rows_to_hits(store, dists,
+                                      a["rows"][idx[0].cpu().numpy()])
 
     # ----------------------------------------------------------- persistence
 
@@ -659,11 +668,12 @@ class IndexManager:
     @staticmethod
     def _rows_to_hits(store: VectorStore, dists, rows):
         hits = []
-        for d, r in zip(dists, rows):
-            if not np.isfinite(d):
-                break
-            vid = store._rid(int(r))
-            if vid is None:
-                continue
-            hits.append((vid, store._metadata.get(vid, {}), float(d)))
+        with metrics.span("index.map"):
+            for d, r in zip(dists, rows):
+                if not np.isfinite(d):
+                    break
+                vid = store._rid(int(r))
+                if vid is None:
+                    continue
+                hits.append((vid, store._metadata.get(vid, {}), float(d)))
         return hits

@@ -54,7 +54,7 @@ from erlvectordb_tpu_torch.core.calibration import CalibrationSet, measure_curve
 from erlvectordb_tpu_torch.core.search import VALID_METRICS
 from erlvectordb_tpu_torch.ops import fused_topk as ft
 from erlvectordb_tpu_torch.utils.locks import RWLock
-from erlvectordb_tpu_torch.utils.metrics import metrics
+from erlvectordb_tpu_torch.utils.metrics import metrics, now_ns
 
 MIN_CAPACITY = 1024
 
@@ -346,6 +346,8 @@ class SearchTicket:
     k: int        # caller's k (trim bound)
     kb: int       # result columns computed on the device (the k bucket)
     t0: float = 0.0  # submit timestamp (for the store.search latency metric)
+    rid: int = 0  # request (or device batch) id its spans carry
+    t_read: int = 0  # perf_counter_ns at the end of its readback
     event: Any = None  # torch.cuda.Event recorded after the search (CUDA)
     rows_are_orig: bool = False  # streaming-built store: rows were mapped
     #                    slot -> original row on the device, so ids are
@@ -1211,14 +1213,16 @@ class VectorStore:
                 raise ValueError("nprobe does not support metric 'manhattan'")
             if nprobe <= 0:
                 raise ValueError("nprobe must be positive")
-        t0 = time.perf_counter()
+        t0 = now_ns()
         q = self._validate_batch(queries)
         fmask = self._device_filter_mask(where) if where else None
         # read side of the store lock: searches run concurrently, but never
         # against tensors an insert is updating in place
         with self._lock.read():
             t = self._dispatch_locked(q, k, metric, fmask, nprobe=nprobe)
-        t.t0 = t0
+        t.t0 = t0 / 1e9
+        t.rid = metrics.current()[0]
+        metrics.end("store.submit", t.rid, t0, t.nq)
         return t
 
     def search_batch_complete(self, t: SearchTicket
@@ -1227,13 +1231,12 @@ class VectorStore:
         if t.kb == 0:
             return [[] for _ in range(t.nq)]
         dists_np, rows_np = self._readback(t)
-        metrics.observe("store.search", time.perf_counter() - t.t0)
-        metrics.inc("store.search_total")
-        metrics.inc("store.queries_total", t.nq)
         with self._lock.read():
-            return self._map_results(dists_np, rows_np, t.k, t.kb,
-                                     rows_are_orig=t.rows_are_orig,
-                                     dedup=self._spilled)
+            out = self._map_results(dists_np, rows_np, t.k, t.kb,
+                                    rows_are_orig=t.rows_are_orig,
+                                    dedup=self._spilled)
+        metrics.end("store.map", t.rid, t.t_read, t.nq)
+        return out
 
     def search_batch_complete_raw(self, t: SearchTicket):
         """Columnar completion: (distances [nq, kk] f32, rows [nq, kk] int32,
@@ -1251,16 +1254,25 @@ class VectorStore:
             dists_np, rows_np = dedup_rows_topk(dists_np, rows_np, t.k)
         if t.rows_are_orig:
             # streaming-built store: rows already ARE the implicit ids
-            return dists_np, rows_np, _implicit_ids(rows_np)
-        with self._lock.read():
-            ids = self._ids_view()[rows_np]
+            ids = _implicit_ids(rows_np)
+        else:
+            with self._lock.read():
+                ids = self._ids_view()[rows_np]
+        metrics.end("store.map", t.rid, t.t_read, t.nq)
         return dists_np, rows_np, ids
 
     def _readback(self, t: SearchTicket):
-        """One device->host copy per ticket, after the ticket's event."""
+        """One device->host copy per ticket, after the ticket's event, its
+        end kept as ``t.t_read``.  Counts the search in the ``store.search``
+        histogram (submit to readback) and its counters."""
+        t0 = now_ns()
         if t.event is not None:
             t.event.synchronize()
         arr = t.packed.cpu().numpy()
+        t.t_read = metrics.end("store.readback", t.rid, t0, t.nq)
+        metrics.observe("store.search", t.t_read / 1e9 - t.t0)
+        metrics.inc("store.search_total")
+        metrics.inc("store.queries_total", t.nq)
         kb = t.kb
         return arr[:, :kb], np.ascontiguousarray(arr[:, kb:]).view(np.int32)
 

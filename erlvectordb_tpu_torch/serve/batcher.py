@@ -26,6 +26,13 @@ straight into the next ticket.  Per-batch host time is decomposed in
 /metrics: ``batcher.readback`` (device wait + row->id mapping) vs
 ``batcher.deliver`` (serialization + send).
 
+Spans (utils/metrics.py): each request's ``batcher.queue_wait`` (submit to
+dispatch) carries its device batch's id as parent; the batch's own
+``batcher.inflight_wait`` (the in-flight semaphore), ``batcher.
+completion_wait`` and ``batcher.delivery_wait`` (each hand-off queue, put
+to get) carry that id, as do the store's spans of its ticket.  A group
+(``submit_group``) is one request: its batch id is the request's own.
+
 Callers either block (``search``) or register a callback (``submit``) —
 the MCP server uses callbacks so one connection can pipeline thousands of
 in-flight requests without one thread each.
@@ -36,14 +43,13 @@ from __future__ import annotations
 import json
 import queue
 import threading
-import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from erlvectordb_tpu_torch.utils.metrics import metrics
+from erlvectordb_tpu_torch.utils.metrics import metrics, now_ns
 
 
 class OverloadedError(RuntimeError):
@@ -57,6 +63,9 @@ class _Pending:
     event: Optional[threading.Event] = None
     result: Any = None
     error: Optional[Exception] = None
+    rid: int = 0         # the request's id (metrics.current at submit)
+    t_queued: int = 0    # perf_counter_ns at enqueue
+    batch: int = 0       # its device batch's id, once dispatched
 
 
 class QueryBatcher:
@@ -149,7 +158,8 @@ class QueryBatcher:
         """Enqueue a search.  With ``callback``, it is invoked as
         ``callback(result, error)`` on the completion thread; without one, a
         waitable ``_Pending`` (with ``.event``) is returned."""
-        p = _Pending(np.asarray(query, np.float32), cb=callback)
+        p = _Pending(np.asarray(query, np.float32), cb=callback,
+                     rid=metrics.current()[0] or metrics.new_id())
         if callback is None:
             p.event = threading.Event()
         if p.query.ndim != 1:
@@ -163,6 +173,7 @@ class QueryBatcher:
         # a whole batch with a stacking error; filters batch with equal filters
         where_key = json.dumps(where, sort_keys=True) if where else None
         key = (store, int(k), metric, int(p.query.shape[-1]), where_key)
+        p.t_queued = now_ns()
         with self._lock:
             if self._depth >= self.max_queue:
                 metrics.inc("batcher.shed")
@@ -192,18 +203,25 @@ class QueryBatcher:
         or, with ``raw=True``, ``((dists, rows, ids) columns, error)``
         without per-hit tuples (the binary serving encoding).
         This is the MCP ``search_vectors_batch`` fast path."""
+        bid = metrics.current()[0] or metrics.new_id()
+        n = int(np.shape(queries)[0])
+        t_d = now_ns()
         self._acquire_inflight()
-        t0 = time.perf_counter()
+        t_a = metrics.end("batcher.inflight_wait", bid, t_d, n)
         try:
             store_obj = self._get_store(store)
-            ticket = store_obj.search_batch_submit(queries, k=k, metric=metric,
-                                                   where=where)
+            with metrics.bound(bid):
+                ticket = store_obj.search_batch_submit(
+                    queries, k=k, metric=metric, where=where)
         except Exception as e:  # noqa: BLE001
             self._release_inflight()
             callback(None, e)
             return
-        metrics.inc("batcher.batched_queries", int(np.shape(queries)[0]))
-        self._completion_q.put((store_obj, ticket, callback, raw, t0))
+        # hand the ticket over first: the registry's lock is not the
+        # completion thread's business
+        self._completion_q.put((store_obj, ticket, callback, raw, t_a, bid, n,
+                                now_ns()))
+        metrics.inc("batcher.batched_queries", n)
 
     def search(self, store: str, query, k: int = 10,
                metric: Optional[str] = None, timeout: float = 300.0,
@@ -278,12 +296,18 @@ class QueryBatcher:
 
     def _dispatch(self, store_name: str, k: int, metric: Optional[str],
                   pendings: List[_Pending], where_key=None) -> None:
+        bid, n = metrics.new_id(), len(pendings)
+        t_d = now_ns()
+        for p in pendings:
+            p.batch = bid
+            metrics.record("batcher.queue_wait", p.rid, bid, p.t_queued, t_d)
         self._acquire_inflight()
-        t0 = time.perf_counter()
+        t_a = metrics.end("batcher.inflight_wait", bid, t_d, n)
         try:
             where = json.loads(where_key) if where_key else None
             store = self._get_store(store_name)
             qs = np.stack([p.query for p in pendings])
+            metrics.bind(bid)
             ticket = store.search_batch_submit(qs, k=k, metric=metric,
                                                where=where)
         except Exception as e:  # noqa: BLE001 — deliver the error per caller
@@ -291,9 +315,10 @@ class QueryBatcher:
             for p in pendings:
                 self._deliver(p, None, e)
             return
-        metrics.inc("batcher.batched_queries", len(pendings))
-        metrics.observe("batcher.batch_size", float(len(pendings)))
-        self._completion_q.put((store, ticket, pendings, False, t0))
+        self._completion_q.put((store, ticket, pendings, False, t_a, bid, n,
+                                now_ns()))
+        metrics.inc("batcher.batched_queries", n)
+        metrics.observe("batcher.batch_size", float(n))
 
     def _completion_loop(self) -> None:
         """Readback + host mapping, overlapped with dispatch.  Delivery
@@ -304,25 +329,27 @@ class QueryBatcher:
             item = self._completion_q.get()
             if item is None:
                 return
-            store, ticket, pendings, raw, t0 = item
+            store, ticket, pendings, raw, t_a, bid, n, t_put = item
+            t_g = metrics.end("batcher.completion_wait", bid, t_put, n)
             results, err = None, None
             try:
-                with metrics.timed("batcher.batch"), \
-                        metrics.timed("batcher.readback"):
-                    results = (store.search_batch_complete_raw(ticket) if raw
-                               else store.search_batch_complete(ticket))
+                results = (store.search_batch_complete_raw(ticket) if raw
+                           else store.search_batch_complete(ticket))
             except Exception as e:  # noqa: BLE001
                 err = e
             finally:
+                t_c = now_ns()
+                metrics.observe("batcher.readback", (t_c - t_g) / 1e9)
+                metrics.inc("batcher.readback_total")
                 # EWMA of dispatch->completion service time drives the
                 # adaptive collection window
-                dt = time.perf_counter() - t0
+                dt = (t_c - t_a) / 1e9
                 self._service_ewma = (0.8 * self._service_ewma + 0.2 * dt
                                       if self._service_ewma else dt)
                 metrics.gauge("batcher.service_ewma_ms",
                               round(self._service_ewma * 1e3, 3))
                 self._release_inflight()
-            self._delivery_q.put((pendings, results, err))
+            self._delivery_q.put((pendings, results, err, bid, n, t_c))
 
     def _delivery_loop(self) -> None:
         """Caller callbacks, FIFO (per-connection response order is
@@ -334,16 +361,23 @@ class QueryBatcher:
             item = self._delivery_q.get()
             if item is None:
                 return
-            pendings, results, err = item
-            with metrics.timed("batcher.deliver"):
-                if callable(pendings):  # group callback (submit_group)
-                    try:
-                        pendings(results, err)
-                    except Exception:  # noqa: BLE001 — must not kill the loop
-                        pass
-                elif err is not None:
-                    for p in pendings:
-                        self._deliver(p, None, err)
-                else:
-                    for p, r in zip(pendings, results):
-                        self._deliver(p, r, None)
+            pendings, results, err, bid, n, t_put = item
+            t_g = metrics.end("batcher.delivery_wait", bid, t_put, n)
+            # each callback runs bound to its own request, so the spans it
+            # closes (an MCP reply) name the batch as their parent
+            if callable(pendings):  # group callback (submit_group)
+                metrics.bind(bid)
+                try:
+                    pendings(results, err)
+                except Exception:  # noqa: BLE001 — must not kill the loop
+                    pass
+            elif err is not None:
+                for p in pendings:
+                    metrics.bind(p.rid, bid)
+                    self._deliver(p, None, err)
+            else:
+                for p, r in zip(pendings, results):
+                    metrics.bind(p.rid, bid)
+                    self._deliver(p, r, None)
+            metrics.observe("batcher.deliver", (now_ns() - t_g) / 1e9)
+            metrics.inc("batcher.deliver_total")

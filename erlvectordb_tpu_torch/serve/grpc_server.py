@@ -24,6 +24,15 @@ rebuild's parity-plus frontend (ROADMAP #13).  Design points:
     against the built-in OAuth 2.1 server with the same read/write/admin
     scope classes as the MCP tool table (serve/tools.py,
     reference src/mcp_server.erl:414-427).
+  * Spans (utils/metrics.py): every unary call opens a request id in its
+    request deserializer and closes ``grpc.request`` when its reply is
+    serialized.  grpc-python parses a request on its completion-queue
+    polling thread and runs the handler and the serializer on a pool
+    thread, so the id rides the parsed request (``_Arrival``) to the pool
+    thread, which carries it (``metrics.bind``) to the handler, the batcher
+    and the serializer.  ``SearchBatch`` adds ``grpc.decode`` (the protobuf
+    parse, then the rows) and ``grpc.encode`` (ids, reply,
+    ``SerializeToString``).
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from typing import Optional
 
 import numpy as np
 
-from erlvectordb_tpu_torch.utils.metrics import metrics
+from erlvectordb_tpu_torch.utils.metrics import metrics, now_ns
 
 logger = logging.getLogger("evdb.grpc")
 
@@ -69,6 +78,14 @@ _SCOPES = {
 }
 
 
+class _Arrival:
+    """A parsed request with the id it opened and its parse's clock reads."""
+    __slots__ = ("msg", "rid", "t0", "t_parsed")
+
+    def __init__(self, msg, rid: int, t0: int, t_parsed: int):
+        self.msg, self.rid, self.t0, self.t_parsed = msg, rid, t0, t_parsed
+
+
 def _decode_rows(blob: bytes, dim: int) -> np.ndarray:
     if dim <= 0:
         raise ValueError("dim must be positive")
@@ -94,6 +111,9 @@ class GrpcServer:
         self._server: Optional["grpc.Server"] = None
         self._pool = futures.ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="evdb-grpc")
+        # the unary call a pool thread serves: its arrival, its queries and
+        # where its reply's encoding began (SearchBatch)
+        self._call = threading.local()
 
     # ----------------------------------------------------------- lifecycle
 
@@ -103,9 +123,13 @@ class GrpcServer:
         ss = grpc.stream_stream_rpc_method_handler
 
         def h(fn, req_cls, reply_cls, streaming=False):
-            make = ss if streaming else uu
-            return make(fn, request_deserializer=req_cls.FromString,
-                        response_serializer=reply_cls.SerializeToString)
+            if streaming:
+                return ss(fn, request_deserializer=req_cls.FromString,
+                          response_serializer=reply_cls.SerializeToString)
+            return uu(self._entering(fn),
+                      request_deserializer=self._opening(req_cls.FromString),
+                      response_serializer=self._closing(
+                          reply_cls.SerializeToString))
 
         handlers = {
             "Health": h(self.Health, pb.Empty, pb.HealthReply),
@@ -139,6 +163,43 @@ class GrpcServer:
         self._server.start()
         logger.info("gRPC server on %s:%d", self.host, self.port)
         return self
+
+    @staticmethod
+    def _opening(parse):
+        """The request deserializer, opening the call's id."""
+        def deserialize(data):
+            t0 = now_ns()
+            msg = parse(data)
+            return _Arrival(msg, metrics.new_id(), t0, now_ns())
+        return deserialize
+
+    def _entering(self, handler):
+        """The handler, on its pool thread bound to the call's id."""
+        call = self._call
+
+        def behavior(arrival, context):
+            call.arrival, call.n, call.t_encode = arrival, 1, None
+            metrics.bind(arrival.rid)
+            return handler(arrival.msg, context)
+        return behavior
+
+    def _closing(self, serialize):
+        """The reply serializer, closing the call's spans at its return."""
+        call = self._call
+
+        def serialize_traced(reply):
+            out = serialize(reply)
+            t = now_ns()
+            a = getattr(call, "arrival", None)
+            if a is not None:
+                if call.t_encode is not None:
+                    metrics.record("grpc.encode", a.rid, 0, call.t_encode, t,
+                                   call.n)
+                metrics.record("grpc.request", a.rid, 0, a.t0, t, call.n)
+                call.arrival = None
+                metrics.bind(0)
+            return out
+        return serialize_traced
 
     def stop(self, grace: float = 1.0) -> None:
         if self._server is not None:
@@ -320,8 +381,18 @@ class GrpcServer:
 
     def SearchBatch(self, request, context):
         self._auth(context, "SearchBatch")
+        call = self._call
+        a = getattr(call, "arrival", None)
         try:
+            t_rows = now_ns()
             rows = _decode_rows(request.vectors_f32, request.dim)
+            count = rows.shape[0]
+            if a is not None:
+                call.n = count
+                metrics.record("grpc.decode", a.rid, 0, a.t0, a.t_parsed,
+                               count)
+                metrics.record("grpc.decode", a.rid, 0, t_rows, now_ns(),
+                               count)
             k = int(request.k or 10)
             metric = request.metric or None
             where = self._where(request.filter_json)
@@ -355,7 +426,8 @@ class GrpcServer:
                 t = store.search_batch_submit(rows, k=k, metric=metric,
                                               where=where, **kw)
                 dists, _rows, ids = store.search_batch_complete_raw(t)
-            count = rows.shape[0]
+            if a is not None:
+                call.t_encode = now_ns()
             kk = dists.shape[1] if dists.size else 0
             flat_ids = ([""] * (count * kk) if ids is None else
                         ["" if v is None else str(v)

@@ -17,6 +17,14 @@ Capability parity with the reference's mcp_server (src/mcp_server.erl):
 
 The reference's create_store/insert_vector dispatch bug is fixed in
 serve/tools.py (see its module docstring).
+
+Spans (utils/metrics.py): each request opens an id where its line starts
+to decode and closes ``mcp.request`` when its reply's ``sendall`` returns,
+on the connection thread or, for an answer the batcher delivers, on the
+batcher's delivery thread; ``mcp.parse`` runs to the hand-off of the work
+(the tool call, or the batcher submit after the query's decode),
+``mcp.encode`` from the work's return to that ``sendall``.  The
+``mcp.<method>`` histograms read ``mcp.request``'s two clock reads.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from typing import Optional, Set
 
 from erlvectordb_tpu_torch.api import Database
 from erlvectordb_tpu_torch.serve import tools as tools_mod
-from erlvectordb_tpu_torch.utils.metrics import metrics
+from erlvectordb_tpu_torch.utils.metrics import metrics, now_ns
 
 logger = logging.getLogger("evdb.mcp")
 
@@ -75,6 +83,32 @@ _KNOWN_METHODS = frozenset({
 })
 
 
+class _Call:
+    """One request's spans: its id, its histogram label, where it began,
+    where its parse ended and where its reply's encoding began."""
+    __slots__ = ("rid", "label", "t0", "t_parsed", "t_encode")
+
+    def __init__(self, rid: int, label: str, t0: int):
+        self.rid, self.label, self.t0 = rid, label, t0
+        self.t_parsed = self.t_encode = None
+
+    def parsed(self) -> None:
+        """The work is handed off: close ``mcp.parse`` (once)."""
+        if self.t_parsed is None:
+            self.t_parsed = now_ns()
+            metrics.record("mcp.parse", self.rid, 0, self.t0, self.t_parsed)
+
+    def finish(self, t_encode: Optional[int], parent: int = 0) -> None:
+        """The reply is sent (or none is due): close ``mcp.encode`` from
+        ``t_encode`` and ``mcp.request``, and feed the method's histogram."""
+        t = now_ns()
+        if t_encode is not None:
+            metrics.record("mcp.encode", self.rid, parent, t_encode, t)
+        metrics.record("mcp.request", self.rid, parent, self.t0, t)
+        metrics.observe(self.label, (t - self.t0) / 1e9)
+        metrics.inc(self.label + "_total")
+
+
 class MCPServer:
     def __init__(self, db: Database, host: str = "127.0.0.1", port: int = 8080):
         self.db = db
@@ -85,6 +119,8 @@ class MCPServer:
         self._stop = threading.Event()
         self._clients: Set[socket.socket] = set()
         self._lock = threading.Lock()
+        self._conn = threading.local()  # .call: the request a connection
+        #                                 thread is processing
 
     # ------------------------------------------------------------ lifecycle
 
@@ -183,6 +219,7 @@ class MCPServer:
                     if not stripped:
                         buf = ""
                         break
+                    t0 = now_ns()
                     try:
                         obj, end = decoder.raw_decode(stripped)
                     except json.JSONDecodeError:
@@ -200,12 +237,18 @@ class MCPServer:
                     # a histogram in the process-wide registry forever
                     label = (f"mcp.{method.replace('/', '_')}"
                              if method in _KNOWN_METHODS else "mcp.other")
-                    with metrics.timed(label):
-                        resp = self._process(obj, send)
+                    call = _Call(metrics.new_id(), label, t0)
+                    self._conn.call = call
+                    metrics.bind(call.rid)
+                    resp = self._process(obj, send)
                     if resp is _ASYNC:
                         continue  # response will be sent by a batcher callback
-                    if resp is not None:
+                    if resp is None:
+                        call.finish(None)
+                    else:
+                        t_encode = call.t_encode or now_ns()
                         send(resp)
+                        call.finish(t_encode)
         finally:
             with self._lock:
                 self._clients.discard(conn)
@@ -298,6 +341,9 @@ class MCPServer:
                 and self._search_async(req_id, name, args, send)
             ):
                 return _ASYNC
+            call = getattr(self._conn, "call", None)
+            if call is not None:
+                call.parsed()
             try:
                 out = tools_mod.call_tool(self.db, name, args)
             except (tools_mod.ToolError, KeyError, ValueError) as e:
@@ -307,6 +353,8 @@ class MCPServer:
             except Exception as e:  # noqa: BLE001 — fault barrier per request
                 logger.exception("tool %s failed", name)
                 return _error(req_id, INTERNAL_ERROR, f"{type(e).__name__}: {e}")
+            if call is not None:
+                call.t_encode = now_ns()
             return _result(req_id, {
                 "content": [{"type": "text", "text": json.dumps(out)}],
                 "isError": False,
@@ -320,11 +368,23 @@ class MCPServer:
         the next request.  Returns False to fall back to the sync path (the
         sync path then reports any argument errors)."""
 
-        def on_error(e: Exception):
-            code = (INVALID_PARAMS
-                    if isinstance(e, (tools_mod.ToolError, KeyError, ValueError))
-                    else INTERNAL_ERROR)
-            send(_error(req_id, code, str(e)))
+        call = getattr(self._conn, "call", None)
+
+        def reply(fmt, out, err):
+            """Send the answer, or the error, and close the request's spans:
+            on the delivery thread, bound to this request and its batch, or
+            on this thread for an argument error."""
+            t_encode = now_ns()
+            if err is None:
+                send(_tool_result(req_id, fmt(out)))
+            else:
+                code = (INVALID_PARAMS
+                        if isinstance(err, (tools_mod.ToolError, KeyError,
+                                            ValueError))
+                        else INTERNAL_ERROR)
+                send(_error(req_id, code, str(err)))
+            if call is not None:
+                call.finish(t_encode, metrics.current()[1])
 
         try:
             store = args["store"]
@@ -333,15 +393,12 @@ class MCPServer:
             where = args.get("filter")
             if name == "search_vectors":
                 q = tools_mod.decode_query(args)
-
-                def cb(hits, err):
-                    if err is not None:
-                        on_error(err)
-                    else:
-                        send(_tool_result(req_id, tools_mod.format_hits(hits)))
-
-                self.db.batcher.submit(store, q, k=k, metric=metric,
-                                       where=where, callback=cb)
+                if call is not None:
+                    call.parsed()
+                self.db.batcher.submit(
+                    store, q, k=k, metric=metric, where=where,
+                    callback=lambda hits, err: reply(tools_mod.format_hits,
+                                                     hits, err))
             else:
                 qs = tools_mod.decode_queries(args)
                 if args.get("encoding") == "b64":
@@ -350,19 +407,14 @@ class MCPServer:
                     fmt, raw = tools_mod.format_batch_columns, True
                 else:
                     fmt, raw = tools_mod.format_batch, False
-
-                def cb2(results, err):
-                    if err is not None:
-                        on_error(err)
-                    else:
-                        send(_tool_result(req_id, fmt(results)))
-
-                self.db.batcher.submit_group(store, qs, k=k, metric=metric,
-                                             where=where, callback=cb2,
-                                             raw=raw)
+                if call is not None:
+                    call.parsed()
+                self.db.batcher.submit_group(
+                    store, qs, k=k, metric=metric, where=where,
+                    callback=lambda res, err: reply(fmt, res, err), raw=raw)
             return True
         except (tools_mod.ToolError, KeyError, ValueError) as e:
-            send(_error(req_id, INVALID_PARAMS, str(e)))
+            reply(None, None, e)
             return True
         except Exception:  # noqa: BLE001 — unexpected: let the sync path report
             logger.exception("async search dispatch failed")
