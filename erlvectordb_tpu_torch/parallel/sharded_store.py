@@ -38,6 +38,15 @@ one all-gather (parallel/comm.py) brings every pair's candidates to every
 process, which merges them in shard order on the host, as one process
 merges its own, so the answer is the single-process store's bit for bit.  A verb that reaches
 only some processes raises after the group's timeout.
+
+Spans (utils/metrics.py), each with the ticket's request id, as
+core/store.py records them: ``store.submit`` (``search_batch_submit``),
+``store.readback`` (the candidates staged to the host: the wait on the
+scans, the copies, the all-gather), ``store.merge`` (the host's stable
+top-k over the shards' candidates) and ``store.map`` (the row remap and
+the ids); the histogram ``store.search`` (submit to the merge's end) and
+the counters ``store.search_total``, ``store.queries_total`` and
+``store.shard_scans_total`` (the shard scans a search launches).
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ from erlvectordb_tpu_torch.parallel.mesh import (
     spans_processes,
 )
 from erlvectordb_tpu_torch.utils.locks import RWLock
+from erlvectordb_tpu_torch.utils.metrics import metrics, now_ns
 
 MIN_SHARD_CAPACITY = 256
 
@@ -484,6 +494,7 @@ class ShardedVectorStore:
         run at completion.  Across processes every process completes its
         tickets in the order it submitted them (a ticket completed out of
         that order raises ``comm.DistributedError``)."""
+        t0 = now_ns()
         seq = next(self._searches)
         metric = metric or self.metric
         if metric not in VALID_METRICS:
@@ -491,20 +502,29 @@ class ShardedVectorStore:
         q = self._validate_batch(queries)
         nq = q.shape[0]
         if not self._copies or self.count == 0 or k <= 0:
-            return ShardedTicket(None, nq, k, 0, seq=seq)
-        fmask = self.filter_mask(where) if where else None
-        with self._lock.read():
-            t = self._dispatch_locked(q, nq, k, metric, fmask)
-        t.seq = seq
+            t = ShardedTicket(None, nq, k, 0, seq=seq)
+        else:
+            fmask = self.filter_mask(where) if where else None
+            with self._lock.read():
+                t = self._dispatch_locked(q, nq, k, metric, fmask)
+            t.seq = seq
+            metrics.inc("store.shard_scans_total", len(t.parts))
+        t.t0 = t0 / 1e9
+        t.rid = metrics.current()[0]
+        metrics.end("store.submit", t.rid, t0, t.nq)
         return t
 
     def _readback(self, t: ShardedTicket):
         """Every process's candidates (one all-gather; in one process this
         process's own), reassembled in shard order and merged per replica
-        group with ``lax.top_k``'s ties, on the host."""
+        group with ``lax.top_k``'s ties, on the host; the merge's end kept
+        as ``t.t_read``.  Counts the search in the ``store.search``
+        histogram (submit to merged) and its counters."""
+        t0 = now_ns()
         cand = comm.all_gather_dict(
             {(r, s): (comm.host(d), comm.host(g)) for r, s, d, g in t.parts},
             f"search {self.name} #{t.seq}", self._spans)
+        t_m = metrics.end("store.readback", t.rid, t0, t.nq)
         r_count, s_count, b_r, kb = t.layout
         kb = min(kb, s_count * cand[(0, 0)][0].shape[1])
         out_d, out_r = [], []
@@ -520,6 +540,10 @@ class ShardedVectorStore:
             out_r.append(torch.gather(g_flat, 1, sel))
         dists = torch.cat(out_d).float().numpy()[: t.nq]
         rows = torch.cat(out_r).to(torch.int32).numpy()[: t.nq]
+        t.t_read = metrics.end("store.merge", t.rid, t_m, t.nq)
+        metrics.observe("store.search", t.t_read / 1e9 - t.t0)
+        metrics.inc("store.search_total")
+        metrics.inc("store.queries_total", t.nq)
         return dists, rows
 
     @staticmethod
@@ -532,7 +556,9 @@ class ShardedVectorStore:
         dists_np, rows_np = self._readback(t)
         with self._lock.read():
             rows_np = self._remap_ticket_rows(rows_np, t)
-            return self._map_results(dists_np, rows_np, t.k)
+            out = self._map_results(dists_np, rows_np, t.k)
+        metrics.end("store.map", t.rid, t.t_read, t.nq)
+        return out
 
     def search_batch_complete_raw(self, t: ShardedTicket):
         """Columnar completion (see VectorStore.search_batch_complete_raw)."""
@@ -546,6 +572,7 @@ class ShardedVectorStore:
         with self._lock.read():
             rows_now = self._remap_ticket_rows(rows_np, t)
             ids = self._ids_view().reshape(-1)[rows_now]
+        metrics.end("store.map", t.rid, t.t_read, t.nq)
         # the remapped rows: after a concurrent grow, rows_np decodes wrongly
         # against the current flat layout while ids came from rows_now
         return dists_np, rows_now, ids
