@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of erlvectordb_tpu_torch on one CUDA card (an H100).
 
-    python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py                 # from the root of a checkout
 
 Phases, each printing one JSON line of its own numbers:
 
@@ -9,9 +9,11 @@ Phases, each printing one JSON line of its own numbers:
   2. build    the CUDA kernels compiled from csrc/ with nvcc (seconds,
               spills; registers and spills of every instantiation of the
               tensor-core scans B1-B6, the register-tiled B3-f32 and B4-f32,
-              B7 (int4 and int8) and B8-B10, which must all be there and must
-              not spill), and the stores built on the card (ms, device
-              bytes);
+              B7 (int4 and int8), B8-B10 and the cellprobe build's two
+              kernels, which must all be there and must not spill), then
+              (kb), the build's k-means++ update and pairwise norms at the
+              cohere1m index cell's shape (build_phase), and the stores
+              built on the card (ms, device bytes);
   3. kernels  each kernel variant against its plain PyTorch version at the
               shapes its served path gives it (1024 queries, W=128; B4-f32
               also at 1 and 16 queries and at (c32)'s 1.2M rows at k = 32;
@@ -295,6 +297,15 @@ Q_TARGET, Q_OVERLAP, Q_B7_NPROBE = 0.95, 0.85, 32
 # k, batch); queries are the batch's first corpus rows, as in bench.py
 SMALL_CONFIGS = {"c1": (10_000, 128, "cosine", "float32", 5, 256),
                  "c2": (100_000, 384, "euclidean", "int8", 10, 512)}
+# (kb): the cellprobe build's row passes at the cohere1m_int8 index cell's
+# shape (evdb_bench): k-means++ on the build's 200,000-row sample of
+# 1,000,000 x 768 rows of the manifold recipe (manifold's defaults), 10,417
+# seeds (96 rows a cell), every seed held to the whole-sample passes' and
+# mind2 / owner compared with theirs after the draws in KB_STATES; the encode
+# of all rows into cells of 128 slots, its first KB_ENC_CELLS cells held to
+# the numpy encode
+KB_ROWS, KB_SAMPLE, KB_CELLS, KB_CAP = 1_000_000, 200_000, 10_417, 128
+KB_STATES, KB_ENC_CELLS = (100, 1_000, 5_000, 10_416), 500
 # (l): rows inserted into and deleted from (a), (h) and (f-rq) between their
 # full base and the sync after it; (l-c): the rows compressed on the card
 L_NEW = L_DELETE = 1_000
@@ -345,6 +356,10 @@ KERNEL_INFO = {
     "adc_pos_scan": ("adc_scan.cu", "erlvectordb_tpu/ops/adc_pallas.py:419"),
     "adc_exact_scan": ("adc_scan.cu", "erlvectordb_tpu/ops/adc_pallas.py:253"),
     "adc_pallas_scan": ("adc_scan.cu", "erlvectordb_tpu/ops/adc_pallas.py:114"),
+    "kpp_update_": ("index_build.cu", "none: the JAX package's seeding is "
+                    "whole-array passes (ops/kmeans.py)"),
+    "pairwise_norms": ("index_build.cu", "none: the JAX package encodes "
+                       "on the host (core/cell_probe.py)"),
 }
 F32_SOURCE = "fused_topk.cu"   # B3 and B4 on f32 codes
 # the kernels that must not spill, with their instantiations: B1-B3 on int8
@@ -354,12 +369,14 @@ F32_SOURCE = "fused_topk.cu"   # B3 and B4 on f32 codes
 # packed int8 LUT ((B10, B9 at list depths 2 / 4 / 8 / 32, B8) x 2, 4, 8
 # subspace phases a warp), B7 on bf16 mma (int4 and int8 x windows of up to
 # 8 or 32 pairs), B10-bf16 on the packed bf16 LUT (list depths 2 / 4 / 8 /
-# 32 x (S, S0) in (2, 8), (4, 8), (8, 8), (2, 4), (4, 4))
+# 32 x (S, S0) in (2, 8), (4, 8), (8, 8), (2, 4), (4, 4)), the build's
+# k-means++ update (float4 and scalar loads) and pairwise norms
 CHECKED_KERNELS = {"slice_scan_kernel": 10, "tile_scan_kernel": 18,
                    "residual_mma_kernel": 4, "pos_f32_kernel": 2,
                    "tile_f32_kernel": 12, "tile_merge_kernel": 3,
                    "adc_packed_kernel": 27, "gather_mma_kernel": 4,
-                   "adc_bf16_packed_kernel": 20}
+                   "adc_bf16_packed_kernel": 20, "kpp_update_kernel": 2,
+                   "pairwise_norms_kernel": 2}
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops/s (the
 # int4 codes are counted at the int8 rate they run at after unpacking), bf16
 # tensor-core FLOP/s (B7: a bf16-exact query against int8-exact codes), f32
@@ -371,6 +388,7 @@ NO_LIBRARY_B7 = "none: a gather plus a product is not one PyTorch call"
 THREE_CALLS_B7 = ("gather, bf16 conversion and torch.bmm: three PyTorch "
                   "calls, not one")
 NO_LIBRARY_ADC = "none: no single PyTorch call computes a LUT scan and its selection"
+NO_LIBRARY_BUILD = "none: no PyTorch call sums in the order the build's bits need"
 # LUT lookups have no tensor-core rate: they are bounded by shared-memory
 # words, 32 a clock on each SM (132 on an H100 SXM), at the SM clock
 # nvidia-smi reports as clocks.max.sm (both set by main from the device)
@@ -500,8 +518,9 @@ def kernel_modules():
     import erlvectordb_tpu_torch.ops.adc_pallas as ap
     import erlvectordb_tpu_torch.ops.cell_probe as cp
     import erlvectordb_tpu_torch.ops.fused_topk as ft
+    import erlvectordb_tpu_torch.ops.index_build as ib
 
-    return ft, cp, ap
+    return ft, cp, ap, ib
 
 
 def reset_launches() -> None:
@@ -3803,6 +3822,204 @@ def bench_cli_step(root, smi):
                              f"{missing}; stderr {out.stderr[-2000:]}")
 
 
+def device_ms_of(fn, names) -> float:
+    """Device milliseconds of the kernels whose name holds one of ``names``
+    in one call of fn(), by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU
+               and any(n in e.key for n in names)) / 1e3
+
+
+def build_phase(kernels, launches):
+    """(kb): the cellprobe build's two kernels at the cohere1m index cell's
+    shape.  kpp_update_: the seeding of KB_CELLS centroids on a KB_SAMPLE
+    sample of KB_ROWS manifold rows drawn on the card, timed whole on the
+    host clock, and its kernels' device time by the profiler in a second
+    seeding (equal seeds); beside it the same seeding with the plain
+    whole-sample update (kpp_update_ref_, prune=False), from its own
+    generator of the same seed: every seed equal, and mind2 and owner
+    compared after the draws in KB_STATES (mismatch: the share of rows that
+    differ in either; max_abs_err: mind2's).  The bound: the bytes the
+    pruned draws need (the kept rows, 8 bytes a row for mind2 and owner,
+    the seed distances' seeds).  pairwise_norms: encode_cells of all
+    KB_ROWS rows into KB_CELLS cells of KB_CAP, its first KB_ENC_CELLS
+    cells against the numpy encode of their rows, and the norms of the
+    encode's reconstructions against numpy's; timed on those
+    reconstructions."""
+    import torch
+
+    import erlvectordb_tpu_torch.ops.index_build as ib
+    import erlvectordb_tpu_torch.ops.kmeans as km
+
+    x = manifold(SEED + 24)(1, KB_ROWS)
+    pick = np.random.default_rng(0).choice(KB_ROWS, KB_SAMPLE, replace=False)
+    xt = x[torch.as_tensor(pick, device=DEVICE)]
+    n, d = xt.shape
+
+    def seeding(k, stats=None):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        return km._kpp_init(xt, gen, k, stats)
+
+    def side_by_side(k):
+        """The pruned and the whole-sample seedings draw by draw, each from
+        its own generator: (pruned seeds, whole seeds, [(draw, mismatch,
+        max_abs_err)], seconds of the whole-sample updates)."""
+        sides = []
+        for update in (ib.kpp_update_, lambda *a: ib.kpp_update_ref_(
+                *a, prune=False)):
+            gen = torch.Generator(device=DEVICE)
+            gen.manual_seed(0)
+            first = int(torch.randint(0, n, (1,), generator=gen,
+                                      device=DEVICE))
+            cents = torch.zeros((k, d), device=DEVICE)
+            cents[0] = xt[first]
+            mind2 = torch.full((n,), float("inf"), device=DEVICE)
+            owner = torch.zeros((n,), dtype=torch.int32, device=DEVICE)
+            scanned = torch.zeros((), dtype=torch.int64, device=DEVICE)
+            update(xt, cents, 0, mind2, owner, scanned)
+            sides.append((update, gen, cents, mind2, owner, scanned))
+        states, whole_s = [], 0.0
+        for i in range(1, k):
+            for side, (update, gen, cents, mind2, owner, scanned) in \
+                    enumerate(sides):
+                w = torch.clamp(mind2, min=1e-20)
+                p = w / w.sum()
+                e = torch.empty_like(p).exponential_(1.0, generator=gen)
+                pk = xt.index_select(0, torch.argmax(p / e, dim=0,
+                                                     keepdim=True))
+                cents[i:i + 1] = pk
+                if side:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                update(xt, cents, i, mind2, owner, scanned)
+                if side:
+                    torch.cuda.synchronize()
+                    whole_s += time.perf_counter() - t0
+            if i in KB_STATES:
+                (_, _, _, m_a, o_a, _), (_, _, _, m_b, o_b, _) = sides
+                differ = (m_a.view(torch.int32) != m_b.view(torch.int32)) | (
+                    o_a != o_b)
+                states.append((i, float(differ.float().mean()),
+                               float(torch.nan_to_num(
+                                   (m_a - m_b).abs(), nan=float("inf")).max())))
+        return sides[0][2], sides[1][2], states, whole_s
+
+    reset_launches()
+    stats = {}
+    cents, seed_s = timed(lambda: seeding(KB_CELLS, stats))
+    launches["kb"] = read_launches()
+    pruned, whole, states, whole_s = side_by_side(KB_CELLS)
+    mismatch = max(m for _, m, _ in states)
+    max_err = max(e for _, _, e in states)
+    if not (torch.equal(cents, pruned) and torch.equal(pruned, whole)
+            and mismatch == 0.0 and max_err == 0.0):
+        raise AssertionError(
+            f"kpp_update_: seeds or states differ from the whole-sample "
+            f"passes' (seeds equal {torch.equal(pruned, whole)}, states "
+            f"{states})")
+    kern_ms = device_ms_of(lambda: seeding(KB_CELLS), ("kpp_",))
+    draws = KB_CELLS - 1
+    seeds_read = d * 4 * draws * (draws + 1) / 2
+    nbytes = stats["kpp_rows_scanned"] * d * 4 + draws * n * 8 + seeds_read
+    b_ms, b_by = bound("f32", 0, nbytes / draws)
+    kernels[("kpp_update_", "pruned")] = dict(
+        max_abs_err=max_err, mismatch=mismatch, ms=kern_ms / draws,
+        plain_ms=1e3 * whole_s / draws, bound_ms=b_ms, bound_by=b_by, rows=n,
+        extra=dict(width=d, seeds=KB_CELLS, seeding_s=seed_s,
+                   kernel_device_ms=kern_ms,
+                   rows_scanned=stats["kpp_rows_scanned"],
+                   rows_total=stats["kpp_rows_total"],
+                   scanned_share=(stats["kpp_rows_scanned"]
+                                  / stats["kpp_rows_total"]),
+                   states_checked=states, whole_pass_update_s=whole_s))
+    del xt, pruned, whole
+
+    owner = torch.as_tensor(
+        np.random.default_rng(1).permutation(KB_CELLS * KB_CAP)[:KB_ROWS]
+        // KB_CAP, device=DEVICE)
+    rows = torch.arange(KB_ROWS, device=DEVICE)
+    reset_launches()
+    enc, enc_s = timed(lambda: ib.encode_cells(x, rows, owner, cents, KB_CAP))
+    launches["kb-encode"] = read_launches()
+    codes, scales, norms, valid, row_map = enc
+    # the numpy encode of the first KB_ENC_CELLS cells' rows fills the
+    # first KB_ENC_CELLS * KB_CAP slots of the whole encode
+    own = owner.cpu().numpy()
+    sel = np.flatnonzero(own < KB_ENC_CELLS)
+    want = encode_numpy(x[torch.as_tensor(sel, device=DEVICE)].cpu().numpy(),
+                        sel, own[sel], cents[:KB_ENC_CELLS].cpu().numpy(),
+                        KB_CAP)
+    slots = KB_ENC_CELLS * KB_CAP
+    for name, got, w in zip(("codes", "scales", "norms", "valid", "row_map"),
+                            enc, want):
+        if not np.array_equal(got[:slots].cpu().numpy(), w):
+            raise AssertionError(f"encode_cells: {name} differ from the "
+                                 "numpy encode's")
+    live = torch.nonzero(valid).squeeze(1)
+    recon = (cents[live // KB_CAP]
+             + codes[live].float() * scales[live][:, None])
+    del enc, codes, x
+    got = ib.pairwise_norms(recon)
+    ref = np.linalg.norm(recon.cpu().numpy(), axis=1)
+    host = got.cpu().numpy()
+    mismatch = float(np.mean(host.view(np.int32) != ref.view(np.int32)))
+    max_err = float(np.max(np.abs(host - ref)))
+    if mismatch or not torch.equal(got, norms[live]):
+        raise AssertionError(f"pairwise_norms: {mismatch:.2e} of the norms "
+                             "differ from numpy's, or from the encode's")
+    ms = cuda_ms(lambda: ib.pairwise_norms(recon))
+    plain_ms = cuda_ms(lambda: ib.pairwise_norms_ref(recon), reps=1)
+    m = recon.shape[0]
+    b_ms, b_by = bound("f32", 2.0 * m * d, m * (d + 1) * 4)
+    kernels[("pairwise_norms", "pairwise")] = dict(
+        max_abs_err=max_err, mismatch=mismatch, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, rows=m,
+        extra=dict(width=d, encode_s=enc_s, cells=KB_CELLS, cap=KB_CAP,
+                   numpy_encode_cells=KB_ENC_CELLS))
+    emit("build_kernels", seeding_s=seed_s, encode_s=enc_s,
+         launches={k: launches[k] for k in ("kb", "kb-encode")},
+         **{f"{k[0]}": v for k, v in kernels.items()
+            if k[0] in ("kpp_update_", "pairwise_norms")})
+    del recon, got, norms, scales, valid, row_map
+    torch.cuda.empty_cache()
+
+
+def encode_numpy(data, rows, owner, cents, cell_cap):
+    """The cell-major int8 residual encode in numpy on the host, on whole
+    arrays (the form ops/index_build.py::encode_cells replaces): codes,
+    scales, norms, valid, slot -> row map."""
+    n, d = data.shape
+    n_cells = cents.shape[0]
+    order = np.argsort(owner, kind="stable")
+    oc = owner[order]
+    dest = oc * cell_cap + (np.arange(n)
+                            - np.searchsorted(oc, np.arange(n_cells))[oc])
+    total = n_cells * cell_cap
+    codes = np.zeros((total, d), np.int8)
+    scales = np.ones((total,), np.float32)
+    norms = np.zeros((total,), np.float32)
+    row_map = np.full((total,), -1, np.int64)
+    res = data[order] - cents[oc]
+    absmax = np.abs(res).max(axis=1)
+    scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(res / scale[:, None]), -127, 127).astype(np.int8)
+    codes[dest] = q
+    scales[dest] = scale
+    norms[dest] = np.linalg.norm(cents[oc] + q.astype(np.float32)
+                                 * scale[:, None], axis=1)
+    row_map[dest] = np.asarray(rows)[order]
+    return codes, scales, norms, row_map >= 0, row_map
+
+
 def kernel_summary(kernels, launches) -> list:
     """The contract's kernel rows: each checked kernel row with its launches
     on the paths that serve it (a row of a variant checked at several
@@ -3829,6 +4046,7 @@ def kernel_summary(kernels, launches) -> list:
             "bound_by": r["bound_by"], "library_ms": None,
             "library": (NO_LIBRARY_B7 if name == "gather_dots" else
                         NO_LIBRARY_ADC if name.startswith("adc_") else
+                        NO_LIBRARY_BUILD if src == "index_build.cu" else
                         NO_LIBRARY),
             "variant": variant, "rows": r["rows"], "mismatch": r["mismatch"],
             **r.get("extra", {})})
@@ -3897,6 +4115,8 @@ def main() -> int:
     if counts != CHECKED_KERNELS or spilled:
         raise AssertionError(f"checked kernels {counts} (expected "
                              f"{CHECKED_KERNELS}), spilled: {spilled}")
+    kernels, kb_launches = {}, {}
+    build_phase(kernels, kb_launches)
 
     corpus = make_corpus(SEED, N_ROWS)
     queries = make_corpus(SEED + 1, BATCH)
@@ -3922,7 +4142,7 @@ def main() -> int:
          f_cells=len(stores["f"]._cell_next), h_cells=len(stores["h"]._cell_next),
          f_build_stats=stores["f"].build_stats)
 
-    kernels = kernel_phase(stores, queries)
+    kernels.update(kernel_phase(stores, queries))
     del stores["g_ref"]
     torch.cuda.empty_cache()
 
@@ -3933,6 +4153,7 @@ def main() -> int:
             db.registry.adopt(s)
         f32_rows = make_corpus(SEED + 2, F32_ROWS)
         launches, mp_curve, c_rows = slice_phase(db, corpus, queries, f32_rows)
+        launches.update(kb_launches)
     finally:
         db.stop()
     del db

@@ -1,8 +1,9 @@
-"""Time the CellProbeIndex host build of checkouts of the PyTorch port, phase
-by phase, on one card, at chip_smoke.py path (q)'s shape, and hold each
-checkout's phases to the first one's outputs.
+"""Time the CellProbeIndex build of checkouts of the PyTorch port, phase by
+phase, on one card, at chip_smoke.py path (q)'s shape or at the cohere1m
+index cell's, and hold each checkout's phases to the first one's outputs.
 
     python3 compare_builds.py [--rows N] [--choices-from ROOT2] ROOT [ROOT ...]
+    python3 compare_builds.py --cohere1m ROOT [ROOT ...]
 
 Each ROOT is a directory holding an ``erlvectordb_tpu_torch`` package (a
 checkout, or ``git archive`` of one); each runs in a process of its own, in
@@ -42,6 +43,19 @@ per step seconds, a SHA-1 of its output (equal between checkouts whose
 step computes the same function) and the process's peak RSS after it.
 The card's name and power limit (nvidia-smi) come first.  Exits non-zero
 if a checkout fails or no CUDA device is present.
+
+``--cohere1m`` builds instead the index of the benchmark cell
+``cohere1m.mcp_index`` as its set-up does: the configuration
+``evdb_bench/configs/cohere1m_int8.json`` (1,000,000 x 768 rows of its
+manifold recipe, drawn on the card from seed 1 by
+``evdb_bench/corpus.py``) in an int8 cosine store, then the index manager's
+``_store_matrix`` (pad128) and ``CellProbeIndex.build`` at the manager's
+defaults (cell_rows 96, cell_cap 128, 15 Lloyd iterations: 10,417 cells).
+Its line
+holds the two steps' seconds, the build's own phase seconds
+(``build_stats``) and SHA-1s of the k-means++ seeds, the Lloyd centroids,
+the assignment and each encoded array, equal between checkouts that build
+the same index.
 """
 
 from __future__ import annotations
@@ -65,6 +79,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DEVICE = "cuda"
 CHOICE_ROWS = 262_144
 MAX_TRAIN, CAP, ROUTE_NPROBE = 200_000, 128, (8, 16, 32, 64, 128, 256)
+CELL_SEED = 1   # --cohere1m's corpus seed
 
 
 def sha(*arrays) -> str:
@@ -175,7 +190,7 @@ def measure(root: str, rows: int, choices_from: str | None) -> dict:
     real_assign = cpi._balanced_assign
     cpi.kmeans_fit = fit_shared
     if hasattr(cpi, "kmeans_seeds"):
-        cpi.kmeans_seeds = lambda x, seed, *, k, init="random": None
+        cpi.kmeans_seeds = lambda x, seed, *, k, init="random", **kw: None
         cpi._lloyd = lambda x, c0, k, iters, balance=0.0: torch.as_tensor(
             cents, device=x.device)
     cpi._balanced_assign = (
@@ -207,6 +222,63 @@ def measure(root: str, rows: int, choices_from: str | None) -> dict:
     return out
 
 
+def measure_cell(root: str, seed: int) -> dict:
+    """The cohere1m index cell's build in checkout ``root`` (``--cohere1m``)."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    import erlvectordb_tpu_torch.core.cell_probe as cpi
+    from erlvectordb_tpu_torch.core.index_manager import IndexManager
+    from erlvectordb_tpu_torch.core.store import VectorStore
+    from evdb_bench import corpus
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "evdb_bench", "configs",
+                           "cohere1m_int8.json")) as f:
+        config = json.load(f)
+    out = {"root": root, "seed": seed, "steps": {}}
+    x = corpus.draw(config, seed, DEVICE, corpus.CORPUS)
+    out["corpus_sha1"] = sha(x[::4096])
+    store = VectorStore.from_matrix(config["name"], x,
+                                    metric=config["metric"],
+                                    dtype=config["store"]["dtype"],
+                                    device=DEVICE)
+    del x
+    torch.cuda.empty_cache()
+    # each phase's output, hashed after the build
+    kept = {}
+
+    def keep(name, fn):
+        def wrapped(*a, **kw):
+            kept[name] = fn(*a, **kw)
+            return kept[name]
+        return wrapped
+
+    cpi.kmeans_seeds = keep("kpp", cpi.kmeans_seeds)
+    cpi._lloyd = keep("lloyd", cpi._lloyd)
+    cpi._balanced_assign = keep("assign", cpi._balanced_assign)
+    t0 = time.perf_counter()
+    mat, rows = IndexManager._store_matrix(store, pad128=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = config["index"]["parameters"]
+    idx = cpi.CellProbeIndex.build(mat, rows, cell_rows=params["cell_rows"],
+                                   cell_cap=params["cell_cap"], iters=15,
+                                   device=DEVICE)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out["steps"] = {"store_matrix": {"s": t1 - t0},
+                    "build": {"s": t2 - t1},
+                    "peak_rss_gb": resource.getrusage(
+                        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+                    "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["build_stats"] = idx.build_stats
+    out["sha1"] = {name: sha(a) for name, a in kept.items()}
+    out["sha1"].update({name: sha(getattr(idx, name)) for name in (
+        "centroids", "codes", "scales", "norms", "valid", "row_map")})
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -218,8 +290,14 @@ def main(argv: list[str]) -> int:
                                  argv[3] if len(argv) > 3 else None)),
               flush=True)
         return 0
-    rows, choices_from = cs.Q_ROWS, None
-    while argv[:1] in (["--rows"], ["--choices-from"]):
+    if argv[:1] == ["--one-cell"]:
+        print(json.dumps(measure_cell(argv[1], int(argv[2]))), flush=True)
+        return 0
+    rows, choices_from, cell = cs.Q_ROWS, None, False
+    while argv[:1] in (["--rows"], ["--choices-from"], ["--cohere1m"]):
+        if argv[0] == "--cohere1m":
+            cell, argv = True, argv[1:]
+            continue
         if argv[0] == "--rows":
             rows = int(argv[1])
         else:
@@ -236,9 +314,10 @@ def main(argv: list[str]) -> int:
     for root in argv:
         extra = ([choices_from] if choices_from
                  and os.path.abspath(root) != choices_from else [])
+        one = (["--one-cell", root, str(CELL_SEED)] if cell
+               else ["--one", root, str(rows), *extra])
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root, str(rows), *extra], text=True,
-                              stdout=subprocess.PIPE)
+                               *one], text=True, stdout=subprocess.PIPE)
         sys.stdout.write(proc.stdout)
         if proc.returncode:
             rc = proc.returncode

@@ -20,9 +20,7 @@ either package's ``to_arrays``.
 
 from __future__ import annotations
 
-import os
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -32,13 +30,9 @@ from erlvectordb_tpu_torch.core.calibration import CalibrationSet, measure_curve
 from erlvectordb_tpu_torch.core.ivf import _balanced_assign
 from erlvectordb_tpu_torch.core.store import default_device
 from erlvectordb_tpu_torch.ops.cell_probe import dedup_rows_topk, multiprobe_topk
+from erlvectordb_tpu_torch.ops.index_build import encode_cells
 from erlvectordb_tpu_torch.ops.kmeans import _lloyd, kmeans_fit, kmeans_seeds
 from erlvectordb_tpu_torch.utils.metrics import metrics, now_ns
-
-# the host encode's rows a task, and its threads (numpy releases the GIL in
-# its array loops)
-_ENCODE_ROWS = 65_536
-_ENCODE_THREADS = min(8, os.cpu_count() or 1)
 
 
 class _Laps:
@@ -55,46 +49,6 @@ class _Laps:
         now = time.perf_counter()
         self.stats[key] = now - self.t
         self.t = now
-
-
-def _encode_cells(data, rows, owner, cents, cell_cap):
-    """The cell-major layout of rows ``data`` [N, D] f32 placed by ``owner``
-    around ``cents`` [K, D]: (codes [K*cap, D] int8, scales, reconstruction
-    norms, valid, slot -> row map).  Each row's residual is encoded with a
-    true division by 127; the rows are encoded in tasks of _ENCODE_ROWS on
-    a thread pool (each row's arithmetic is the same in any task)."""
-    n, d = data.shape
-    n_cells = cents.shape[0]
-    order = np.argsort(owner, kind="stable")
-    oc = owner[order]
-    starts = np.searchsorted(oc, np.arange(n_cells))
-    dest = oc * cell_cap + (np.arange(n) - starts[oc])
-    rows = np.asarray(rows)
-    total = n_cells * cell_cap
-    codes = np.zeros((total, d), np.int8)
-    scales = np.ones((total,), np.float32)
-    norms = np.zeros((total,), np.float32)
-    row_map = np.full((total,), -1, np.int64)
-
-    def encode(lo):
-        part = slice(lo, min(lo + _ENCODE_ROWS, n))
-        src, cell, to = order[part], oc[part], dest[part]
-        res = data[src] - cents[cell]                      # residuals
-        absmax = np.abs(res).max(axis=1)
-        scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
-        codes_rows = np.clip(np.round(res / scale[:, None]),
-                             -127, 127).astype(np.int8)
-        codes[to] = codes_rows
-        scales[to] = scale
-        # score with reconstruction norms (what the codes encode), as the
-        # int4r store does
-        recon = cents[cell] + codes_rows.astype(np.float32) * scale[:, None]
-        norms[to] = np.linalg.norm(recon, axis=1)
-        row_map[to] = rows[src]
-
-    with ThreadPoolExecutor(_ENCODE_THREADS) as pool:
-        list(pool.map(encode, range(0, n, _ENCODE_ROWS)))
-    return codes, scales, norms, row_map >= 0, row_map
 
 
 class CellProbeIndex:
@@ -154,7 +108,7 @@ class CellProbeIndex:
     @classmethod
     def build(
         cls,
-        data: np.ndarray,           # [N, D] f32 rows (dim-padded ok)
+        data,                       # [N, D] f32 rows (dim-padded ok)
         rows: np.ndarray,           # [N] original store row ids
         *,
         cell_rows: int = 96,        # target valid rows per cell
@@ -165,32 +119,37 @@ class CellProbeIndex:
         hierarchy: bool = True,     # auto-hierarchy past HIER_MIN_CELLS
         device=None,
     ) -> "CellProbeIndex":
-        """Host build: k-means on the device, the balanced assignment, and
-        int8 residuals encoded in numpy (a true division by 127, as the JAX
-        package's host build does).  The seconds of each phase (k-means++
-        seeding, Lloyd, the assignment's parts, encode, upload, hierarchy)
-        and the straggler count land in ``build_stats``."""
+        """The build on the device: k-means++ seeding and Lloyd on a sample
+        of the rows, the balanced assignment, and the int8 residual encode
+        (ops/index_build.py::encode_cells: the host encode's bits, a true
+        division by 127 as in the JAX package's host build).  ``data``: a
+        tensor, used where it lies if that is ``device``, or a numpy array,
+        uploaded once; the sample is drawn with numpy and gathered there.
+        The seconds of each phase (k-means++ seeding, Lloyd, the
+        assignment's parts, encode, upload, hierarchy), the straggler count
+        and k-means++'s row counts land in ``build_stats``."""
         dev = torch.device(device) if device is not None else default_device()
-        data = np.asarray(data, np.float32)
-        n, d = data.shape
+        x = (data.to(device=dev, dtype=torch.float32)
+             if isinstance(data, torch.Tensor)
+             else torch.as_tensor(np.asarray(data, np.float32), device=dev))
+        n, d = x.shape
         cell_cap = max(8, cell_cap)
         if cell_cap < cell_rows:
             raise ValueError(
                 f"cell_cap ({cell_cap}) must be >= cell_rows ({cell_rows}): "
                 "total capacity would be smaller than the corpus")
         n_cells = max(1, -(-n // max(8, cell_rows)))
-        train = data
+        xt = x
         if n > max_train:
             idx = np.random.default_rng(seed).choice(n, max_train,
                                                      replace=False)
-            train = data[idx]
+            xt = x[torch.as_tensor(idx, device=dev)]
         stats: dict = {}
         lap = _Laps(dev, stats)
-        xt = torch.as_tensor(train, device=dev)
-        k = min(n_cells, max(1, train.shape[0]))
-        cents0 = kmeans_seeds(xt, seed, k=k, init="kpp")
+        k = min(n_cells, max(1, xt.shape[0]))
+        cents0 = kmeans_seeds(xt, seed, k=k, init="kpp", stats=stats)
         lap("kpp_s")
-        cents = _lloyd(xt, cents0, k, iters).cpu().numpy()
+        cents = _lloyd(xt, cents0, k, iters)
         del xt, cents0
         lap("lloyd_s")
         n_cells = stats["cells"] = cents.shape[0]
@@ -198,12 +157,14 @@ class CellProbeIndex:
             raise ValueError(
                 f"{n_cells} cells x {cell_cap} slots < {n} rows; raise "
                 "cell_cap or max_train")
-        owner = _balanced_assign(data, cents, cell_cap, device=dev,
-                                 stats=stats)
+        owner = _balanced_assign(x, cents, cell_cap, device=dev, stats=stats)
         lap("assign_s")
-        arrays = _encode_cells(data, rows, owner, cents, cell_cap)
+        codes, scales, norms, valid, row_map = encode_cells(
+            x, torch.as_tensor(np.asarray(rows, np.int64), device=dev),
+            torch.as_tensor(owner, device=dev), cents, cell_cap)
         lap("encode_s")
-        idx = cls(cents, *arrays, cell_cap, device=dev)
+        idx = cls(cents, codes, scales, norms, valid, row_map.cpu().numpy(),
+                  cell_cap, device=dev)
         lap("upload_s")
         if hierarchy and n_cells >= cls.HIER_MIN_CELLS:
             idx = idx._with_hierarchy(seed=seed, iters=iters)

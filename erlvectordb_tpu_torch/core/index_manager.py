@@ -249,12 +249,13 @@ class IndexManager:
     @staticmethod
     def _store_matrix(store: VectorStore, pad128: bool = False):
         """(matrix, store rows) of a store's live rows for an index build —
-        the shared front half of every builder."""
+        the shared front half of every builder; the matrix a tensor on the
+        store's device."""
         if store.count == 0:
             raise IndexError_("store is empty")
         rows, mat = store.live_matrix()
         if pad128 and mat.shape[1] % 128:
-            mat = np.pad(mat, ((0, 0), (0, 128 - mat.shape[1] % 128)))
+            mat = torch.nn.functional.pad(mat, (0, 128 - mat.shape[1] % 128))
         return mat, rows
 
     @staticmethod
@@ -267,15 +268,14 @@ class IndexManager:
         from erlvectordb_tpu_torch.quant.opq import OPQCodebook
         from erlvectordb_tpu_torch.quant.pq import PQCodebook
 
-        mat, rows = self._store_matrix(store)
+        x, rows = self._store_matrix(store)
         m = int(params.get("m", 8))
         k = int(params.get("k", 256))
         iters = int(params.get("iters", 15))
-        d = mat.shape[1]
+        d = x.shape[1]
         if d % m:  # pad dims so D % M == 0
-            mat = np.pad(mat, ((0, 0), (0, m - d % m)))
-        kk = min(k, max(16, mat.shape[0] // 4))
-        x = torch.as_tensor(mat, device=store.device)
+            x = torch.nn.functional.pad(x, (0, m - d % m))
+        kk = min(k, max(16, x.shape[0] // 4))
         if rotated:
             cb = OPQCodebook.fit(x, m=m, k=kk, iters=iters,
                                  opq_iters=int(params.get("opq_iters", 4)))
@@ -283,7 +283,7 @@ class IndexManager:
             cb = PQCodebook.fit(x, m=m, k=kk, iters=iters)
         codes = cb.encode(x)
         artifact = {"codebook": cb, "codes": codes, "rows": rows,
-                    "pad_dim": mat.shape[1]}
+                    "pad_dim": x.shape[1]}
         return artifact, {
             "kind": "opq" if rotated else "pq",
             "m": cb.m,
@@ -296,6 +296,7 @@ class IndexManager:
         from erlvectordb_tpu_torch.core.ivf import IVFIndex
 
         mat, rows = self._store_matrix(store)
+        mat = mat.cpu().numpy()
         idx = IVFIndex.build(
             mat, rows, self._row_norms(mat),
             n_cells=int(params.get("n_cells", 64)),
@@ -320,6 +321,7 @@ class IndexManager:
         from erlvectordb_tpu_torch.parallel.ep_ivf import EPIVFIndex
 
         mat, rows = self._store_matrix(store)
+        mat = mat.cpu().numpy()
         idx = EPIVFIndex.build(
             mat, rows, self._row_norms(mat), self._ep_mesh(store),
             n_cells=int(params.get("n_cells", 64)),
@@ -357,6 +359,10 @@ class IndexManager:
             iters=int(params.get("iters", 15)),
             device=store.device,
         )
+        del mat
+        # how often the seeding's pruning engages, summed over builds
+        for key in ("kpp_rows_scanned", "kpp_rows_total"):
+            metrics.inc(f"index.{key}", idx.build_stats[key])
         artifact = {"cell_probe": idx,
                     "nprobe": int(params.get("nprobe", 32))}
         return artifact, idx.stats()
@@ -396,6 +402,7 @@ class IndexManager:
             )
 
             mat, rows = self._store_matrix(store, pad128=True)
+            mat = mat.cpu().numpy()
             if queries is None:
                 rng = np.random.default_rng(n_sample)
                 sel = rng.choice(mat.shape[0],

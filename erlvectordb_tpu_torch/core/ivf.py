@@ -108,7 +108,15 @@ def _top_choices_all(data: torch.Tensor, centroids: torch.Tensor, *, j: int,
     return d_acc, i_acc
 
 
-def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
+def _on(device: torch.device, a) -> torch.Tensor:
+    """a as a contiguous f32 tensor on ``device``: a tensor already there
+    as it is, anything else copied."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+
+
+def _balanced_assign(data, centroids, cap: int,
                      j: int = 32, chunk: int = 131072,
                      device: Optional[torch.device] = None,
                      stats: Optional[dict] = None) -> np.ndarray:
@@ -119,7 +127,9 @@ def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
     far from its natural cell is findable only by luck.  So bumped rows walk
     DOWN THEIR OWN preference list (J deep), and the rare stragglers get a
     genuine nearest-cell-with-space pass — never an arbitrary dump.  The
-    choice lists and the greedy run on ``device`` (default: the CUDA card).
+    choice lists and the greedy run on ``device`` (default: the CUDA card);
+    ``data`` [N, D] and ``centroids`` [C, D] are numpy arrays or tensors (a
+    tensor on ``device`` is used without a copy).
     ``stats``, where given, receives the seconds of the choice lists, the
     greedy and the straggler pass, and the straggler count."""
     dev = torch.device(device) if device is not None else default_device()
@@ -131,8 +141,8 @@ def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
     # bound the [chunk, C] distance intermediate for large cell counts
     chunk = min(chunk, max(4096, (1 << 27) // max(c, 1)))
     t0 = time.perf_counter()
-    cj = torch.as_tensor(np.ascontiguousarray(centroids, np.float32), device=dev)
-    xj = torch.as_tensor(np.ascontiguousarray(data, np.float32), device=dev)
+    cj = _on(dev, centroids)
+    xj = _on(dev, data)
     d_all, i_all = _top_choices_all(xj, cj, j=j, chunk=min(chunk, n))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -141,7 +151,10 @@ def _balanced_assign(data: np.ndarray, centroids: np.ndarray, cap: int,
     del d_all, i_all
     t2 = time.perf_counter()
     if remaining.size:
-        _place_stragglers(owner, fill, remaining, xj, cj, centroids, cap)
+        _place_stragglers(owner, fill, remaining, xj, cj,
+                          centroids.cpu().numpy()
+                          if isinstance(centroids, torch.Tensor) else centroids,
+                          cap)
     if stats is not None:
         stats.update(choices_s=t1 - t0, greedy_s=t2 - t1,
                      stragglers=int(remaining.size),

@@ -1509,10 +1509,11 @@ class VectorStore:
                 out.append((vid, vec, self._metadata.get(vid, {})))
             return out
 
-    def live_matrix(self) -> Tuple[np.ndarray, np.ndarray]:
+    def live_matrix(self) -> Tuple[np.ndarray, torch.Tensor]:
         """(rows [n] ascending, vectors [n, dim] f32) of every live row: the
         order and values of get_all_vectors, gathered on the device (the
-        index builds' input)."""
+        index builds' input).  The vectors are a tensor on the store's
+        device (a copy of the rows, not a view of the store)."""
         with self._lock.read():
             if self._contig:
                 rows = np.arange(self._contig, dtype=np.int64)
@@ -1521,7 +1522,9 @@ class VectorStore:
                 rows = np.fromiter(sorted(self._row_to_id), np.int64,
                                    len(self._row_to_id))
             if rows.size == 0:
-                return rows, np.zeros((0, self._dim or 0), np.float32)
+                return rows, torch.zeros((0, self._dim or 0),
+                                         dtype=torch.float32,
+                                         device=self.device)
             r = self._put(rows)
             vec = self._vectors[r]
             if self.dtype in ("int4", "int4r"):
@@ -1531,7 +1534,7 @@ class VectorStore:
                 vec = vec.float() * self._scales[r][:, None]
             if self.dtype == "int4r":
                 vec = vec + self._centroids[r // self._cell_cap][:, : self._dim]
-            return rows, vec.cpu().numpy()
+            return rows, vec
 
     def _rid(self, row: int) -> Optional[str]:
         """Row -> id, without materializing implicit contiguous ids."""

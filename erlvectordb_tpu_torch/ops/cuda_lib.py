@@ -27,7 +27,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_topk.cu", "tile_scan.cu", "residual_scan.cu", "cell_probe.cu",
-           "adc_scan.cu")
+           "adc_scan.cu", "index_build.cu")
 HEADERS = ("scan_common.cuh", "mma_scan.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "erlvectordb_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # C entry point -> argtypes (every function returns cudaGetLastError())
 _SIGNATURES = {
     "evdb_intkey_scan": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -61,6 +62,8 @@ _SIGNATURES = {
                            _P],
     "evdb_adc_rerank_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P, _P, _P],
+    "evdb_kpp_update": [_P, _P, _I, _I, _I, _D, _D, _P, _P, _P, _P, _P],
+    "evdb_pairwise_norms": [_P, _I, _I, _P, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

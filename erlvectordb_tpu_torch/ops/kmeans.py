@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from erlvectordb_tpu_torch.ops.fused_topk import full_f32_matmul
+from erlvectordb_tpu_torch.ops.index_build import kpp_update_
 
 _ELEMS_BUDGET = 1 << 26  # cap on materialized [rows, K] f32 intermediates
 _SEG_ELEMS = 1 << 24     # rows x columns of one pass of segment_sums_
@@ -105,7 +106,8 @@ def _update(x: torch.Tensor, assign: torch.Tensor, k: int
     return (sums / torch.clamp(counts, min=1.0)[:, None]).float(), counts
 
 
-def _kpp_init(x: torch.Tensor, gen: torch.Generator, k: int) -> torch.Tensor:
+def _kpp_init(x: torch.Tensor, gen: torch.Generator, k: int,
+              stats: Optional[dict] = None) -> torch.Tensor:
     """k-means++ seeding: each next centroid drawn with probability
     proportional to its squared distance from the chosen set.
 
@@ -113,19 +115,34 @@ def _kpp_init(x: torch.Tensor, gen: torch.Generator, k: int) -> torch.Tensor:
     exponential variate per row from ``gen``, then the argmax of p / e),
     kept on the device: multinomial checks its input with a host sync on
     every call, and the cell-probe build seeds up to ~175k centroids.  The
-    same generator gives the same centroids as multinomial does."""
+    same generator gives the same centroids as multinomial does.  Each row
+    keeps the seed nearest it (``owner``), so a draw's distance update
+    (ops/index_build.py::kpp_update_) reads only the rows the new seed can
+    reach; every distance, the first seed's too, is summed in one fixed
+    order (ops/index_build.py::row_d2), on the card as on the CPU.
+    ``stats``, where given, receives ``kpp_rows_scanned`` (the row distances
+    the draws computed) and ``kpp_rows_total`` ((k - 1) n, the whole-sample
+    draws')."""
+    x = x.contiguous()
     n = x.shape[0]
     first = int(torch.randint(0, n, (1,), generator=gen, device=gen.device))
     cents = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
     cents[0] = x[first]
-    mind2 = torch.sum((x - x[first]) ** 2, dim=1)
+    mind2 = torch.full((n,), float("inf"), dtype=x.dtype, device=x.device)
+    owner = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    scanned = torch.zeros((), dtype=torch.int64, device=x.device)
+    # the first seed's distances: every row, not a draw's
+    kpp_update_(x, cents, 0, mind2, owner, torch.zeros_like(scanned))
     for i in range(1, k):
         w = torch.clamp(mind2, min=1e-20)
         p = w / w.sum()
         e = torch.empty_like(p).exponential_(1.0, generator=gen)
         pick = x.index_select(0, torch.argmax(p / e, dim=0, keepdim=True))
         cents[i:i + 1] = pick
-        mind2 = torch.minimum(mind2, torch.sum((x - pick) ** 2, dim=1))
+        kpp_update_(x, cents, i, mind2, owner, scanned)
+    if stats is not None:
+        stats.update(kpp_rows_scanned=int(scanned),
+                     kpp_rows_total=(k - 1) * n)
     return cents
 
 
@@ -169,15 +186,16 @@ def _lloyd(x: torch.Tensor, cents0: torch.Tensor, k: int, iters: int,
 
 
 def kmeans_seeds(x: torch.Tensor, seed: int, *, k: int,
-                 init: str = "random") -> torch.Tensor:
+                 init: str = "random",
+                 stats: Optional[dict] = None) -> torch.Tensor:
     """The k initial centroids of ``kmeans_fit``: k-means++ (``"kpp"``) or
     k distinct rows at random, drawn from a generator seeded with
-    ``seed``."""
+    ``seed``.  ``stats``: k-means++'s row counts (``_kpp_init``)."""
     n = x.shape[0]
     gen = torch.Generator(device=x.device)
     gen.manual_seed(int(seed))
     if init == "kpp":
-        return _kpp_init(x, gen, k)
+        return _kpp_init(x, gen, k, stats)
     if init != "random":
         raise ValueError(f"init must be 'random' or 'kpp', got {init!r}")
     if n < k:

@@ -102,7 +102,7 @@ class EPCellProbeIndex:
         # no hierarchy: the EP route is already sharded and from_cell_probe
         # drops the super route
         kw.setdefault("hierarchy", False)
-        base = CellProbeIndex.build(np.asarray(data), np.asarray(rows),
+        base = CellProbeIndex.build(data, np.asarray(rows),
                                     device=first_local(shard_devices(mesh)),
                                     **kw)
         return cls.from_cell_probe(base, mesh)

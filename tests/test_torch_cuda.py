@@ -1357,3 +1357,181 @@ def test_adc_bf16_kernel_at_the_largest_shapes(dev, m, k, t):
     lut = _bf16_lut(dev, 37, m, k, m * k + t)
     _check_bf16(ap.adc_pallas_scan(codes, lut, n_tiles=3, t_per_tile=t),
                 codes, lut, t)
+
+
+# --------------------------------------------- the cell-probe build's passes
+
+
+def _kpp_case(dev, n, d, kind, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((48, d))[rng.integers(0, 48, n)]
+         + 0.2 * rng.standard_normal((n, d))).astype(np.float32)
+    if kind == "dup":
+        x = x[rng.integers(0, min(40, n), n)]
+    if kind == "scaled":
+        x *= rng.uniform(1e-3, 1e3, (n, 1)).astype(np.float32)
+    return torch.from_numpy(x).to(dev)
+
+
+def _kpp_rows(x, offset):
+    """x's values in a contiguous tensor whose storage starts ``offset``
+    floats into its allocation (off 16 bytes where offset % 4)."""
+    n, d = x.shape
+    buf = torch.empty(n * d + offset, dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(n, d)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["plain", "dup", "scaled"])
+@pytest.mark.parametrize("n,d,offset", [
+    (20_000, 768, 0), (9_999, 130, 0), (5_000, 128, 0), (5_000, 127, 0),
+    (5_000, 100, 0), (5_000, 24, 0), (777, 1, 0), (16, 768, 0),
+    (10, 768, 0),       # fewer rows than a warp
+    (3_000, 768, 1),    # rows off 16 bytes: scalar loads, the same sums
+    (2_000, 9_000, 0),  # wider than any one pass of a lane
+])
+def test_kpp_update_kernel_is_the_whole_pass(dev, n, d, offset, kind):
+    """kpp_update_ over 40 draws from the first seed's pass: mind2 and
+    owners bit for bit those of the plain whole-sample pass on the card,
+    reading fewer rows once the seeds spread."""
+    from erlvectordb_tpu_torch.ops import index_build as ib
+
+    x = _kpp_rows(_kpp_case(dev, n, d, kind, n + d), offset)
+    cents = x[torch.from_numpy(np.random.default_rng(d).choice(
+        n, min(n, 40), replace=False)).to(dev)].contiguous()
+    state = []
+    ib.reset_launches()
+    for whole in (False, True):
+        mind2 = torch.full((n,), float("inf"), device=dev)
+        owner = torch.zeros(n, dtype=torch.int32, device=dev)
+        scanned = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(cents.shape[0]):
+            if whole:
+                ib.kpp_update_ref_(x, cents, i, mind2, owner, scanned, False)
+            else:
+                ib.kpp_update_(x, cents, i, mind2, owner, scanned)
+        state.append((mind2, owner, int(scanned)))
+    assert ib.kpp_update_.launches_by == {"pruned": cents.shape[0]}
+    assert torch.equal(state[0][0], state[1][0])
+    assert torch.equal(state[0][1], state[1][1])
+    assert state[0][2] <= state[1][2] == n * cents.shape[0]
+
+
+def test_kpp_update_refuses_what_it_cannot_sum(dev):
+    """On the card the update takes f32 contiguous rows and nothing else:
+    no other path takes over."""
+    from erlvectordb_tpu_torch.ops import index_build as ib
+
+    x = _kpp_case(dev, 64, 32, "plain", 1)
+    cents = x[:4].contiguous()
+    mind2 = torch.full((64,), float("inf"), device=dev)
+    owner = torch.zeros(64, dtype=torch.int32, device=dev)
+    scanned = torch.zeros((), dtype=torch.int64, device=dev)
+    for bad in (x.double(), x.t().contiguous().t(), x.half()):
+        with pytest.raises(ValueError, match="kpp_update_"):
+            ib.kpp_update_(bad, cents.to(bad.dtype), 1, mind2, owner,
+                           scanned)
+
+
+@pytest.mark.parametrize("n,k,d", [(6_000, 300, 768), (4_000, 250, 100),
+                                   (3_000, 200, 24), (300, 300, 768),
+                                   (12, 8, 768)])
+def test_kpp_seeding_on_the_card_is_the_whole_pass_seeding(dev, n, k, d):
+    """_kpp_init with the kernel gives the centroids of the seeding by
+    plain whole-sample passes, from the same generator."""
+    import erlvectordb_tpu_torch.ops.kmeans as km
+    from erlvectordb_tpu_torch.ops import index_build as ib
+
+    x = _kpp_case(dev, n, d, "plain", k + d)
+    g_old = torch.Generator(device=dev)
+    g_new = torch.Generator(device=dev)
+    g_old.manual_seed(9)
+    g_new.manual_seed(9)
+    stats = {}
+    got = km._kpp_init(x, g_new, k, stats)
+    first = int(torch.randint(0, n, (1,), generator=g_old, device=dev))
+    want = torch.zeros((k, d), device=dev)
+    want[0] = x[first]
+    mind2 = ib.row_d2(x, x[first])
+    for i in range(1, k):
+        w = torch.clamp(mind2, min=1e-20)
+        p = w / w.sum()
+        e = torch.empty_like(p).exponential_(1.0, generator=g_old)
+        pick = x.index_select(0, torch.argmax(p / e, dim=0, keepdim=True))
+        want[i:i + 1] = pick
+        mind2 = torch.minimum(mind2, ib.row_d2(x, pick[0]))
+    assert torch.equal(got, want)
+    assert stats["kpp_rows_scanned"] <= stats["kpp_rows_total"] == (k - 1) * n
+
+
+@pytest.mark.parametrize("d", [1, 3, 7, 8, 9, 24, 100, 127, 128, 129, 130,
+                               256, 300, 768, 1000, 4096, 8192, 8193, 12287,
+                               12288, 20000])
+def test_pairwise_norms_kernel_is_numpys(dev, d):
+    from erlvectordb_tpu_torch.ops import index_build as ib
+
+    rng = np.random.default_rng(d)
+    x = (rng.standard_normal((301, d))
+         * rng.uniform(1e-3, 1e3, (301, 1))).astype(np.float32)
+    x[3] = 0.0
+    ib.reset_launches()
+    got = ib.pairwise_norms(torch.from_numpy(x).to(dev)).cpu().numpy()
+    assert ib.pairwise_norms.launches == 1
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.linalg.norm(x, axis=1).view(np.int32))
+
+
+@pytest.mark.parametrize("d", [24, 100, 130, 768])
+def test_encode_on_the_card_is_the_numpy_encode(dev, d, monkeypatch):
+    """encode_cells on the card in chunks of 37 rows: codes, scales, norms,
+    valid and row map of the numpy encode of the whole array, an all-zero
+    row and a cell of zero residuals among them."""
+    from erlvectordb_tpu_torch.ops import index_build as ib
+
+    monkeypatch.setattr(ib, "_ENCODE_ELEMS", 37 * d)
+    rng = np.random.default_rng(d)
+    n, n_cells, cap = 900, 40, 32
+    data = (rng.standard_normal((n, d))
+            * rng.uniform(0.01, 30.0, (n, 1))).astype(np.float32)
+    cents = data[rng.choice(n, n_cells, replace=False)] + np.float32(0.01)
+    owner = np.repeat(np.arange(n_cells), cap)[rng.permutation(
+        n_cells * cap)[:n]]
+    data[owner == 2] = cents[2]
+    data[5] = 0.0
+    rows = rng.permutation(10 * n)[:n].astype(np.int64)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    got = [a.cpu().numpy() for a in ib.encode_cells(
+        t(data), t(rows), t(owner), t(cents), cap)]
+    order = np.argsort(owner, kind="stable")
+    oc = owner[order]
+    dest = oc * cap + (np.arange(n) - np.searchsorted(oc, np.arange(n_cells))[oc])
+    res = data[order] - cents[oc]
+    absmax = np.abs(res).max(axis=1)
+    scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+    codes = np.clip(np.round(res / scale[:, None]), -127, 127).astype(np.int8)
+    recon = cents[oc] + codes.astype(np.float32) * scale[:, None]
+    np.testing.assert_array_equal(got[0][dest], codes)
+    np.testing.assert_array_equal(got[1][dest], scale)
+    np.testing.assert_array_equal(got[2][dest], np.linalg.norm(recon, axis=1))
+    np.testing.assert_array_equal(got[4][dest], rows[order])
+    empty = np.setdiff1d(np.arange(n_cells * cap), dest)
+    assert (got[4][empty] == -1).all() and not got[3][empty].any()
+    assert got[3][dest].all() and (got[0][empty] == 0).all()
+    assert (got[1][empty] == 1).all() and (got[2][empty] == 0).all()
+
+
+def test_cell_probe_build_on_the_card_is_the_host_build(dev):
+    """CellProbeIndex.build from a card tensor and from a numpy array give
+    the same arrays."""
+    from erlvectordb_tpu_torch.core.cell_probe import CellProbeIndex
+
+    x = _kpp_case(dev, 6_000, 256, "plain", 4)
+    rows = np.arange(6_000, dtype=np.int64) * 3
+    kw = dict(cell_rows=24, cell_cap=32, iters=4, max_train=4_000, device=dev)
+    a = CellProbeIndex.build(x, rows, **kw)
+    b = CellProbeIndex.build(x.cpu().numpy(), rows, **kw)
+    for name in ("centroids", "codes", "scales", "norms", "valid"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    np.testing.assert_array_equal(a.row_map, b.row_map)
+    assert a.build_stats["kpp_rows_scanned"] < a.build_stats["kpp_rows_total"]

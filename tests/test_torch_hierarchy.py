@@ -12,8 +12,9 @@ The same hierarchical arrays loaded into the JAX package's
 
 The repaired build functions (k-means++ seeding without a host sync per
 centroid, the choice lists by a top-k selection, the straggler pass on the
-device with the greedy, the threaded host encode, the hierarchy's cell
-moves on the device, the row norms only where a layout scores with them)
+device with the greedy, the encode on the device in row chunks, the
+hierarchy's cell moves on the device, the row norms only where a layout
+scores with them)
 are each held bit for bit to the form they replace, kept here as the
 reference, on seeded inputs.
 """
@@ -29,8 +30,8 @@ import torch
 
 from erlvectordb_tpu.core.cell_probe import CellProbeIndex as JIndex
 import erlvectordb_tpu_torch.api as tapi
-import erlvectordb_tpu_torch.core.cell_probe as tcell
 import erlvectordb_tpu_torch.core.ivf as tivf
+import erlvectordb_tpu_torch.ops.index_build as tib
 import erlvectordb_tpu_torch.ops.kmeans as tkm
 from erlvectordb_tpu_torch.api import Database
 from erlvectordb_tpu_torch.core.cell_probe import CellProbeIndex
@@ -203,17 +204,18 @@ def test_jax_route_on_the_same_arrays(served, nprobe):
 
 def _kpp_multinomial(x, gen, k):
     """k-means++ seeding as it was: one torch.multinomial draw, read back
-    to the host, per centroid."""
+    to the host, per centroid (the distances summed in the seeding's own
+    order, ops/index_build.py::row_d2)."""
     n = x.shape[0]
     first = int(torch.randint(0, n, (1,), generator=gen, device=gen.device))
     cents = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
     cents[0] = x[first]
-    mind2 = torch.sum((x - x[first]) ** 2, dim=1)
+    mind2 = tib.row_d2(x, x[first])
     for i in range(1, k):
         w = torch.clamp(mind2, min=1e-20)
         idx = int(torch.multinomial(w / w.sum(), 1, generator=gen))
         cents[i] = x[idx]
-        mind2 = torch.minimum(mind2, torch.sum((x - x[idx]) ** 2, dim=1))
+        mind2 = torch.minimum(mind2, tib.row_d2(x, x[idx]))
     return cents
 
 
@@ -314,15 +316,18 @@ def test_greedy_and_stragglers_place_rows_as_before(monkeypatch, prefs,
 
 
 def test_encode_tasks_give_the_whole_array_encode(monkeypatch):
-    monkeypatch.setattr(tcell, "_ENCODE_ROWS", 37)
+    """The encode in row chunks (of 37 rows here) on tensors, against the
+    numpy encode of the whole array."""
+    monkeypatch.setattr(tib, "_ENCODE_ELEMS", 37 * 128)
     rng = np.random.default_rng(8)
     data = clustered(900, 128, seed=8)
     cents = data[rng.choice(900, 40, replace=False)] + 0.01
     owner = np.repeat(np.arange(40), 30)[rng.permutation(1200)[:900]]
     rows = rng.permutation(5000)[:900].astype(np.int64)
     cap = 32
-    codes, scales, norms, valid, row_map = tcell._encode_cells(
-        data, rows, owner, cents, cap)
+    t = torch.from_numpy
+    codes, scales, norms, valid, row_map = (a.numpy() for a in tib.encode_cells(
+        t(data), t(rows), t(owner), t(cents), cap))
     # the encode as it was, on whole arrays
     order = np.argsort(owner, kind="stable")
     oc = owner[order]
@@ -390,7 +395,7 @@ def test_ivf_scores_with_the_rows_norms():
     db.registry.adopt(VectorStore.from_matrix("n", data, metric="euclidean",
                                               device=CPU))
     mat, rows = IndexManager._store_matrix(db.registry.get("n"))
-    np.testing.assert_array_equal(mat, data)
+    np.testing.assert_array_equal(mat.numpy(), data)
     db.create_index("iv", "n", "ivf", {"n_cells": 16})
     assert db.build_index("iv")["built"]
     ivf = db.indexes._indexes["iv"].artifact["ivf"]
