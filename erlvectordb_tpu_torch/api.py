@@ -202,18 +202,18 @@ class Database:
         """``nprobe`` (int4r stores) switches to the sub-linear multiprobe
         search; ``recall_target`` picks the smallest calibrated nprobe
         meeting it (VectorStore.calibrate_nprobe; lazily calibrated on
-        first use)."""
-        st = self.any_store(store)
-        return st.search(query, k=k, metric=metric,
-                         **self._probe_kw(st, nprobe, recall_target))
+        first use).  A store without the layout raises ``ValueError``."""
+        return self.any_store(store).search(
+            query, k=k, metric=metric, nprobe=nprobe,
+            recall_target=recall_target)
 
     def search_batch(self, store: str, queries, k: int = 10,
                      metric: Optional[str] = None,
                      nprobe: Optional[int] = None,
                      recall_target: Optional[float] = None):
-        st = self.any_store(store)
-        return st.search_batch(queries, k=k, metric=metric,
-                               **self._probe_kw(st, nprobe, recall_target))
+        return self.any_store(store).search_batch(
+            queries, k=k, metric=metric, nprobe=nprobe,
+            recall_target=recall_target)
 
     def calibrate_store(self, store: str, queries=None, n_sample: int = 256,
                         k: int = 10, metric: Optional[str] = None,
@@ -224,31 +224,9 @@ class Database:
         data, core/calibration.exact_ground_truth) for an exact-mode curve
         whose recall_target guarantee is absolute; without it the curve is
         ceiling-relative."""
-        st = self.any_store(store)
-        self._check_nprobe(st)
-        return st.calibrate_nprobe(queries=queries, n_sample=n_sample, k=k,
-                                   metric=metric, ground_truth=ground_truth)
-
-    @classmethod
-    def _probe_kw(cls, st, nprobe, recall_target) -> dict:
-        kw = {}
-        if nprobe is not None:
-            cls._check_nprobe(st)
-            kw["nprobe"] = nprobe
-        if recall_target is not None:
-            cls._check_nprobe(st)
-            kw["recall_target"] = recall_target
-        return kw
-
-    @staticmethod
-    def _check_nprobe(st) -> None:
-        """Multiprobe search rides VectorStore's dispatch (which checks the
-        int4r layout itself); any other store class gets the domain error,
-        not a TypeError from its signature."""
-        if not isinstance(st, VectorStore):
-            raise ValueError(
-                "nprobe requires a local int4r store; distributed stores "
-                "do not support multiprobe")
+        return self.any_store(store).calibrate_nprobe(
+            queries=queries, n_sample=n_sample, k=k, metric=metric,
+            ground_truth=ground_truth)
 
     def delete(self, store: str, vector_id: str) -> bool:
         return self.any_store(store).delete(vector_id)

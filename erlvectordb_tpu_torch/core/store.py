@@ -331,6 +331,39 @@ def _implicit_ids(rows_np: np.ndarray) -> np.ndarray:
     return np.where(rows_np >= 0, rows_np.astype(str).astype(object), None)
 
 
+def _empty_columns(nq: int):
+    return (np.zeros((nq, 0), np.float32), np.zeros((nq, 0), np.int32), None)
+
+
+def column_hits(dists: np.ndarray, ids) -> List[List[Tuple[str, float]]]:
+    """Per query, the ``(id, distance)`` pairs of result columns, best
+    first: a query's hits end at its first non-finite distance (past the
+    valid rows) and skip a row without an id (deleted between the device
+    scan and the map)."""
+    if ids is None:
+        return [[] for _ in range(dists.shape[0])]
+    isfinite = math.isfinite
+    out = []
+    for irow, drow in zip(ids.tolist(), dists.tolist()):
+        hits = []
+        for vid, d in zip(irow, drow):
+            if not isfinite(d):
+                break
+            if vid is not None:
+                hits.append((vid, d))
+        out.append(hits)
+    return out
+
+
+def hits_from_columns(cols, metadata: dict) -> List[List[Tuple[str, Any, float]]]:
+    """``search_batch_complete``'s answer from ``search_batch_complete_raw``'s
+    columns: per query, ``(id, metadata, distance)`` (the caller holds the
+    store's read lock over ``metadata``)."""
+    dists, _rows, ids = cols
+    return [[(vid, metadata.get(vid, {}), d) for vid, d in hits]
+            for hits in column_hits(dists, ids)]
+
+
 @dataclass
 class SearchTicket:
     """In-flight search: results enqueued on the device, not yet read back.
@@ -1227,39 +1260,41 @@ class VectorStore:
 
     def search_batch_complete(self, t: SearchTicket
                               ) -> List[List[Tuple[str, Any, float]]]:
-        """Wait for a ticket's device results and map rows to ids/metadata."""
-        if t.kb == 0:
-            return [[] for _ in range(t.nq)]
-        dists_np, rows_np = self._readback(t)
-        with self._lock.read():
-            out = self._map_results(dists_np, rows_np, t.k, t.kb,
-                                    rows_are_orig=t.rows_are_orig,
-                                    dedup=self._spilled)
-        metrics.end("store.map", t.rid, t.t_read, t.nq)
-        return out
+        """Wait for a ticket's device results: per query, its hits as
+        ``(id, metadata, distance)``."""
+        return self._complete(t, lambda cols: hits_from_columns(
+            cols, self._metadata))
 
     def search_batch_complete_raw(self, t: SearchTicket):
         """Columnar completion: (distances [nq, kk] f32, rows [nq, kk] int32,
         ids [nq, kk] object-or-None), no per-hit tuples."""
+        return self._complete(t, lambda cols: cols)
+
+    def _complete(self, t: SearchTicket, form):
+        """Read a ticket back and map its rows to ids: the store's one map,
+        ``form`` applied to its columns under the read lock."""
         if t.kb == 0:
-            return (np.zeros((t.nq, 0), np.float32),
-                    np.zeros((t.nq, 0), np.int32), None)
+            return form(_empty_columns(t.nq))
         kk = min(2 * t.k if self._spilled else t.k, t.kb)
         dists_np, rows_np = self._readback(t)
         dists_np = dists_np[:, :kk]
         rows_np = rows_np[:, :kk]
         if self._spilled:
+            # dedup by row is dedup by id: a spilled store refuses targeted
+            # mutations and is streaming-built, so its rows come back as
+            # original rows (one row, one id) and a row without an id (-1)
+            # only with an infinite distance
             from erlvectordb_tpu_torch.ops.cell_probe import dedup_rows_topk
 
             dists_np, rows_np = dedup_rows_topk(dists_np, rows_np, t.k)
-        if t.rows_are_orig:
-            # streaming-built store: rows already ARE the implicit ids
-            ids = _implicit_ids(rows_np)
-        else:
-            with self._lock.read():
-                ids = self._ids_view()[rows_np]
+        with self._lock.read():
+            # rows_are_orig: a streaming-built store mapped slot -> original
+            # row on the device, so the rows already ARE the implicit ids
+            ids = (_implicit_ids(rows_np) if t.rows_are_orig
+                   else self._ids_view()[rows_np])
+            out = form((dists_np, rows_np, ids))
         metrics.end("store.map", t.rid, t.t_read, t.nq)
-        return dists_np, rows_np, ids
+        return out
 
     def _readback(self, t: SearchTicket):
         """One device->host copy per ticket, after the ticket's event, its
@@ -1275,36 +1310,6 @@ class VectorStore:
         metrics.inc("store.queries_total", t.nq)
         kb = t.kb
         return arr[:, :kb], np.ascontiguousarray(arr[:, kb:]).view(np.int32)
-
-    def _map_results(self, dists_np, rows_np, k, kb, rows_are_orig=False,
-                     dedup=False):
-        """Vectorized row->id mapping: one fancy-index into the columnar id
-        table + tolist().  ``dedup`` (spilled layouts) scans the over-fetched
-        columns, keeps each id's first (best) hit and caps output at k."""
-        kk = min(2 * k if dedup else k, kb)
-        if rows_are_orig:
-            ids_l = _implicit_ids(rows_np[:, :kk]).tolist()
-        else:
-            ids_l = self._ids_view()[rows_np[:, :kk]].tolist()
-        d_l = dists_np[:, :kk].tolist()
-        md = self._metadata
-        isfinite = math.isfinite
-        out: List[List[Tuple[str, Any, float]]] = []
-        for irow, drow in zip(ids_l, d_l):
-            hits = []
-            seen = set() if dedup else None
-            for vid, d in zip(irow, drow):
-                if not isfinite(d):
-                    break  # ran past the valid rows
-                if vid is None:
-                    continue  # row deleted between device scan and host map
-                if dedup:
-                    if vid in seen or len(hits) >= k:
-                        continue
-                    seen.add(vid)
-                hits.append((vid, md.get(vid, {}), d))
-            out.append(hits)
-        return out
 
     def _dispatch_locked(self, q, k, metric, fmask=None,
                          nprobe=None) -> SearchTicket:

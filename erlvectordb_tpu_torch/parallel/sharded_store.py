@@ -52,7 +52,6 @@ the counters ``store.search_total``, ``store.queries_total`` and
 from __future__ import annotations
 
 import itertools
-import math
 import threading
 import time
 from dataclasses import dataclass
@@ -67,6 +66,7 @@ from erlvectordb_tpu_torch.core.store import (
     DimensionMismatch,
     InvalidVector,
     SearchTicket,
+    _empty_columns,
     _next_pow2,
     _pad128,
     _pad_rows,
@@ -75,6 +75,7 @@ from erlvectordb_tpu_torch.core.store import (
     _scatter_delete,
     _scatter_insert_f32,
     _scatter_insert_int8,
+    hits_from_columns,
 )
 from erlvectordb_tpu_torch.ops import fused_topk as ft
 from erlvectordb_tpu_torch.ops.adc import topk_stable
@@ -127,6 +128,10 @@ def _new_buffers(dtype: str, cap: int, width: int, device) -> Dict[str, Any]:
         "norms": torch.zeros((cap,), dtype=torch.float32, device=device),
         "valid": torch.zeros((cap,), dtype=torch.bool, device=device),
     }
+
+
+NO_MULTIPROBE = ("nprobe requires a local int4r store; distributed stores "
+                 "do not support multiprobe")
 
 
 class ShardedVectorStore:
@@ -463,9 +468,11 @@ class ShardedVectorStore:
     # --------------------------------------------------------------- search
 
     def search(self, query, k: int = 10, metric: Optional[str] = None,
-               where: Optional[dict] = None):
+               where: Optional[dict] = None, nprobe: Optional[int] = None,
+               recall_target: Optional[float] = None):
         return self.search_batch(np.asarray(query, np.float32)[None, :], k,
-                                 metric, where)[0]
+                                 metric, where, nprobe=nprobe,
+                                 recall_target=recall_target)[0]
 
     def filter_mask(self, where: dict) -> np.ndarray:
         """[S, cap] slot mask for metadata equality predicates."""
@@ -481,19 +488,32 @@ class ShardedVectorStore:
         return mask
 
     def search_batch(self, queries, k: int = 10, metric: Optional[str] = None,
-                     where: Optional[dict] = None):
+                     where: Optional[dict] = None, nprobe: Optional[int] = None,
+                     recall_target: Optional[float] = None):
         return self.search_batch_complete(
-            self.search_batch_submit(queries, k, metric, where))
+            self.search_batch_submit(queries, k, metric, where, nprobe=nprobe,
+                                     recall_target=recall_target))
+
+    @staticmethod
+    def calibrate_nprobe(**_kw) -> dict:
+        """Multiprobe needs a local int4r store's cell layout."""
+        raise ValueError(NO_MULTIPROBE)
 
     def search_batch_submit(self, queries, k: int = 10,
                             metric: Optional[str] = None,
-                            where: Optional[dict] = None) -> ShardedTicket:
+                            where: Optional[dict] = None,
+                            nprobe: Optional[int] = None,
+                            recall_target: Optional[float] = None,
+                            ) -> ShardedTicket:
         """Enqueue a batched search without waiting for the device (see
         VectorStore.search_batch_submit): the scans of this process's
         shards are enqueued here, and the candidates' all-gather and merge
         run at completion.  Across processes every process completes its
         tickets in the order it submitted them (a ticket completed out of
-        that order raises ``comm.DistributedError``)."""
+        that order raises ``comm.DistributedError``).  ``nprobe`` and
+        ``recall_target`` are refused (``calibrate_nprobe``)."""
+        if nprobe is not None or recall_target is not None:
+            self.calibrate_nprobe()
         t0 = now_ns()
         seq = next(self._searches)
         metric = metric or self.metric
@@ -546,62 +566,35 @@ class ShardedVectorStore:
         metrics.inc("store.queries_total", t.nq)
         return dists, rows
 
-    @staticmethod
-    def _no_result(t: ShardedTicket) -> bool:
-        return t.kb == 0 or t.parts is None
-
     def search_batch_complete(self, t: ShardedTicket):
-        if self._no_result(t):
-            return [[] for _ in range(t.nq)]
-        dists_np, rows_np = self._readback(t)
-        with self._lock.read():
-            rows_np = self._remap_ticket_rows(rows_np, t)
-            out = self._map_results(dists_np, rows_np, t.k)
-        metrics.end("store.map", t.rid, t.t_read, t.nq)
-        return out
+        """Per query, its hits as ``(id, metadata, distance)``."""
+        return self._complete(t, lambda cols: hits_from_columns(
+            cols, self._metadata))
 
     def search_batch_complete_raw(self, t: ShardedTicket):
         """Columnar completion (see VectorStore.search_batch_complete_raw)."""
-        if self._no_result(t):
-            return (np.zeros((t.nq, 0), np.float32),
-                    np.zeros((t.nq, 0), np.int32), None)
+        return self._complete(t, lambda cols: cols)
+
+    def _complete(self, t: ShardedTicket, form):
+        """Merge a ticket's candidates and map its rows to ids: the store's
+        one map, ``form`` applied to its columns under the read lock."""
+        if t.kb == 0 or t.parts is None:
+            return form(_empty_columns(t.nq))
         kk = min(t.k, t.kb)
         dists_np, rows_np = self._readback(t)
         dists_np = dists_np[:, :kk]
-        rows_np = rows_np[:, :kk]
         with self._lock.read():
-            rows_now = self._remap_ticket_rows(rows_np, t)
-            ids = self._ids_view().reshape(-1)[rows_now]
+            # device rows encode shard * cap + local at the SUBMIT-time
+            # capacity; a concurrent insert may have grown _cap since, and
+            # the remapped rows are the ones returned (rows_np would decode
+            # wrongly against the current flat layout)
+            cap_t = t.shard_cap or self._cap
+            rows_np = rows_np[:, :kk]
+            if cap_t != self._cap:
+                rows_np = (rows_np // cap_t) * self._cap + rows_np % cap_t
+            ids = self._ids_view().reshape(-1)[rows_np]
+            out = form((dists_np, rows_np, ids))
         metrics.end("store.map", t.rid, t.t_read, t.nq)
-        # the remapped rows: after a concurrent grow, rows_np decodes wrongly
-        # against the current flat layout while ids came from rows_now
-        return dists_np, rows_now, ids
-
-    def _remap_ticket_rows(self, rows_np, t: ShardedTicket):
-        """Device rows encode shard * cap + local at the SUBMIT-time
-        capacity; a concurrent insert may have grown _cap since."""
-        cap_t = t.shard_cap or self._cap
-        if cap_t == self._cap:
-            return rows_np
-        return (rows_np // cap_t) * self._cap + rows_np % cap_t
-
-    def _map_results(self, dists_np, rows_np, k):
-        kk = min(k, rows_np.shape[1])
-        flat_ids = self._ids_view().reshape(-1)
-        ids_l = flat_ids[rows_np[:, :kk]].tolist()
-        d_l = dists_np[:, :kk].tolist()
-        md = self._metadata
-        isfinite = math.isfinite
-        out = []
-        for irow, drow in zip(ids_l, d_l):
-            hits = []
-            for vid, d in zip(irow, drow):
-                if not isfinite(d):
-                    break
-                if vid is None:
-                    continue
-                hits.append((vid, md.get(vid, {}), d))
-            out.append(hits)
         return out
 
     def _local_scan(self, bufs, q, metric, k, fused_nt):

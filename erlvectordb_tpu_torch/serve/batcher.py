@@ -33,9 +33,17 @@ completion_wait`` and ``batcher.delivery_wait`` (each hand-off queue, put
 to get) carry that id, as do the store's spans of its ticket.  A group
 (``submit_group``) is one request: its batch id is the request's own.
 
-Callers either block (``search``) or register a callback (``submit``) —
-the MCP server uses callbacks so one connection can pipeline thousands of
-in-flight requests without one thread each.
+Callers either block (``search``, ``search_group``) or register a callback
+(``submit``, ``submit_group``) — the MCP server uses callbacks so one
+connection can pipeline thousands of in-flight requests without one thread
+each.
+
+The batcher owns the served route (``_direct``): a request with
+``nprobe`` or ``recall_target`` (the sub-linear multiprobe path, whose
+point is to skip the window), or any request once the batcher is stopped,
+calls the store on the caller's thread and answers there; every other
+request rides a device batch.  The frontends decode, call the batcher and
+encode.
 """
 
 from __future__ import annotations
@@ -148,16 +156,41 @@ class QueryBatcher:
             self._deliver(p, None, err)
 
     def is_alive(self) -> bool:
-        return self._thread is not None and not self._stop.is_set()
+        """True until ``stop()``: requests ride device batches (a batcher
+        not yet started holds them until ``start()``)."""
+        return not self._stop.is_set()
+
+    def _direct(self, nprobe, recall_target) -> bool:
+        """The route: the store on the caller's thread, or a device batch."""
+        return (nprobe is not None or recall_target is not None
+                or not self.is_alive())
+
+    def _search_now(self, rid: int, store: str, queries, k, metric, where,
+                    nprobe, recall_target, raw: bool):
+        """The direct route: ``(answer, error)`` of a [B, D] batch, searched
+        on this thread under the request's id."""
+        try:
+            with metrics.bound(rid):
+                st = self._get_store(store)
+                t = st.search_batch_submit(queries, k=k, metric=metric,
+                                           where=where, nprobe=nprobe,
+                                           recall_target=recall_target)
+                return (st.search_batch_complete_raw(t) if raw
+                        else st.search_batch_complete(t)), None
+        except Exception as e:  # noqa: BLE001 — the caller's error
+            return None, e
 
     # ----------------------------------------------------------------- API
 
     def submit(self, store: str, query, k: int = 10,
                metric: Optional[str] = None, where: Optional[dict] = None,
-               callback: Optional[Callable] = None) -> Optional[_Pending]:
+               callback: Optional[Callable] = None,
+               nprobe: Optional[int] = None,
+               recall_target: Optional[float] = None) -> Optional[_Pending]:
         """Enqueue a search.  With ``callback``, it is invoked as
-        ``callback(result, error)`` on the completion thread; without one, a
-        waitable ``_Pending`` (with ``.event``) is returned."""
+        ``callback(result, error)`` on the delivery thread (on this thread
+        for the direct route); without one, a waitable ``_Pending`` (with
+        ``.event``) is returned."""
         p = _Pending(np.asarray(query, np.float32), cb=callback,
                      rid=metrics.current()[0] or metrics.new_id())
         if callback is None:
@@ -168,6 +201,12 @@ class QueryBatcher:
             # group and fail the whole batch's np.stack for every caller
             self._deliver(p, None, ValueError(
                 f"query must be 1-D, got shape {p.query.shape}"))
+            return p
+        if self._direct(nprobe, recall_target):
+            out, err = self._search_now(p.rid, store, p.query[None, :], k,
+                                        metric, where, nprobe, recall_target,
+                                        raw=False)
+            self._deliver(p, None if err else out[0], err)
             return p
         # dimension is part of the key so one malformed query cannot poison
         # a whole batch with a stacking error; filters batch with equal filters
@@ -196,14 +235,21 @@ class QueryBatcher:
 
     def submit_group(self, store: str, queries, k: int = 10,
                      metric: Optional[str] = None, where: Optional[dict] = None,
-                     callback: Callable = None, raw: bool = False) -> None:
+                     callback: Callable = None, raw: bool = False,
+                     nprobe: Optional[int] = None,
+                     recall_target: Optional[float] = None) -> None:
         """Dispatch a pre-batched [B, D] query matrix as ONE device batch
         through the same in-flight/completion pipeline.  ``callback`` gets
-        ``(list_of_per_query_results, error)`` on the completion thread —
-        or, with ``raw=True``, ``((dists, rows, ids) columns, error)``
-        without per-hit tuples (the binary serving encoding).
+        ``(list_of_per_query_results, error)`` on the delivery thread (on
+        this thread for the direct route) — or, with ``raw=True``,
+        ``((dists, rows, ids) columns, error)`` without per-hit tuples (the
+        binary serving encoding).
         This is the MCP ``search_vectors_batch`` fast path."""
         bid = metrics.current()[0] or metrics.new_id()
+        if self._direct(nprobe, recall_target):
+            callback(*self._search_now(bid, store, queries, k, metric, where,
+                                       nprobe, recall_target, raw))
+            return
         n = int(np.shape(queries)[0])
         t_d = now_ns()
         self._acquire_inflight()
@@ -225,18 +271,38 @@ class QueryBatcher:
 
     def search(self, store: str, query, k: int = 10,
                metric: Optional[str] = None, timeout: float = 300.0,
-               where: Optional[dict] = None):
-        """Blocking search that rides the next micro-batch."""
-        if self._thread is None:
-            # not started: degrade gracefully to a direct call
-            return self._get_store(store).search(query, k=k, metric=metric,
-                                                 where=where)
-        p = self.submit(store, query, k=k, metric=metric, where=where)
+               where: Optional[dict] = None, nprobe: Optional[int] = None,
+               recall_target: Optional[float] = None):
+        """Blocking ``submit``: one query's hits."""
+        p = self.submit(store, query, k=k, metric=metric, where=where,
+                        nprobe=nprobe, recall_target=recall_target)
         if not p.event.wait(timeout):
             raise TimeoutError("batched search timed out")
         if p.error is not None:
             raise p.error
         return p.result
+
+    def search_group(self, store: str, queries, k: int = 10,
+                     metric: Optional[str] = None,
+                     where: Optional[dict] = None, raw: bool = False,
+                     timeout: float = 300.0, nprobe: Optional[int] = None,
+                     recall_target: Optional[float] = None):
+        """Blocking ``submit_group``: the batch's hits, or its columns."""
+        done = threading.Event()
+        box: Dict[str, Any] = {}
+
+        def cb(out, err):
+            box["out"], box["err"] = out, err
+            done.set()
+
+        self.submit_group(store, queries, k=k, metric=metric, where=where,
+                          callback=cb, raw=raw, nprobe=nprobe,
+                          recall_target=recall_target)
+        if not done.wait(timeout):
+            raise TimeoutError("batched search timed out")
+        if box["err"] is not None:
+            raise box["err"]
+        return box["out"]
 
     # ----------------------------------------------------------------- loops
 

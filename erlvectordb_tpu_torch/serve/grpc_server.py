@@ -46,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 
+from erlvectordb_tpu_torch.serve import tools as tools_mod
 from erlvectordb_tpu_torch.utils.metrics import metrics, now_ns
 
 logger = logging.getLogger("evdb.grpc")
@@ -334,34 +335,15 @@ class GrpcServer:
 
     # ------------------------------------------------------------- search
 
-    def _where(self, filter_json: str):
-        return json.loads(filter_json) if filter_json else None
-
-    def _search_hits(self, request):
-        """One query through the shared batcher (blocking).  A request with
-        ``nprobe`` set takes the direct sub-linear multiprobe dispatch
-        instead — skipping the batching window IS the point of that path."""
-        q = np.asarray(request.vector, np.float32)
-        k = int(request.k or 10)
-        metric = request.metric or None
-        where = self._where(request.filter_json)
-        if request.nprobe or request.recall_target:
-            store = self.db.any_store(request.store)
-            self.db._check_nprobe(store)  # ValueError, not TypeError, for
-            kw = {}                       # distributed store classes
-            if request.nprobe:
-                kw["nprobe"] = int(request.nprobe)
-            if request.recall_target:
-                kw["recall_target"] = float(request.recall_target)
-            return store.search(q, k=k, metric=metric, where=where, **kw)
-        batcher = getattr(self.db, "batcher", None)
-        if batcher is not None and batcher.is_alive():
-            hits = batcher.search(request.store, q, k=k, metric=metric,
-                                  where=where)
-        else:
-            hits = self.db.any_store(request.store).search(
-                q, k=k, metric=metric, where=where)
-        return hits
+    def _search_kw(self, request) -> dict:
+        """A request's k, metric, filter and probe arguments; proto 3 reads
+        0 as unset, and the probe arguments pass the tools' validator."""
+        return dict(k=int(request.k or 10), metric=request.metric or None,
+                    where=(json.loads(request.filter_json)
+                           if request.filter_json else None),
+                    **tools_mod.probe_kwargs(
+                        {"nprobe": request.nprobe or None,
+                         "recall_target": request.recall_target or None}))
 
     def _hits_to_reply(self, hits, seq=0):
         pb = self.pb
@@ -375,7 +357,10 @@ class GrpcServer:
         self._auth(context, "Search")
         try:
             metrics.inc("grpc.searches")
-            return self._hits_to_reply(self._search_hits(request), request.seq)
+            hits = self.db.batcher.search(
+                request.store, np.asarray(request.vector, np.float32),
+                **self._search_kw(request))
+            return self._hits_to_reply(hits, request.seq)
         except Exception as e:  # noqa: BLE001
             self._abort(context, e)
 
@@ -393,39 +378,8 @@ class GrpcServer:
                                count)
                 metrics.record("grpc.decode", a.rid, 0, t_rows, now_ns(),
                                count)
-            k = int(request.k or 10)
-            metric = request.metric or None
-            where = self._where(request.filter_json)
-            batcher = getattr(self.db, "batcher", None)
-            if request.nprobe or request.recall_target:
-                batcher = None  # sub-linear path: direct, no batch window
-            if batcher is not None and batcher.is_alive():
-                done = threading.Event()
-                box = {}
-
-                def cb(cols, err):
-                    box["cols"], box["err"] = cols, err
-                    done.set()
-
-                batcher.submit_group(request.store, rows, k=k, metric=metric,
-                                     where=where, callback=cb, raw=True)
-                if not done.wait(300.0):
-                    raise TimeoutError("batched search timed out")
-                if box["err"] is not None:
-                    raise box["err"]
-                dists, _rows, ids = box["cols"]
-            else:
-                store = self.db.any_store(request.store)
-                if request.nprobe or request.recall_target:
-                    self.db._check_nprobe(store)
-                kw = {}
-                if request.nprobe:
-                    kw["nprobe"] = int(request.nprobe)
-                if request.recall_target:
-                    kw["recall_target"] = float(request.recall_target)
-                t = store.search_batch_submit(rows, k=k, metric=metric,
-                                              where=where, **kw)
-                dists, _rows, ids = store.search_batch_complete_raw(t)
+            dists, _rows, ids = self.db.batcher.search_group(
+                request.store, rows, raw=True, **self._search_kw(request))
             if a is not None:
                 call.t_encode = now_ns()
             kk = dists.shape[1] if dists.size else 0
@@ -445,29 +399,19 @@ class GrpcServer:
         out: "queue.Queue" = queue.Queue()
         SENTINEL = object()
         submitted = [0]
-        batcher = getattr(self.db, "batcher", None)
-        use_batcher = batcher is not None and batcher.is_alive()
 
         def pump():
             try:
                 for req in request_iterator:
-                    seq = req.seq
-                    if use_batcher and not req.nprobe \
-                            and not req.recall_target:
-                        q = np.asarray(req.vector, np.float32)
+                    def cb(hits, err, seq=req.seq):
+                        out.put((seq, hits, err))
 
-                        def cb(hits, err, seq=seq):
-                            out.put((seq, hits, err))
-
-                        batcher.submit(
-                            req.store, q, k=int(req.k or 10),
-                            metric=req.metric or None,
-                            where=self._where(req.filter_json), callback=cb)
-                    else:
-                        try:
-                            out.put((seq, self._search_hits(req), None))
-                        except Exception as e:  # noqa: BLE001
-                            out.put((seq, None, e))
+                    try:
+                        self.db.batcher.submit(
+                            req.store, np.asarray(req.vector, np.float32),
+                            callback=cb, **self._search_kw(req))
+                    except Exception as e:  # noqa: BLE001
+                        cb(None, e)
                     submitted[0] += 1
             finally:
                 out.put(SENTINEL)

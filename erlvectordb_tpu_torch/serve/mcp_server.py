@@ -332,14 +332,9 @@ class MCPServer:
                     f"Insufficient scope for tool {name!r} "
                     f"(requires {tools_mod.tool_scope(name)})",
                 )
-            if (
-                send is not None
-                and name in ("search_vectors", "search_vectors_batch")
-                and args.get("nprobe") is None  # sub-linear path: direct
-                and args.get("recall_target") is None
-                and self.db.batcher.is_alive()
-                and self._search_async(req_id, name, args, send)
-            ):
+            if (send is not None
+                    and name in ("search_vectors", "search_vectors_batch")
+                    and self._search_async(req_id, name, args, send)):
                 return _ASYNC
             call = getattr(self._conn, "call", None)
             if call is not None:
@@ -364,9 +359,10 @@ class MCPServer:
 
     def _search_async(self, req_id, name: str, args: dict, send) -> bool:
         """Pipeline a search through the batcher: the response is sent by the
-        completion callback while this connection's reader thread moves on to
-        the next request.  Returns False to fall back to the sync path (the
-        sync path then reports any argument errors)."""
+        delivery callback while this connection's reader thread moves on to
+        the next request (a request the batcher routes directly is answered
+        on this thread before the submit returns).  Returns False to fall
+        back to the sync path."""
 
         call = getattr(self._conn, "call", None)
 
@@ -388,30 +384,24 @@ class MCPServer:
 
         try:
             store = args["store"]
-            k = int(args.get("k", 10))
-            metric = args.get("metric")
-            where = args.get("filter")
+            kw = dict(k=int(args.get("k", 10)), metric=args.get("metric"),
+                      where=args.get("filter"),
+                      **tools_mod.probe_kwargs(args))
             if name == "search_vectors":
                 q = tools_mod.decode_query(args)
                 if call is not None:
                     call.parsed()
                 self.db.batcher.submit(
-                    store, q, k=k, metric=metric, where=where,
-                    callback=lambda hits, err: reply(tools_mod.format_hits,
-                                                     hits, err))
+                    store, q, callback=lambda hits, err: reply(
+                        tools_mod.format_hits, hits, err), **kw)
             else:
                 qs = tools_mod.decode_queries(args)
-                if args.get("encoding") == "b64":
-                    fmt, raw = tools_mod.format_batch_b64, True
-                elif args.get("compact"):
-                    fmt, raw = tools_mod.format_batch_columns, True
-                else:
-                    fmt, raw = tools_mod.format_batch, False
+                fmt, raw = tools_mod.batch_format(args)
                 if call is not None:
                     call.parsed()
                 self.db.batcher.submit_group(
-                    store, qs, k=k, metric=metric, where=where,
-                    callback=lambda res, err: reply(fmt, res, err), raw=raw)
+                    store, qs, callback=lambda res, err: reply(fmt, res, err),
+                    raw=raw, **kw)
             return True
         except (tools_mod.ToolError, KeyError, ValueError) as e:
             reply(None, None, e)

@@ -228,24 +228,12 @@ class RestServer:
                             and parts[4] == "search"):
                         if self._require("read") is None:
                             return
-                        store = outer.db.any_store(parts[3])  # 404 first
-                        kw = tools_mod.probe_kwargs(body)  # validated 400s
-                        if kw:
-                            # sub-linear latency path: direct dispatch IS
-                            # the point (no batching window) — mirrors the
-                            # MCP search_vectors tool (serve/tools.py)
-                            outer.db._check_nprobe(store)
-                            hits = store.search(
-                                body["vector"], k=int(body.get("k", 10)),
-                                metric=body.get("metric"),
-                                where=body.get("filter"), **kw)
-                        else:
-                            hits = outer.db.batcher.search(
-                                parts[3], body["vector"],
-                                k=int(body.get("k", 10)),
-                                metric=body.get("metric"),
-                                where=body.get("filter"),
-                            )
+                        hits = outer.db.batcher.search(
+                            parts[3], body["vector"],
+                            k=int(body.get("k", 10)),
+                            metric=body.get("metric"),
+                            where=body.get("filter"),
+                            **tools_mod.probe_kwargs(body))
                         return self._reply(200, {"results": [
                             {"id": vid, "metadata": meta, "distance": dist}
                             for vid, meta, dist in hits

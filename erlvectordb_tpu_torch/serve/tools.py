@@ -26,6 +26,8 @@ from typing import TYPE_CHECKING, Any, Dict, List, Set
 
 import numpy as np
 
+from erlvectordb_tpu_torch.core.store import column_hits
+
 if TYPE_CHECKING:  # avoid circular import: api.py imports serve.oauth
     from erlvectordb_tpu_torch.api import Database
 
@@ -90,29 +92,14 @@ def format_batch(results) -> dict:
 def format_batch_columns(cols) -> dict:
     """Compact JSON from raw result columns: parallel ids/distances arrays,
     no metadata, no per-hit tuples — cheap to encode at high QPS."""
-    import math
-
     dists, _rows, ids = cols
-    if ids is None or dists.size == 0:
-        empty = [[] for _ in range(dists.shape[0])]
-        return {"ids": empty, "distances": [list(r) for r in empty]}
-    finite = np.isfinite(dists)
-    if finite.all() and not (ids == None).any():  # noqa: E711 — elementwise
+    if ids is not None and np.isfinite(dists).all() \
+            and not (ids == None).any():  # noqa: E711 — elementwise
         return {"ids": ids.tolist(),
                 "distances": np.round(dists.astype(np.float64), 6).tolist()}
-    out_i, out_d = [], []
-    for irow, drow in zip(ids.tolist(), dists.tolist()):
-        ri, rd = [], []
-        for vid, d in zip(irow, drow):
-            if not math.isfinite(d):
-                break
-            if vid is None:
-                continue
-            ri.append(vid)
-            rd.append(round(d, 6))
-        out_i.append(ri)
-        out_d.append(rd)
-    return {"ids": out_i, "distances": out_d}
+    hits = column_hits(dists, ids)
+    return {"ids": [[vid for vid, _ in row] for row in hits],
+            "distances": [[round(d, 6) for _, d in row] for row in hits]}
 
 
 def format_batch_b64(cols) -> dict:
@@ -129,6 +116,16 @@ def format_batch_b64(cols) -> dict:
         "rows_b64": base64.b64encode(
             np.ascontiguousarray(rows, dtype="<i4").tobytes()).decode(),
     }
+
+
+def batch_format(args: Dict[str, Any]):
+    """``search_vectors_batch``'s encoder for its arguments, and whether it
+    reads raw columns."""
+    if args.get("encoding") == "b64":
+        return format_batch_b64, True
+    if args.get("compact"):
+        return format_batch_columns, True
+    return format_batch, False
 
 
 def _schema(name: str, description: str, scope: str, properties: dict,
@@ -473,43 +470,17 @@ def call_tool(db: "Database", name: str, args: Dict[str, Any]) -> Any:
         )
         return {"status": "ok", "store": args["store"], "id": args["id"]}
     if name == "search_vectors":
-        if (args.get("nprobe") is not None
-                or args.get("recall_target") is not None):
-            # the sub-linear latency path: a direct dispatch (no batching
-            # window) that reads only the probed cells
-            store = db.any_store(args["store"])
-            db._check_nprobe(store)
-            kw = probe_kwargs(args)
-            hits = store.search(
-                decode_query(args), k=int(args.get("k", 10)),
-                metric=args.get("metric"), where=args.get("filter"), **kw)
-            return format_hits(hits)
-        # concurrent protocol requests coalesce into one device batch
         hits = db.batcher.search(
             args["store"], decode_query(args), k=int(args.get("k", 10)),
             metric=args.get("metric"), where=args.get("filter"),
-        )
+            **probe_kwargs(args))
         return format_hits(hits)
     if name == "search_vectors_batch":
-        # synchronous fallback (the MCP server normally routes this through
-        # the batcher's async submit_group pipeline)
-        store = db.any_store(args["store"])
-        qs = decode_queries(args)
-        kw = dict(k=int(args.get("k", 10)), metric=args.get("metric"),
-                  where=args.get("filter"))
-        pk = probe_kwargs(args)
-        if pk:
-            db._check_nprobe(store)
-            kw.update(pk)
-        if args.get("encoding") == "b64":
-            cols = store.search_batch_complete_raw(
-                store.search_batch_submit(qs, **kw))
-            return format_batch_b64(cols)
-        if args.get("compact"):
-            cols = store.search_batch_complete_raw(
-                store.search_batch_submit(qs, **kw))
-            return format_batch_columns(cols)
-        return format_batch(store.search_batch(qs, **kw))
+        fmt, raw = batch_format(args)
+        return fmt(db.batcher.search_group(
+            args["store"], decode_queries(args), k=int(args.get("k", 10)),
+            metric=args.get("metric"), where=args.get("filter"), raw=raw,
+            **probe_kwargs(args)))
     if name == "delete_vector":
         ok = db.any_store(args["store"]).delete(args["id"])
         if not ok:

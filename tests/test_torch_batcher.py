@@ -167,3 +167,44 @@ def test_malformed_2d_query_rejected_alone(setup):
     for t in threads:
         t.join(timeout=30)
     assert results[1][0][0] == "v1" and results[2][0][0] == "v2"
+
+
+@pytest.mark.parametrize("call", ["submit", "submit_group"])
+def test_probe_request_answers_on_the_callers_thread(setup, call):
+    """A request with ``nprobe`` skips the window: on a running batcher it
+    is answered on the caller's thread before the submit returns, its store
+    spans carry its id, and it waits in no batcher queue."""
+    import time
+
+    from erlvectordb_tpu_torch.core.store import VectorStore
+
+    registry, batcher, _ = setup
+    rng = np.random.default_rng(5)
+    centres = rng.standard_normal((8, 16)).astype(np.float32)
+    data = (centres[rng.integers(0, 8, 2000)]
+            + 0.2 * rng.standard_normal((2000, 16))).astype(np.float32)
+    registry.adopt(VectorStore.from_matrix("r", data, dtype="int4r",
+                                           device=CPU))
+    assert batcher.is_alive()
+    seen = []
+
+    def cb(out, err):
+        seen.append((threading.get_ident(), out, err))
+
+    rid = metrics.new_id()
+    since = time.perf_counter()
+    with metrics.bound(rid):
+        if call == "submit":
+            batcher.submit("r", data[3], k=1, nprobe=4, callback=cb)
+        else:
+            batcher.submit_group("r", data[3:5], k=1, nprobe=4, callback=cb)
+    [(thread, out, err)] = seen
+    assert thread == threading.get_ident() and err is None
+    hits = out if call == "submit" else out[0]
+    assert hits[0][0] == "3"
+    spans = metrics.spans_between(since, time.perf_counter() + 1)
+    names = {s[0] for s in spans}
+    assert "batcher.queue_wait" not in names
+    assert "batcher.inflight_wait" not in names
+    assert {s[0] for s in spans if s[1] == rid} >= {
+        "store.submit", "store.readback", "store.map"}

@@ -356,7 +356,7 @@ class TestServingValidation:
         db.create_distributed_store("d", dim=16)
         db.insert_batch("d", ["a", "b"], data[:2])
         with pytest.raises(ValueError, match="distributed"):
-            db._check_nprobe(db.any_store("d"))
+            db.search("d", held[0], k=3, recall_target=0.9)
         with pytest.raises(ValueError, match="nprobe requires"):
             db.search("d", held[0], k=3, nprobe=4)
 

@@ -4,8 +4,8 @@ One seeded corpus (config 3's recipe: Gaussian centres, noise 0.35; 4,096
 rows x 100) fills an int8 cosine store and a float32 euclidean store in the
 JAX package's ``Application`` and in the port's (``device="cpu"``), both on
 the CPU.  The same queries then go through REST ``/search``, gRPC
-``SearchBatch`` and ``StreamSearch`` and MCP ``search_vectors_batch``
-(b64).  Between the packages the ids are equal and the distances agree to
+``Search``, ``SearchBatch`` and ``StreamSearch`` and MCP ``search_vectors``
+and ``search_vectors_batch`` (b64).  Between the packages the ids are equal and the distances agree to
 the tolerance of the store parity tests (tests/test_torch_store.py
 ``_assert_same_hits``: atol 1e-5, rtol 1e-6 cosine and 1e-5 euclidean; the
 packages sum the f32 rescoring in another order, so the distances are not
@@ -204,18 +204,14 @@ def grpc_stream(app, store, qs, pbm=pb):
             np.array([got[i][1] for i in range(len(qs))], np.float32))
 
 
-def rest_singles(app, store, qs):
-    """One REST /search per query from 4 client threads, so the batcher
-    coalesces them."""
-    tok = token(app)
+def singles(qs, ask):
+    """``ask(i)`` -> (ids, distances) of query i, one call per query from 4
+    client threads, so the batcher coalesces them."""
     out = [None] * len(qs)
 
     def run(lo):
         for i in range(lo, len(qs), 4):
-            status, body = http("POST", rest(app, f"/api/v1/stores/{store}/search"),
-                                {"vector": qs[i].tolist(), "k": K}, tok)
-            assert status == 200, body
-            out[i] = body["results"]
+            out[i] = ask(i)
 
     threads = [threading.Thread(target=run, args=(lo,)) for lo in range(4)]
     for t in threads:
@@ -223,8 +219,55 @@ def rest_singles(app, store, qs):
     for t in threads:
         t.join(120)
         assert not t.is_alive()
-    return (np.array([[h["id"] for h in r] for r in out]),
-            np.array([[h["distance"] for h in r] for r in out], np.float32))
+    return (np.array([r[0] for r in out]),
+            np.array([r[1] for r in out], np.float32))
+
+
+def rest_singles(app, store, qs):
+    tok = token(app)
+
+    def ask(i):
+        status, body = http("POST", rest(app, f"/api/v1/stores/{store}/search"),
+                            {"vector": qs[i].tolist(), "k": K}, tok)
+        assert status == 200, body
+        return ([h["id"] for h in body["results"]],
+                [h["distance"] for h in body["results"]])
+    return singles(qs, ask)
+
+
+def grpc_singles(app, store, qs):
+    """Unary gRPC ``Search``, one query a call."""
+    auth = [("authorization", f"Bearer {token(app)}")]
+    with channel(app) as ch:
+        call = ch.unary_unary("/evdb.ErlVectorDB/Search",
+                              request_serializer=pb.SearchRequest.SerializeToString,
+                              response_deserializer=pb.SearchReply.FromString)
+
+        def ask(i):
+            r = call(pb.SearchRequest(store=store, vector=qs[i].tolist(), k=K),
+                     timeout=120, metadata=auth)
+            return [h.id for h in r.hits], [h.distance for h in r.hits]
+        return singles(qs, ask)
+
+
+def mcp_singles(app, store, qs):
+    """MCP ``search_vectors`` with ``vector_b64``, one query a call (the
+    route of the single-query benchmark cell); a client a thread."""
+    mine, clients = threading.local(), []
+
+    def ask(i):
+        if not hasattr(mine, "client"):
+            mine.client = mcp_client(app)
+            clients.append(mine.client)
+        r = mine.client.tool("search_vectors", store=store,
+                             vector_b64=b64(qs[i]), k=K)
+        return ([h["id"] for h in r["results"]],
+                [h["distance"] for h in r["results"]])
+    try:
+        return singles(qs, ask)
+    finally:
+        for client in clients:
+            client.close()
 
 
 def in_process(app, store, qs):
@@ -241,8 +284,10 @@ def assert_cross_package(store, got, want):
     np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=rtol)
 
 
-FRONTENDS = {"rest_search": rest_singles, "grpc_search_batch": grpc_batch,
-             "grpc_stream_search": grpc_stream, "mcp_batch_b64": mcp_batch}
+FRONTENDS = {"rest_search": rest_singles, "grpc_search": grpc_singles,
+             "grpc_search_batch": grpc_batch,
+             "grpc_stream_search": grpc_stream, "mcp_search": mcp_singles,
+             "mcp_batch_b64": mcp_batch}
 # frontends whose answer is one batch of the whole query set: the port's
 # equals its in-process batch bit for bit
 WHOLE_BATCH = ("grpc_search_batch", "mcp_batch_b64")
@@ -251,7 +296,7 @@ WHOLE_BATCH = ("grpc_search_batch", "mcp_batch_b64")
 @pytest.mark.parametrize("store", sorted(STORES))
 @pytest.mark.parametrize("frontend", sorted(FRONTENDS))
 def test_frontends_answer_alike(apps, queries, frontend, store):
-    qs = queries[:32] if frontend in ("rest_search", "grpc_stream_search") else queries
+    qs = queries if frontend in WHOLE_BATCH else queries[:32]
     fn = FRONTENDS[frontend]
     got = fn(apps["torch"], store, qs)
     want = fn(apps["jax"], store, qs)
@@ -328,6 +373,47 @@ def test_health_reports_the_cpu(apps):
     assert dev["status"] == "healthy"
     assert dev["details"]["platform"] == "cpu"
     assert dev["details"]["device"] == "cpu"
+
+
+@pytest.mark.parametrize("frontend", ["rest", "grpc", "mcp"])
+def test_nprobe_on_a_distributed_store_is_a_clean_error(apps, corpus, frontend):
+    """``nprobe`` on a distributed store: each frontend's invalid-argument
+    answer with the store's message, not a crash."""
+    app = apps["torch"]
+    name = f"dist_np_{frontend}"
+    app.db.create_distributed_store(name, dim=DIM, dtype="int8")
+    try:
+        app.db.insert_batch(name, [str(i) for i in range(64)], corpus[:64])
+        q = corpus[0].tolist()
+        if frontend == "rest":
+            status, body = http("POST", rest(app, f"/api/v1/stores/{name}/search"),
+                                {"vector": q, "k": K, "nprobe": 4}, token(app))
+            assert status == 400
+            message = body["error"]
+        elif frontend == "grpc":
+            with channel(app) as ch:
+                call = ch.unary_unary("/evdb.ErlVectorDB/Search",
+                                      request_serializer=pb.SearchRequest.SerializeToString,
+                                      response_deserializer=pb.SearchReply.FromString)
+                with pytest.raises(grpc.RpcError) as ei:
+                    call(pb.SearchRequest(store=name, vector=q, k=K, nprobe=4),
+                         timeout=60,
+                         metadata=[("authorization", f"Bearer {token(app)}")])
+            assert ei.value.code() == grpc.StatusCode.INVALID_ARGUMENT
+            message = ei.value.details()
+        else:
+            client = mcp_client(app)
+            try:
+                with pytest.raises(torch_client.ClientError) as ei:
+                    client.tool("search_vectors", store=name, vector=q, k=K,
+                                nprobe=4)
+            finally:
+                client.close()
+            message = str(ei.value)
+            assert message.startswith("-32602: ")
+        assert "distributed stores do not support multiprobe" in message
+    finally:
+        app.db.delete_store(name)
 
 
 def test_cluster_verbs_and_rest_join_over_the_frontends(apps, corpus, queries):

@@ -824,7 +824,8 @@ class TestSpilledStore:
     @pytest.mark.parametrize("nprobe", [None, 8])
     def test_answers_dedup(self, spilled, nprobe):
         """Over-fetch 2k and keep each row's best hit: no id twice, k hits,
-        the query's own row first."""
+        the query's own row first; the tuples are the columns, row by row
+        (deduplicating by row is deduplicating by id)."""
         st, data = spilled
         res = st.search_batch(data[:16], k=10, nprobe=nprobe)
         for i, hits in enumerate(res):
@@ -835,6 +836,8 @@ class TestSpilledStore:
         assert ids.shape == (16, 10)
         for row in ids.tolist():
             assert len(set(row)) == len(row)
+        for hits, id_row, d_row in zip(res, ids.tolist(), d.tolist()):
+            assert [(h[0], h[2]) for h in hits] == list(zip(id_row, d_row))
 
     def test_targeted_mutations_refused(self, spilled):
         st, data = spilled
