@@ -17,10 +17,14 @@ per-request records and each distinct answer) to its standard output, and
 exits.  A closed standard input ends it at any step.
 
 The loop is open: each connection sends on a Poisson schedule of
-``rate_per_conn`` (conditioned on its count, ``rate_per_conn * seconds``
-requests) whether or not earlier requests were answered; latency is taken
-from the time the request was due, so a stall is charged to every request
-behind it, and the lateness of each send is recorded.
+``rate_per_conn`` whether or not earlier requests were answered; latency is
+taken from the time the request was due, so a stall is charged to every
+request behind it, and the lateness of each send is recorded.  The schedule
+is the same work for every seed (``spacings``): ``rate_per_conn * seconds``
+requests, and the same set of gaps between them, in an order drawn from the
+seed; the longest gap always closes the window, so the last request is due
+at the same time in every run and a sound server answers it inside the
+window.
 
 What a request is comes from its kind, ``requests/<kind>.py``, found by the
 name the traffic file gives: its transport (``grpc``, a unary call of its
@@ -53,6 +57,16 @@ def log(*a) -> None:
     print("[client]", *a, file=sys.stderr, flush=True)
 
 
+def spacings(n: int, seconds: float) -> np.ndarray:
+    """The ``n + 1`` gaps of ``n`` requests in a window of ``seconds``,
+    ascending: the midpoint quantiles of the exponential distribution,
+    scaled to fill the window: in any order, they stand for the spacings of
+    a Poisson process conditioned on its count.  The last and longest closes
+    the window."""
+    q = -np.log1p(-(np.arange(n + 1) + 0.5) / (n + 1))
+    return q * (seconds / q.sum())
+
+
 class Conn:
     """One connection's schedule, sends and replies."""
 
@@ -62,10 +76,12 @@ class Conn:
         traffic = job["traffic"]
         rng = np.random.default_rng([job["seed"], ci])
         seconds = job["seconds"]
-        # a Poisson process conditioned on its count: every seed offers the
-        # same number of requests, at times drawn from the seed
+        # every seed offers the same requests at the same gaps, in an order
+        # drawn from the seed; the draws are those the schedule took before,
+        # so the keys drawn after them are unchanged
         n = int(round(job["rate_per_conn"] * seconds))
-        self.due = np.sort(rng.uniform(0.0, seconds, n))
+        order = np.argsort(rng.uniform(0.0, seconds, n))
+        self.due = np.cumsum(spacings(n, seconds)[:-1][order])
         self.keys = np.asarray(self.kind.keys(
             traffic, ci, rng, queries.shape[0], self.capacity()))
         self.payloads = {int(key): self.kind.encode(

@@ -11,7 +11,9 @@ request kind (``requests/<kind>.py``) prepare what it addresses (an index,
 built over MCP's ``create_index`` and ``build_index``), warms the store's
 search at the traffic's batch sizes, and then has the clients connect and
 warm the served path with their own first requests.  The window starts when
-every client is ready.
+every client is ready.  Each step of set-up is timed as a phase, the first
+(``start``) from the process's start to the draw: the imports, the clients'
+start and the card's name read.
 """
 
 from __future__ import annotations
@@ -128,6 +130,7 @@ class Served:
     app: object = None
     store: object = None
     spans: object = None
+    prepare_stats: Optional[dict] = None
     phases: Dict[str, float] = field(default_factory=dict)
     lap: float = field(default_factory=time.perf_counter)
 
@@ -156,11 +159,14 @@ def client_job(srv: Served, traffic: dict, seconds: float) -> dict:
 
 def serve(cell: Cell, seed: int, device, trace: bool,
           clients: Optional[Clients] = None,
-          seconds: Optional[float] = None) -> Served:
+          seconds: Optional[float] = None,
+          t_start: Optional[float] = None) -> Served:
     """Draw the queries (and hand them to ``clients``, with their job for a
     window of ``seconds``), draw the corpus, start the Application, build
-    the store, let the request kind prepare its target (an index) and warm
-    the store's search."""
+    the store, let the request kind prepare its target (an index; what it
+    reports of that is kept as ``prepare_stats``) and warm the store's
+    search.  Given the process's start ``t_start``, the time up to the draw
+    is the phase ``start``."""
     from erlvectordb_tpu_torch.app import Application
 
     device = torch.device(device)
@@ -170,6 +176,8 @@ def serve(cell: Cell, seed: int, device, trace: bool,
     queries = corpus.draw(cfg, seed, device, corpus.QUERIES)
     srv = Served(cell, seed, device, kind, queries, queries.cpu().numpy(),
                  service_ports(), kind.target(cfg), lap=t_draw)
+    if t_start is not None:
+        srv.phases["start"] = t_draw - t_start
     if clients is not None:
         clients.feed(client_job(srv, traffic, seconds), client_groups(traffic),
                      srv.queries_np)
@@ -192,7 +200,8 @@ def serve(cell: Cell, seed: int, device, trace: bool,
     prepare = getattr(kind, "prepare", None)
     if prepare is not None:
         port = srv.ports["mcp_server"]
-        prepare(cfg, lambda name, args: mcp_call(port, name, args), log)
+        srv.prepare_stats = prepare(
+            cfg, lambda name, args: mcp_call(port, name, args), log)
         srv.mark("prepare")
     builder.warm(srv.store, cfg, traffic)
     srv.mark("warm_store")
@@ -272,7 +281,7 @@ def run(cell: Cell, seed: int, seconds: int, trace: bool, device,
     if clients is None:
         clients = Clients.spawn(traffic["processes"])
     try:
-        srv = serve(cell, seed, device, trace, clients, seconds)
+        srv = serve(cell, seed, device, trace, clients, seconds, t_start)
         win = measure(srv, traffic, seconds, trace, t_start, clients)
     finally:
         clients.stop()
@@ -328,8 +337,7 @@ def run(cell: Cell, seed: int, seconds: int, trace: bool, device,
         {k_: round(v, 4) for k_, v in phases.items()}))
     log(f"served rows {rows_served}; device memory peak {peak} bytes")
 
-    e2e = {"qps": qps, "setup_s": setup_s,
-           "recall_at_10": values.get("recall_at_10")}
+    e2e = end_to_end_values(kind, phases, qps, setup_s, values)
     result = {"correct": bool(ok), "attempted": int(len(recs)),
               "failed": failed}
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
@@ -337,7 +345,8 @@ def run(cell: Cell, seed: int, seconds: int, trace: bool, device,
                     if device.type == "cuda" else "cpu"),
            "count": 1, "memory_peak_bytes": int(peak)}
     if trace:
-        ctx = trace_context(cell, t0, t1, spans, hist, ctr, events)
+        ctx = trace_context(cell, t0, t1, spans, hist, ctr, events,
+                            srv.prepare_stats)
         result["metrics"] = read_metrics(cell.per_layer, ctx)
         if events is not None:
             dev["busy_s"] = ctx["busy_s"]
@@ -355,6 +364,18 @@ def run(cell: Cell, seed: int, seconds: int, trace: bool, device,
         f"check {name} = {v!r} (limit {op} {lim!r})"
         for name, v, op, lim in checks]
     return result
+
+
+def end_to_end_values(kind, phases: Dict[str, float], qps: float,
+                      setup_s: float, values: Dict[str, float]) -> dict:
+    """Every end-to-end metric the run has, by name: ``index_build_s``, the
+    ``prepare`` phase (MCP's ``create_index`` and ``build_index``, waited
+    for), only where the request kind prepares its target."""
+    e2e = {"qps": qps, "setup_s": setup_s,
+           "recall_at_10": values.get("recall_at_10")}
+    if getattr(kind, "prepare", None) is not None:
+        e2e["index_build_s"] = phases["prepare"]
+    return e2e
 
 
 def p50_by_part(recs: np.ndarray, seconds: float, parts: int) -> List[float]:
@@ -409,14 +430,16 @@ def _counter_delta(s0: dict, s1: dict) -> Dict[str, float]:
 
 
 def trace_context(cell: Cell, t0: float, t1: float, spans, hist, ctr,
-                  events) -> dict:
+                  events, prepare_stats: Optional[dict]) -> dict:
     """What the per-layer readers read: the window, the harness spans, the
-    program's counters and histograms over the window, the device trace."""
+    program's counters and histograms over the window, the device trace,
+    and what set-up's ``prepare`` reported (an index build's stats)."""
     from evdb_bench.devtrace import gaps, union
 
     ctx = {"cell": cell.name, "config": cell.config, "traffic": cell.traffic,
            "t0": t0, "t1": t1, "spans": spans, "hist": hist,
-           "counters": ctr, "device_events": None}
+           "counters": ctr, "device_events": None,
+           "prepare_stats": prepare_stats}
     if events is not None:
         ev = [(n, max(s, t0), min(e, t1)) for n, s, e in events
               if e > t0 and s < t1]

@@ -55,3 +55,10 @@ def int8_scan_roofline_pct(ctx: dict, kernel: str,
     bound = len(calls) * roofline.int8_scan_bound_s(
         cfg["rows"], cfg["dim"], nq, cfg["k"], per_row_bytes)
     return 100.0 * bound / sum(calls)
+
+
+def prepare_stat(ctx: dict, key: str) -> Optional[float]:
+    """The number ``key`` of what set-up's ``prepare`` reported (an index
+    build's ``stats.build``); None where it reported none."""
+    value = (ctx.get("prepare_stats") or {}).get(key)
+    return None if value is None else float(value)

@@ -22,8 +22,10 @@ def target(config: dict) -> str:
     return config["index"]["name"]
 
 
-def prepare(config: dict, mcp_call, log) -> None:
-    """Build the configuration's index over the store, as a user would."""
+def prepare(config: dict, mcp_call, log) -> dict:
+    """Build the configuration's index over the store, as a user would;
+    returns the build's phase seconds and counts (the reply's
+    ``stats.build``), which the ``index_*_s`` metrics read."""
     ix = config["index"]
     mcp_call("create_index", {"name": ix["name"], "store": config["name"],
                               "type": ix["type"],
@@ -31,8 +33,9 @@ def prepare(config: dict, mcp_call, log) -> None:
     info = mcp_call("build_index", {"name": ix["name"], "wait": True})
     if not info.get("built"):
         raise RuntimeError(f"index build failed: {info}")
-    log(f"index build: {info.get('build_seconds')} s, "
-        f"{json.dumps(info.get('stats', {}).get('build', {}))}")
+    build = info.get("stats", {}).get("build", {})
+    log(f"index build: {info.get('build_seconds')} s, {json.dumps(build)}")
+    return build
 
 
 def queries_per_request(traffic: dict) -> int:

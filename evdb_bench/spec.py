@@ -109,8 +109,10 @@ def request_kind(name: str, root: Path = ROOT) -> ModuleType:
     queries, key)`` (its bytes) and ``answers(traffic, key, reply,
     n_queries)`` (the reply's [(query, row ids, distances)]); and where it
     needs them ``prepare(config, mcp_call, log)`` (set-up on the server,
-    such as an index built) and ``numbers(answers, queries, data, config,
-    seed)`` (its own comparison, in place of ``judge.numbers``)."""
+    such as an index built; returns what it reports of that, a dict of
+    numbers such as the build's phase seconds, or None) and
+    ``numbers(answers, queries, data, config, seed)`` (its own comparison,
+    in place of ``judge.numbers``)."""
     return plugin("requests", name, root)
 
 

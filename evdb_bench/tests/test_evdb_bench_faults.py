@@ -103,7 +103,8 @@ def test_a_broken_store_path_is_not_correct(monkeypatch, fault, cell):
 def test_sound_and_broken_index_runs():
     r = tiny_run("cohere1m.mcp_index", rows=8192, queries=200, rate=40.0,
                  trace=True)
-    assert set(r["metrics"]) == {"index_search_ms.single"}
+    assert set(r["metrics"]) == {"index_search_ms.single", "index_kpp_s",
+                                 "index_lloyd_s", "index_assign_s"}
     assert r["checks"]["dist_err"]["value"] < r["checks"]["dist_err"]["max"]
     mp = pytest.MonkeyPatch()
     try:
@@ -114,6 +115,8 @@ def test_sound_and_broken_index_runs():
         mp.undo()
     assert bad["checks"]["dist_err"]["value"] > bad["checks"]["dist_err"]["max"]
     assert not bad["correct"]
+    assert set(bad["metrics"]) == {"qps", "setup_s", "recall_at_10",
+                                   "index_build_s"}
 
 
 def test_the_import_guard_compares_whole_top_level_names(monkeypatch):

@@ -134,3 +134,22 @@ def test_readers_on_a_known_trace():
     assert read("index_search_ms.single") is None
     ctx["device_events"] = None
     assert read("device_idle_pct.single") is None
+
+
+@pytest.mark.parametrize("name,key", [("index_kpp_s", "kpp_s"),
+                                      ("index_lloyd_s", "lloyd_s"),
+                                      ("index_assign_s", "assign_s")])
+def test_index_build_readers_read_the_build_stats(name, key):
+    """Each reads its phase of the build's stats, and nothing without
+    them."""
+    read = spec.reader(name)
+    ctx = ctx_with([], Spans())
+    assert read(ctx) is None
+    ctx["prepare_stats"] = None
+    assert read(ctx) is None
+    ctx["prepare_stats"] = {"cells": 10417}
+    assert read(ctx) is None
+    stats = {"kpp_s": 2.2762, "lloyd_s": 1.9613, "assign_s": 0.7967,
+             "cells": 10417}
+    ctx["prepare_stats"] = stats
+    assert read(ctx) == stats[key]

@@ -66,12 +66,69 @@ def test_names_units_and_limits(bench):
 
 def test_configurations_keep_their_source_shapes(bench):
     want = {"glove100_int8": (1183514, 100, 10000),
-            "cohere1m_int8": (1000000, 768, 1000)}
+            "cohere1m_int8": (1000000, 768, 1000),
+            "cohere10m_int8": (10000000, 768, 1000)}
     for c in bench["configs"]:
         cfg = spec.load_json(spec.ROOT / c["file"])
         assert (cfg["rows"], cfg["dim"], cfg["test_queries"]) == want[c["name"]]
         assert cfg["reduced"] == c["reduced"] == []
         assert cfg["assumed"]
+
+
+KINDS = sorted(p.stem for p in (spec.HERE / "requests").glob("*.py"))
+
+LOAD_KIND = """
+import sys
+from evdb_bench import client, spec
+spec.request_kind(sys.argv[1])
+print(sorted({m.split(".")[0] for m in sys.modules}
+             & {"torch", "erlvectordb_tpu_torch", "jax"}))
+"""
+
+
+@pytest.mark.parametrize("name", KINDS)
+def test_a_client_loads_its_request_kind_without_torch(name):
+    """A client process loads its request kind to encode; in a fresh
+    interpreter that leaves torch, the port and JAX unloaded, so a
+    client's start costs no import of them on its core."""
+    env = {**os.environ, "PYTHONPATH": str(spec.ROOT)}
+    p = subprocess.run([sys.executable, "-c", LOAD_KIND, name],
+                       cwd=spec.ROOT, env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert p.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("name", KINDS)
+def test_index_build_s_is_the_prepare_phase_of_kinds_that_prepare(name):
+    """``index_build_s`` is the ``prepare`` phase, read only where the
+    request kind prepares its target; the other metrics as given."""
+    from evdb_bench.harness import end_to_end_values
+
+    kind = spec.request_kind(name)
+    phases = {"start": 7.5, "draw_and_app": 1.25, "store": 0.5,
+              "prepare": 5.125, "warm_store": 0.75}
+    if not hasattr(kind, "prepare"):
+        del phases["prepare"]
+    e2e = end_to_end_values(kind, phases, 60.0, 16.0,
+                            {"recall_at_10": 0.97})
+    assert e2e["qps"] == 60.0 and e2e["setup_s"] == 16.0
+    assert e2e["recall_at_10"] == 0.97
+    if hasattr(kind, "prepare"):
+        assert e2e["index_build_s"] == 5.125
+    else:
+        assert "index_build_s" not in e2e
+
+
+def test_index_build_s_is_reported_in_the_index_cell_alone(bench):
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    assert e2e["index_build_s"]["workloads"] == ["cohere1m.mcp_index"]
+    for w in bench["workloads"]:
+        c = spec.cell(w["name"], bench=bench)
+        prepares = hasattr(spec.request_kind(c.traffic["request"]),
+                           "prepare")
+        assert prepares == ("index_build_s" in
+                            {m.name for m in c.end_to_end})
 
 
 def test_added_files_are_found_by_name(tmp_path, bench):

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from evdb_bench import corpus, harness, spec
-from evdb_bench.client import Conn
+from evdb_bench.client import Conn, spacings
 from evdb_bench.wire import mcp_request, pb_field
 
 BATCH = spec.request_kind("grpc_search_batch")
@@ -39,6 +39,20 @@ def test_open_loop_schedule_is_poisson_and_seeded():
     gaps = np.diff(a.due)
     assert len(a.due) == 500 * 20 == len(c.due)      # the offered count
     assert abs(gaps.std() / gaps.mean() - 1) < 0.1  # exponential gaps
+
+
+def test_every_seed_offers_the_same_gaps_and_the_same_last_request():
+    runs = [Conn(job(seed=SEED + i), ci, queries())
+            for i in range(3) for ci in range(2)]
+    gaps = [np.diff(np.concatenate([[0.0], c.due, [20.0]])) for c in runs]
+    fixed = spacings(500 * 20, 20)
+    for g in gaps:
+        assert np.allclose(np.sort(g), fixed)       # the same set of gaps
+        assert g[-1] == pytest.approx(fixed.max())  # the longest one last
+    for c in runs:                                  # due at the same time
+        assert c.due[-1] == pytest.approx(20 - fixed[-1], abs=1e-9)
+    assert not np.array_equal(gaps[0][:50], gaps[2][:50])   # in other orders
+    assert fixed.sum() == pytest.approx(20) and np.all(np.diff(fixed) > 0)
 
 
 def test_batch_requests_take_the_fixed_batches_in_turn():
